@@ -5,7 +5,10 @@ Run:  PYTHONPATH=src python examples/swe_simulation_torch.py [--elements 2000]
       (add --device cpu to run the plain PyTorch path on the CPU)
 
 Simulates tidal flow in a synthetic bight over ``--partitions`` ranks with
-the ACCL-X halo exchange and reports the step time and mass conservation.
+the ACCL-X halo exchange and reports the step time and mass conservation,
+then the Eq. 2/3 scalability model for the paper's configurations on the
+H100's constants.  ``--comm auto`` takes the halo exchange's config from the
+TuneDB that ``python -m repro_torch.tune.sweep`` wrote for this device.
 """
 import argparse
 import time
@@ -13,7 +16,9 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.config import BASELINE_CONFIG, OVERLAPPED_CONFIG, CommConfig
+from repro_torch.core import latmodel
+from repro_torch.core.config import (BASELINE_CONFIG, H100, OVERLAPPED_CONFIG,
+                                     CommConfig)
 from repro_torch.core.topology import TorusSpec
 from repro_torch.swe import driver
 
@@ -24,10 +29,20 @@ def main():
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--partitions", type=int, default=8)
     ap.add_argument("--comm", default="streaming",
-                    choices=("streaming", "overlapped", "baseline"),
+                    choices=("streaming", "overlapped", "baseline", "auto"),
                     help="halo-exchange config: the paper's streaming/baseline"
-                         " constants, or 'overlapped' = exchange on a second"
-                         " stream with the interior/boundary split")
+                         " constants, 'overlapped' = exchange on a second"
+                         " stream with the interior/boundary split, or 'auto'"
+                         " = pick from the TuneDB sweep (python -m "
+                         "repro_torch.tune.sweep)")
+    ap.add_argument("--objective", default="latency",
+                    choices=("latency", "e2e"),
+                    help="with --comm auto: rank TuneDB entries by bare "
+                         "exchange latency or by the measured halo-fold "
+                         "consumer loop (sweep with --objective e2e first)")
+    ap.add_argument("--tune-db", default=None,
+                    help="TuneDB path for --comm auto (default "
+                         "$REPRO_TUNE_DB or .repro_tune/tunedb.json)")
     ap.add_argument("--topology", default=None,
                     help="place the partitions on a virtual torus, e.g. "
                          "'2x4' or '2x4:snake' (rows x cols = partitions); "
@@ -38,10 +53,12 @@ def main():
     args = ap.parse_args()
 
     cfg = {"streaming": CommConfig(), "overlapped": OVERLAPPED_CONFIG,
-           "baseline": BASELINE_CONFIG}[args.comm]
+           "baseline": BASELINE_CONFIG, "auto": "auto"}[args.comm]
     topology = TorusSpec.parse(args.topology) if args.topology else None
     sim = driver.build_simulation(args.elements, args.partitions, cfg,
-                                  topology=topology, device=args.device)
+                                  topology=topology, device=args.device,
+                                  tune_db_path=args.tune_db,
+                                  objective=args.objective)
     dev = sim.device
     print(f"comm config ({args.comm}): {sim.comm_cfg}")
     print(f"mesh: {sim.mesh.n_elements} elements over {args.partitions} "
@@ -59,7 +76,10 @@ def main():
 
     m0 = mass(sim.state)
     n_inner = 20
-    if args.comm == "baseline":
+    if sim.round_cfgs is not None:
+        print(f"per-round configs: {len(set(sim.round_cfgs))} distinct over "
+              f"{len(sim.round_cfgs)} rounds")
+    if sim.comm_cfg.scheduling.value == "host":
         runner = driver.make_host_scheduled_runner(sim)
         sync()
         t0 = time.perf_counter()
@@ -84,6 +104,20 @@ def main():
     print(f"ran {args.steps} steps, {us:.1f} us/step on {name}")
     print(f"mass conservation: {m0:.6f} -> {m1:.6f} "
           f"(drift {(m1 - m0) / m0:.2e})")
+
+    # Eq. 2/3 model (with the overlap term) on the H100's constants
+    w = driver.build_workload(sim)
+    n = args.partitions
+    print("\nEq.2/3 model + overlap term (this partitioning, H100 "
+          "constants):")
+    for label, c in (("MPI+PCIe baseline", BASELINE_CONFIG),
+                     ("ACCL-X streaming", CommConfig()),
+                     ("ACCL-X overlapped", OVERLAPPED_CONFIG)):
+        thr = latmodel.eq2_throughput_overlap(w, c, H100) * n
+        stall = latmodel.stall_fraction_overlap(w, c, H100)
+        print(f"  {label:20s}: {thr/1e9:8.2f} GFLOP/s "
+              f"(pipeline stall {stall*100:.0f}%, "
+              f"overlap {latmodel.overlap_fraction(c)*100:.0f}%)")
 
 
 if __name__ == "__main__":

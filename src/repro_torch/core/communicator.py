@@ -63,12 +63,33 @@ class Communicator:
         """Rank of every row of the stacked rank dimension: ``arange(size)``."""
         return torch.arange(self.size, device=device)
 
+    def auto_config(self, collective: str, msg_bytes: int, db_path=None,
+                    hops: int | None = None, objective: str = "latency",
+                    device=None):
+        """Autotuned ``CommConfig`` for a collective this communicator will
+        run (host-side; consults the persistent TuneDB keyed by THIS
+        communicator's size and ``device``'s platform — ``OPTIMIZED_CONFIG``
+        on a cold cache).  ``hops`` defaults to this communicator's ring
+        pattern (placement-aware when a torus spec is attached, in which
+        case measurements on the same placement are preferred)."""
+        from repro_torch.tune import select_config, topology_key
+        if hops is None:
+            hops = self.max_hops(self.ring_perm())
+        return select_config(collective, msg_bytes, path=db_path,
+                             topo=topology_key(self.size, device),
+                             hops=hops, objective=objective,
+                             torus=self.topo.name if self.topo else "")
+
     # ------------------------------------------------------------------
     # Topology helpers (static, host-side)
     # ------------------------------------------------------------------
     def ring_perm(self, step: int = 1) -> list[tuple[int, int]]:
         from repro_torch.core import plans
         return list(plans.ring_perm(self.size, step))
+
+    def reverse_ring_perm(self, step: int = 1) -> list[tuple[int, int]]:
+        from repro_torch.core import plans
+        return list(plans.ring_perm(self.size, -step))
 
     def neighbor_perms(self, edges: Sequence[Tuple[int, int]]) -> list[tuple[int, int]]:
         """Validate an explicit point-to-point pattern of (src, dst) pairs:

@@ -147,3 +147,50 @@ MINIMAL_CONFIG = CommConfig(
     enable_compression_plugin=False,
     enable_arithmetic_plugin=False,
 )
+
+
+# Eq. 1 wire constants of one H100 (NVIDIA H100 80GB HBM3, 700 W power
+# limit), fitted by ``tune.calibrate.fit_latency_model`` on the card's
+# sendrecv sweeps (8 ranks, FULL_SIZES, every candidate):
+# - the per-hop latency on the 2x4-torus sweep at hop distances 1, 2, 3
+#   (``python -m repro_torch.tune.sweep --collectives sendrecv --topology 2x4
+#   --hop-distances 1,2,3 --calibrate``, 384 points);
+# - the rest on the flat sweep (``python -m repro_torch.tune.sweep
+#   --calibrate``, 128 points, its one hop distance priced at the above).
+# The fits are poor (rms relative error 1.75 and 3.17): Eq. 1 charges one
+# link latency to every message, while on one card a graph-replayed permute
+# takes ~10 us and a host-synchronized one ~200 us.
+WIRE_BW = 33.91e9            # B/s
+WIRE_LATENCY = 8.79e-6       # s
+WIRE_HOP_LATENCY = 53.49e-6  # s
+HOST_DISPATCH = 65.2e-6      # s
+FUSED_DISPATCH = 0.519e-6    # s
+
+
+@dataclasses.dataclass(frozen=True)
+class HardwareSpec:
+    """Roofline and wire constants of the card the port runs on (Eq. 1-3).
+
+    The defaults describe one NVIDIA H100 SXM5 80 GB.  The compute and
+    memory figures are NVIDIA's data-sheet values.  The ``ici_*`` and
+    dispatch fields describe the port's "wire" — a permute of the stacked
+    rank dimension in device memory — and are the fitted constants above.
+    Of the JAX spec's fields, this one keeps those the latency model reads:
+    the cross-card (``dcn_*``) and memory-size fields come with the slices
+    that read them.
+    The paper's equivalents: link peak 12.5 GB/s (100 Gb/s QSFP),
+    global-memory copy bandwidth 14 GB/s, XRT kernel launch l_k = 30 us.
+    """
+    name: str = "h100-sxm"
+    peak_flops: float = 989e12          # dense bf16 FLOP/s (data sheet)
+    hbm_bw: float = 3.35e12             # B/s HBM3 (data sheet)
+    ici_bw: float = WIRE_BW             # B/s of a rank permute (fitted)
+    ici_latency: float = WIRE_LATENCY   # s per message (fitted)
+    # s per extra virtual-torus hop: one more routed permute (fitted)
+    ici_hop_latency: float = WIRE_HOP_LATENCY
+    # Command scheduling costs (the paper's l_k), fitted:
+    host_dispatch: float = HOST_DISPATCH    # s per eager op + host sync
+    fused_dispatch: float = FUSED_DISPATCH  # s per op replayed in a graph
+
+
+H100 = HardwareSpec()

@@ -1,8 +1,16 @@
-"""ACCL-X compression plugin (PyTorch port).
+"""ACCL-X plugins — compression and arithmetic (PyTorch port).
 
-A per-block int8 (or bf16-cast) wire format for point-to-point transfers:
-4x (int8) or 2x (bf16) fewer bytes on the wire.  Disabling the plugin in
-:class:`~repro_torch.core.config.CommConfig` removes it ("ACCL minimal").
+- **compression plugin** — a per-block int8 (or bf16-cast) wire format for
+  point-to-point transfers and the ring collectives: 4x (int8) or 2x (bf16)
+  fewer bytes on the wire.  The int8 encode and decode are the CUDA kernels
+  of :mod:`repro_torch.kernels.quant` on the card and their plain PyTorch
+  version on CPU tensors.
+- **arithmetic plugin** — the reduction-operator table of the reduce-style
+  collectives (sum/max/min/prod, with fp32 accumulation for low-precision
+  sums).
+
+Disabling a plugin in :class:`~repro_torch.core.config.CommConfig` removes
+it ("ACCL minimal").
 
 Every function takes stacked-rank tensors ``(P, ...)``: quantization blocks
 are cut from each rank's own flattened message, exactly as the JAX package
@@ -10,41 +18,16 @@ quantizes each rank's local chunk, and never run across the rank dimension.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.config import CommConfig, Compression
+from repro_torch.kernels.quant import ops as quant_ops
 
-
-def quantize_int8(x: torch.Tensor, block: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-rank, per-block symmetric int8 quantization of ``x (P, ...)``.
-
-    Returns ``q`` int8 ``(P, nblocks, block)`` and ``scales`` f32
-    ``(P, nblocks, 1)``; each rank's message is zero-padded to a block
-    multiple on its own."""
-    flat = x.reshape(x.shape[0], -1)
-    pad = (-flat.shape[1]) % block
-    if pad:
-        flat = F.pad(flat, (0, pad))
-    blocks = flat.reshape(x.shape[0], -1, block).to(torch.float32)
-    amax = blocks.abs().amax(dim=2, keepdim=True)
-    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
-    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
-    return q, scale
-
-
-def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, shape,
-                    dtype) -> torch.Tensor:
-    """Inverse of :func:`quantize_int8` for a stacked message of ``shape``."""
-    flat = (q.to(torch.float32) * scale).reshape(q.shape[0], -1)
-    n = 1
-    for s in shape[1:]:
-        n *= s
-    return flat[:, :n].reshape(shape).to(dtype)
-
+# ----------------------------------------------------------------------
+# Compression plugin: the wire formats
+# ----------------------------------------------------------------------
 
 def wire_encode(x: torch.Tensor, cfg: CommConfig):
     """Encode a stacked message for the wire per the comm config.
@@ -60,7 +43,39 @@ def wire_encode(x: torch.Tensor, cfg: CommConfig):
         orig = x.dtype
         return x.to(torch.bfloat16), lambda p: p.to(orig)
     if cfg.compression == Compression.INT8:
-        q, s = quantize_int8(x, cfg.quant_block)
+        # codes int8 (P, nblocks, block), scales f32 (P, nblocks, 1)
+        q, s = quant_ops.quantize(x, cfg.quant_block)
         shape, dtype = tuple(x.shape), x.dtype
-        return (q, s), lambda p: dequantize_int8(p[0], p[1], shape, dtype)
+        return (q, s), lambda p: quant_ops.dequantize(p[0], p[1], shape,
+                                                      dtype)
     raise ValueError(f"unknown compression {cfg.compression}")
+
+
+# ----------------------------------------------------------------------
+# Arithmetic plugin: reduction-operator table
+# ----------------------------------------------------------------------
+
+def _acc_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    # fp32 accumulation for low-precision inputs
+    if a.dtype in (torch.bfloat16, torch.float16):
+        return (a.to(torch.float32) + b.to(torch.float32)).to(a.dtype)
+    return a + b
+
+
+_REDUCE_OPS: dict[str, Callable] = {
+    "sum": _acc_sum,
+    "max": torch.maximum,
+    "min": torch.minimum,
+    "prod": torch.mul,
+}
+
+
+def reduce_op(name: str, cfg: CommConfig) -> Callable:
+    if not cfg.enable_arithmetic_plugin:
+        raise ValueError(
+            f"reduction '{name}' requires the arithmetic plugin, which was "
+            "compiled out (enable_arithmetic_plugin=False)")
+    try:
+        return _REDUCE_OPS[name]
+    except KeyError:
+        raise ValueError(f"unknown reduction '{name}'") from None

@@ -29,7 +29,7 @@ from typing import Callable, Sequence
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.config import CommConfig, CommMode
+from repro_torch.core.config import CommConfig, CommMode, Compression
 from repro_torch.core import plans, plugins, topology
 from repro_torch.obs import trace as obs_trace
 
@@ -98,6 +98,10 @@ def _wire(enc, perm):
     if isinstance(enc, tuple):
         return tuple(wire_permute(e, perm) for e in enc)
     return wire_permute(enc, perm)
+
+
+def num_chunks(nbytes: int, cfg: CommConfig) -> int:
+    return max(1, min(cfg.max_chunks, math.ceil(nbytes / cfg.chunk_bytes)))
 
 
 def _per_rank_elems(x: torch.Tensor) -> int:
@@ -250,3 +254,50 @@ def double_buffered_exchange(payloads: Sequence[torch.Tensor],
                     carry = consume(carry, r, msg)
         received.append(msg)
     return carry, received
+
+
+def all_to_all_blocks(x: torch.Tensor, n: int, cfg: CommConfig,
+                      split_axis: int, concat_axis: int) -> torch.Tensor:
+    """One tiled all-to-all on stacked ranks (``lax.all_to_all(...,
+    tiled=True)``): rank ``s`` splits its ``x[s]`` along ``split_axis`` into
+    ``n`` blocks, block ``j`` goes to rank ``j``, and each rank concatenates
+    what it receives along ``concat_axis`` in source order.  With the
+    compression plugin on, the blocks travel in bf16 (any compression: the
+    int8 format has no all-to-all)."""
+    orig = x.dtype
+    if cfg.compression != Compression.NONE and cfg.enable_compression_plugin:
+        x = x.to(torch.bfloat16)
+    nd = x.dim() - 1
+    parts = x.chunk(n, dim=1 + split_axis % nd)     # parts[j][s]: s -> j
+    blocks = torch.stack(parts, 0)                  # (dst, src, ...)
+    return torch.cat(blocks.unbind(1), dim=1 + concat_axis % nd).to(orig)
+
+
+def chunked_all_to_all(x: torch.Tensor, comm, cfg: CommConfig,
+                       split_axis: int = 0, concat_axis: int = 0
+                       ) -> torch.Tensor:
+    """Streaming all-to-all (MoE dispatch/combine): tile a non-exchanged
+    axis of each rank's message into wire chunks, one all-to-all per chunk.
+
+    Chunks are issued in order on one stream, so ordered transport's "chunk
+    *i* waits on chunk *i - window*" holds by construction.  Values are
+    bitwise-identical to the single all-to-all — tiling a non-split axis
+    only partitions pure data movement.  Falls back to one call when no
+    tileable axis exists (1-D payloads) or the message fits one chunk."""
+    n = comm.size
+    nd = x.dim() - 1
+    tile_axis = next((a for a in range(nd - 1, -1, -1)
+                      if a not in (split_axis % nd, concat_axis % nd)), None)
+    if tile_axis is None:
+        return all_to_all_blocks(x, n, cfg, split_axis, concat_axis)
+    nc = min(num_chunks(_per_rank_elems(x) * x.element_size(), cfg),
+             x.shape[1 + tile_axis])
+    if nc <= 1:
+        return all_to_all_blocks(x, n, cfg, split_axis, concat_axis)
+    dim = x.shape[1 + tile_axis]
+    width = math.ceil(dim / nc)
+    outs = []
+    for start in range(0, dim, width):
+        sl = x.narrow(1 + tile_axis, start, min(width, dim - start))
+        outs.append(all_to_all_blocks(sl, n, cfg, split_axis, concat_axis))
+    return torch.cat(outs, dim=1 + tile_axis)

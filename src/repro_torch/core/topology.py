@@ -29,6 +29,8 @@ import math
 import zlib
 from typing import Optional, Sequence, Tuple
 
+from repro_torch.core.config import H100, HardwareSpec
+
 
 @dataclasses.dataclass(frozen=True)
 class TorusSpec:
@@ -195,6 +197,25 @@ class TorusSpec:
             dst_cell = ((r + dy) % rows) * cols + (c + dx) % cols
             perm.append((rank, self.rank_at(dst_cell)))
         return perm
+
+    def reverse_hop_perm(self, d: int) -> list[tuple[int, int]]:
+        return [(dst, src) for src, dst in self.hop_perm(d)]
+
+    # ------------------------------------------------------------------
+    # Modeled hardware
+    # ------------------------------------------------------------------
+    def hardware(self, base: Optional[HardwareSpec] = None) -> HardwareSpec:
+        """A :class:`HardwareSpec` (default: the H100's) carrying this
+        torus's costs: ``per_hop_ns`` as the Eq. 1 per-extra-hop latency
+        and the bisection bandwidth's per-link share (a ``2 x min(R,
+        C)``-cut torus has ``4 * min(R, C)`` directed links across the
+        bisection) as the wire bandwidth cap."""
+        base = H100 if base is None else base
+        link_bw = self.bisection_gbps * 1e9 / (4 * min(self.shape))
+        return dataclasses.replace(
+            base, name=f"torus-{self.name}",
+            ici_hop_latency=self.per_hop_ns * 1e-9,
+            ici_bw=min(base.ici_bw, link_bw))
 
 
 def snake_placement(shape: Tuple[int, int]) -> Tuple[int, ...]:

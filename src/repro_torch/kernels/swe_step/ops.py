@@ -3,76 +3,39 @@
 ``swe_step(...)`` takes stacked-rank tensors.  On CPU tensors it runs the
 plain PyTorch version (:mod:`.ref`); on CUDA tensors it launches the kernel
 in ``csrc/swe_step.cu`` or raises — there is no fallback.  The kernel is
-compiled at first use with ``nvcc`` for ``sm_90a`` into a shared library
-under ``build/`` beside this file (keyed by the source's hash) and loaded
-with ``ctypes``.
+compiled at first use by :mod:`repro_torch.kernels._build` (``nvcc`` for
+``sm_90a``, into ``build/`` beside this file) and loaded with ``ctypes``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-import time
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.swe_step import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "swe_step.cu"
-BUILD_DIR = Path(__file__).resolve().parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Kernel launches issued by `swe_step` (a launch captured into a CUDA graph
 # counts once, at capture; replays run no Python).
 launches = 0
-# What the last build printed (``-Xptxas -v``: registers, spills) and took.
-build_log = ""
-build_seconds = 0.0
-
-_LOCK = threading.Lock()
-_LIB = None
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME) to build "
-                           "the swe_step kernel")
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.swe_step_launch
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
+LIBRARY = _build.Library(SOURCE, _bind)
 
 
 def load_library() -> ctypes.CDLL:
     """Build the kernel library if needed and load it (once per process)."""
-    global _LIB, build_log, build_seconds
-    with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-        so = BUILD_DIR / f"libswe_step-{digest}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                   str(SOURCE)], capture_output=True,
-                                  text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, so)   # atomic: concurrent builders never clash
-            build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
-        lib = ctypes.CDLL(str(so))
-        fn = lib.swe_step_launch
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIB = lib
-        return lib
+    return LIBRARY.load()
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:

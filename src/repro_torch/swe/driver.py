@@ -29,7 +29,9 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.config import CommConfig
+from repro_torch.core import latmodel
+from repro_torch.core.config import CommConfig, Scheduling
+from repro_torch.device import resolve_device
 from repro_torch.obs import trace as obs_trace
 from repro_torch.swe import dg_solver
 from repro_torch.swe.dg_solver import SWEConfig, make_step_fn
@@ -49,17 +51,6 @@ class Simulation:
     # route through intermediate partitions); None = flat.
     topology: object = None            # TorusSpec | None
     round_cfgs: Optional[list] = None  # per exchange round, serial paths only
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the card unless the caller names
-    another.  Raises when no card is present and none was named."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device available; pass device='cpu' to "
-                           "run the plain PyTorch path on the CPU")
-    return torch.device("cuda", torch.cuda.current_device())
 
 
 def flatten_state(sim: Simulation, state) -> np.ndarray:
@@ -82,33 +73,87 @@ def state_digest(sim: Simulation, state) -> str:
         np.ascontiguousarray(flatten_state(sim, state)).tobytes()).hexdigest()
 
 
-def _check_comm_cfg(comm_cfg) -> None:
-    if not isinstance(comm_cfg, CommConfig):
-        raise NotImplementedError(
-            f"comm_cfg must be a CommConfig; {comm_cfg!r} (autotuned "
-            f"selection) is not ported yet")
+def _select_round_configs(rounds, comm, halo_bytes: int, device,
+                          tune_db_path=None, objective: str = "latency"):
+    """Per-edge hop-aware selection: one autotuned config per exchange
+    round.  Each round's worst-case hop distance is looked up in the TuneDB
+    (preferring measurements taken on the same virtual placement) and the
+    hop-matched winner returned — a 1-hop round no longer pays the
+    transport tuned for the 3-hop round (the paper's per-edge result)."""
+    from repro_torch.tune import TuneDB, select_config, topology_key
+    topo = topology_key(comm.size, device)
+    torus = comm.topo.name if comm.topo is not None else ""
+    db = TuneDB.load(tune_db_path)   # one read for all rounds
+    return [select_config("multi_neighbor", halo_bytes, topo=topo, db=db,
+                          hops=max(1, comm.max_hops(perm)),
+                          objective=objective, torus=torus)
+            for perm in rounds]
 
 
-def build_simulation(n_elements: int, n_parts: int, comm_cfg: CommConfig,
+def _resolve_comm_cfg(comm_cfg, pm: PartitionedMesh, topology, device,
+                      tune_db_path, objective: str):
+    """``(comm_cfg, round_cfgs)`` for a simulation: a ``CommConfig`` as
+    given, or ``"auto"`` through the TuneDB of ``device``'s platform.
+
+    ``"auto"`` picks the fastest measured multi-neighbor config at the
+    largest per-round halo message and the pattern's worst-case hop
+    distance.  On a virtual torus every round is then tuned at its own hop
+    distance (serial schedules only: the double-buffered overlapped engine
+    pipelines all rounds under one config), with its scheduling unified
+    with the representative's so the step structure stays coherent."""
+    if isinstance(comm_cfg, CommConfig):
+        return comm_cfg, None
+    from repro_torch.core.collectives import resolve_config
+    from repro_torch.core.communicator import Communicator
+    halo_bytes = int(pm.s_max) * 3 * 4   # (h, hu, hv) f32 per halo element
+    comm = Communicator(("data",), (pm.n_parts,), topo=topology)
+    edges = [e for r in pm.rounds for e in r]
+    hops = comm.max_hops(edges) if edges else None
+    comm_cfg = resolve_config(comm_cfg, "multi_neighbor", halo_bytes,
+                              n_ranks=pm.n_parts, db_path=tune_db_path,
+                              hops=hops, objective=objective,
+                              torus=topology.name if topology else "",
+                              device=device)
+    if (not pm.rounds or topology is None
+            or comm_cfg.scheduling == Scheduling.OVERLAPPED):
+        return comm_cfg, None
+    per_round = [dataclasses.replace(c, scheduling=comm_cfg.scheduling)
+                 for c in _select_round_configs(pm.rounds, comm, halo_bytes,
+                                                device, tune_db_path,
+                                                objective)]
+    return comm_cfg, (per_round if any(c != comm_cfg for c in per_round)
+                      else None)
+
+
+def build_simulation(n_elements: int, n_parts: int, comm_cfg,
                      swe: SWEConfig = SWEConfig(), seed: int = 0,
                      topology=None,
                      initial_state: Optional[np.ndarray] = None,
-                     device=None) -> Simulation:
+                     device=None, tune_db_path=None,
+                     objective: str = "latency") -> Simulation:
     """Generate the bight mesh, partition it over ``n_parts`` stacked ranks
     and place the initial state on ``device`` (default: the card).
 
+    ``comm_cfg`` is a :class:`CommConfig` or ``"auto"``: the autotuner's
+    fastest measured config for this partitioning's halo exchange on
+    ``device``'s platform (``OPTIMIZED_CONFIG`` on a cold cache);
+    ``objective="e2e"`` ranks by the measured halo-fold consumer loop.
     ``topology`` (a :class:`~repro_torch.core.topology.TorusSpec`) places
-    the partitions on a virtual multi-hop torus.  ``initial_state`` (global
-    ``(E, 3)``) seeds the partitions instead of the t=0 hump."""
-    _check_comm_cfg(comm_cfg)
+    the partitions on a virtual multi-hop torus; with ``"auto"`` every
+    exchange round is then tuned at its own hop distance
+    (``Simulation.round_cfgs``).  ``initial_state`` (global ``(E, 3)``)
+    seeds the partitions instead of the t=0 hump."""
     device = resolve_device(device)
     mesh = generate_bight_mesh(n_elements, seed=seed)
     if initial_state is None:
         initial_state = dg_solver.initial_state(mesh)
     pm = partition_mesh(mesh, n_parts, np.asarray(initial_state))
+    comm_cfg, round_cfgs = _resolve_comm_cfg(comm_cfg, pm, topology, device,
+                                             tune_db_path, objective)
     state = torch.from_numpy(pm.state0.astype(np.float32)).to(device)
     return Simulation(mesh=mesh, pm=pm, comm_cfg=comm_cfg, swe=swe,
-                      state=state, device=device, topology=topology)
+                      state=state, device=device, topology=topology,
+                      round_cfgs=round_cfgs)
 
 
 def from_reference(arrays: Mapping, comm_cfg: CommConfig,
@@ -118,7 +163,9 @@ def from_reference(arrays: Mapping, comm_cfg: CommConfig,
     ``arrays`` maps every :class:`PartitionedMesh` field (``rounds`` as a
     sequence of ``(src, dst)`` edge lists, the rest as numbers or numpy
     arrays) to its value.  The state starts from ``state0``."""
-    _check_comm_cfg(comm_cfg)
+    if not isinstance(comm_cfg, CommConfig):
+        raise TypeError(f"from_reference takes a CommConfig, got "
+                        f"{comm_cfg!r}")
     device = resolve_device(device)
     fields = {}
     for f in dataclasses.fields(PartitionedMesh):
@@ -269,3 +316,22 @@ class HostScheduledRunner:
 def make_host_scheduled_runner(sim: Simulation) -> HostScheduledRunner:
     """The paper-baseline runner (see :class:`HostScheduledRunner`)."""
     return HostScheduledRunner(sim)
+
+
+def build_workload(sim: Simulation, freq: float = 256e6
+                   ) -> latmodel.SWEWorkload:
+    """Eq. 2/3 workload descriptor from the partition statistics."""
+    pm = sim.pm
+    # critical partition: largest sent/received element count
+    crit = int(np.argmax(pm.n_send + pm.n_neighbors * 1000))
+    return latmodel.SWEWorkload(
+        e_total=sim.mesh.n_elements,
+        e_core=int(pm.n_core[crit]),
+        e_send=int(pm.n_send[crit]),
+        e_recv=int(pm.n_send[crit]),
+        d_ext=0,
+        l_pipe=100,
+        n_max=pm.n_max,
+        flop_per_element=dg_solver.FLOP_PER_ELEMENT,
+        freq=freq,
+        msg_bytes=int(pm.s_max * 3 * 4))

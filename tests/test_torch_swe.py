@@ -21,7 +21,8 @@ import torch
 from helpers import REPO, run_multidevice
 
 from repro_torch.core import plans
-from repro_torch.core.config import (BASELINE_CONFIG, OVERLAPPED_CONFIG,
+from repro_torch.core.config import (BASELINE_CONFIG, OPTIMIZED_CONFIG,
+                                     OVERLAPPED_CONFIG,
                                      CommConfig, Scheduling, Transport)
 from repro_torch.core.topology import TorusSpec
 from repro_torch.swe import driver
@@ -222,12 +223,18 @@ print("CLEAN", len(names))
     assert "CLEAN" in proc.stdout
 
 
-def test_entry_points_need_a_device_without_cuda(monkeypatch):
+def test_entry_points_need_a_device_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         driver.build_simulation(ELEMENTS, 2, CommConfig())
-    with pytest.raises(NotImplementedError):
-        driver.build_simulation(ELEMENTS, 2, "auto", device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        driver.build_simulation(ELEMENTS, 2, "auto")
+    # "auto" on a cold TuneDB falls back to the paper's optimized config
+    sim = driver.build_simulation(ELEMENTS, 2, "auto", device="cpu",
+                                  tune_db_path=tmp_path / "cold.json")
+    assert sim.comm_cfg == OPTIMIZED_CONFIG and sim.round_cfgs is None
+    with pytest.raises(TypeError):
+        driver.build_simulation(ELEMENTS, 2, "fastest", device="cpu")
 
 
 def _chip_smoke():
