@@ -32,7 +32,19 @@ exits non-zero:
    fit); and ``comm_cfg="auto"`` at full size from that TuneDB, flat and on
    a 6x8 torus, bitwise equal to the runs with the selected configs given
    explicitly;
-6. a ``kernels:`` line, the kernel table as one JSON line, and as the last
+6. the LM serving path: the flash-attention kernel against its plain
+   version at the serving shape (bf16, N = 16, S = T = 1024, 8 q heads over
+   2 kv heads, d = 128, causal) and on a grid of small shapes (window,
+   softcap, ragged and cross lengths, f32), timed beside its plain version,
+   ``scaled_dot_product_attention`` and its bound; then qwen3-8b at full
+   width (36 layers, d_model 4096, vocab 151,936, bf16, tp = 4 stacked,
+   random weights from seed 0) serving 8 requests in waves of 4 with
+   1024-token prompts through ``examples/serve_lm_torch.py``, one wave's
+   prefill through the kernel against the same prefill through the plain
+   version, one prefill and one decode step profiled by kernel, the
+   overlapped row-parallel combine against the whole matmul + all-reduce,
+   and the smoke config in f32 on the card against the CPU;
+7. a ``kernels:`` line, the kernel table as one JSON line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and exits non-zero without one, or when the repository
@@ -442,6 +454,10 @@ def phase_grad_sync(dev) -> dict:
                 check(bool(((out - results[k]).abs() <= lim).all()),
                       f"bf16 {k} disagrees with the NONE wire")
                 bound = lim.max().item()
+                share = (err / lim).max().item()
+                log(f"[gradsync] bf16 {k}: worst element at "
+                    f"{100 * share:.2f} % of its own limit hops * 2^-8 * "
+                    f"sum_r |x_r|")
                 del lim
             else:
                 # sanity bound; the gate is the bitwise check above
@@ -478,7 +494,8 @@ def profile_device_time(tag: str, fn) -> None:
                    for e in prof.key_averages()
                    if e.self_device_time_total > 0), reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"[{tag}] profile: {len(rows)} kernel names, device busy "
+    log(f"[{tag}] profile: {len(rows)} kernel names, "
+        f"{sum(r[1] for r in rows)} launches, device busy "
         f"{busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms profiled wall time")
     for us, count, key in rows[:8]:
         log(f"[{tag}]   {us / 1e3:8.3f} ms  {count:5d} launches  {key[:70]}")
@@ -614,6 +631,323 @@ def phase_auto(driver, sim, db_path, dev) -> int:
     return launched
 
 
+# ----------------------------------------------------------------------
+# The LM serving path: the flash-attention kernel and qwen3-8b
+# ----------------------------------------------------------------------
+
+# tests/test_kernels.py's flash-attention bounds, its atol = rtol form:
+# |kernel - plain| <= tol + tol * |plain| per element
+FLASH_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
+BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 (tensor cores)
+# (N, S, T, H, KV, d, causal, window, softcap): the serving shape, then a
+# grid over the options, ragged and cross lengths and every head dim
+FLASH_SERVE = (16, 1024, 1024, 8, 2, 128, True, None, None)
+FLASH_GRID = [
+    (2, 64, 64, 4, 2, 16, True, None, None),
+    (2, 100, 77, 4, 4, 32, False, None, None),
+    (1, 130, 200, 8, 2, 64, True, 37, None),
+    (3, 65, 129, 4, 1, 128, False, None, 5.0),
+    (1, 33, 300, 2, 2, 48, True, 17, 5.0),
+    (2, 257, 257, 4, 2, 256, True, None, None),
+    (1, 150, 70, 2, 2, 16, True, 20, None),
+]
+SERVE_ARGV = ["--tp", "4", "--batch", "4", "--prompt-len", "1024",
+              "--gen", "32", "--requests", "8", "--comm", "static"]
+# kernel vs plain prefill logits of one full-width bf16 wave, as a share of
+# max|logit|: the two round their attention outputs to bf16 differently
+# (summation order), and 36 layers carry that on, to 1.9e-2 to 2.1e-2 on an
+# H100; the planted FAULTS move the same logits by 0.37 (causal mask off
+# by one) and 1.4 (kv head h % KV), and the phase checks each still does
+PREFILL_REL = 5e-2
+SMOKE_REL = 1e-4    # tests/test_torch_serve.py's logits bound (f32)
+
+
+def flash_work(case) -> tuple[int, int]:
+    """(FLOPs, bytes) the function must spend on these inputs: 4·d per
+    visible (query, key) pair (q·k and p·v) for every (n, head), and q, k,
+    v read once and the output written once."""
+    from repro_torch.kernels.flash_attention import ref
+    N, S, T, H, KV, d, causal, window, _ = case
+    pairs = int(ref.visible(S, T, causal, window, "cpu").sum())
+    return 4 * d * pairs * N * H, 2 * (2 * N * S * H * d + 2 * N * T * KV * d)
+
+
+def flash_inputs(case, dtype, gen, dev):
+    N, S, T, H, KV, d = case[:6]
+    return (torch.randn((N, S, H, d), generator=gen, device=dev).to(dtype),
+            torch.randn((N, T, KV, d), generator=gen, device=dev).to(dtype),
+            torch.randn((N, T, KV, d), generator=gen, device=dev).to(dtype))
+
+
+def phase_flash_kernel(dev, flush, bw) -> dict:
+    """The flash-attention kernel against its plain version on the grid and
+    at the serving shape, then timed at the serving shape beside its plain
+    version and scaled_dot_product_attention (the library yardstick)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa, ref
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst = {}
+    for case in FLASH_GRID + [FLASH_SERVE]:
+        kw = dict(zip(("causal", "window", "softcap"), case[6:]))
+        for dt in (torch.float32, torch.bfloat16):
+            if case is FLASH_SERVE and dt == torch.float32:
+                continue
+            q, k, v = flash_inputs(case, dt, gen, dev)
+            want = ref.flash_attention_ref(q, k, v, **kw).float()
+            diff = (fa.flash_attention(q, k, v, **kw).float() - want).abs()
+            err = diff.max().item()
+            tol = FLASH_TOL[dt]
+            check(bool((diff <= tol + tol * want.abs()).all()),
+                  f"flash_attention {case} {dt}: max|kernel - plain| {err} "
+                  f"over {tol} + {tol} |plain|")
+            worst[dt] = max(worst.get(dt, 0.0), err)
+    log(f"[flash] kernel vs plain on {len(FLASH_GRID)} grid shapes and the "
+        f"serving shape: max|err| f32 {worst[torch.float32]:.3e} (tol 3e-5 "
+        f"+ 3e-5 |plain|), bf16 {worst[torch.bfloat16]:.3e} (tol 2e-2 + "
+        f"2e-2 |plain|)")
+    q, k, v = flash_inputs(FLASH_SERVE, torch.bfloat16, gen, dev)
+    want = ref.flash_attention_ref(q, k, v).float()
+    tol = FLASH_TOL[torch.bfloat16]
+    for label, fault in FAULTS.items():
+        diff = (fault(q, k, v).float() - want).abs()
+        over = (diff > tol + tol * want.abs()).float().mean().item()
+        check(over > 0, f"the per-element gate misses the planted fault "
+              f"'{label}'")
+        log(f"[flash] planted fault '{label}' at the serving shape: "
+            f"max|fault - plain| {diff.max().item():.3e}, {100 * over:.2f} % "
+            f"of elements over the per-element gate")
+    del want
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    flops, nbytes = flash_work(FLASH_SERVE)
+    ops_ms, bytes_ms = flops / BF16_FLOP_PER_S * 1e3, nbytes / bw * 1e3
+    k_ms = time_ms(lambda: fa.flash_attention(q, k, v), flush)
+    p_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v), flush)
+    l_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+    # the fp32-FMA path at the same shape (f32 inputs: no tensor cores)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    f32_ms = time_ms(lambda: fa.flash_attention(qf, kf, vf), flush)
+    del qf, kf, vf
+    out = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+               bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               max_abs_err=max(worst.values()))
+    log(f"[flash] serving shape {FLASH_SERVE[:6]} bf16 causal: kernel "
+        f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, "
+        f"scaled_dot_product_attention {l_ms * 1e3:.2f} us, bound "
+        f"{out['bound_ms'] * 1e3:.2f} us ({flops / 1e9:.2f} GFLOP at "
+        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB at "
+        f"{bw / 1e12:.2f} TB/s: {out['bound_by']}); kernel at "
+        f"{100 * out['bound_ms'] / k_ms:.1f} % of its bound; the fp32-FMA "
+        f"path on f32 inputs of the same shape {f32_ms * 1e3:.2f} us")
+    return out
+
+
+def load_example(name: str):
+    """The example script ``examples/<name>.py`` as a module."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kv_head_mod(q, k, v, **kw):
+    """A planted fault: q head h reads kv head h % KV, not h // (H / KV)."""
+    from repro_torch.kernels.flash_attention import ref
+    rep = q.shape[2] // k.shape[2]
+    return ref.flash_attention_ref(q, k.repeat(1, 1, rep, 1),
+                                   v.repeat(1, 1, rep, 1), **kw)
+
+
+def causal_off_by_one(q, k, v, **kw):
+    """A planted fault: each query also sees the key after its own."""
+    from repro_torch.kernels.flash_attention import ref
+    return ref.flash_attention_ref(torch.cat([q[:, :1], q], 1), k, v,
+                                   **kw)[:, 1:]
+
+
+# faults planted in the plain version, to read how far each moves what the
+# serving phase's gates compare (not the kernel: no broken copy of it)
+FAULTS = {"kv head h % KV": kv_head_mod,
+          "causal mask off by one": causal_off_by_one}
+
+
+def plain_attention(fn, attn=None):
+    """``fn()`` with prefill attention through ``attn`` (the kernel's plain
+    version by default) on the same card: the same inputs, the same
+    model."""
+    from repro_torch.models import attention
+    from repro_torch.kernels.flash_attention import ref
+    import types
+    kernel = attention.fa_ops
+    attention.fa_ops = types.SimpleNamespace(
+        flash_attention=attn or ref.flash_attention_ref)
+    try:
+        return fn()
+    finally:
+        attention.fa_ops = kernel
+
+
+def phase_serve(dev) -> int:
+    """qwen3-8b at full width serving 8 requests through the example's
+    continuous-batching loop; then one wave's prefill through the kernel
+    against the plain version, and the overlapped row-parallel combine at
+    the MLP's shape against the whole matmul + all-reduce.  Returns the
+    flash-attention launches of the serving run."""
+    from repro_torch.core import collectives, streaming
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import input_specs as isp, setup
+    from repro_torch.models import decode as dec
+    from repro_torch.train import serve as serve_mod
+    ex = load_example("serve_lm_torch")
+    args = ex.parser().parse_args(SERVE_ARGV)
+    cfg = ex.model_config(args)
+    comm = ex.COMMS[args.comm]
+    t0 = time.perf_counter()
+    sess = setup.build_session(cfg, args.tp, comm, seed=args.seed,
+                               device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(sess.params))
+    log(f"[serve] {cfg.name} full width: {n_params / 1e9:.3f} B stacked "
+        f"parameters (tp {args.tp}) initialised on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    fa.launches = 0
+    out = ex.run(args, log=log, sess=sess)
+    launches = fa.launches
+    waves = len(out["prefill_ms"])
+    check(launches == out["flash_launches"] == cfg.n_layers * waves,
+          f"flash-attention launches {launches}, want {cfg.n_layers} x "
+          f"{waves} waves")
+    check(out["all_logits_finite"], "non-finite logits while serving")
+    log(f"[serve] prefill ms per wave {out['prefill_ms']}; median decode "
+        f"{out['decode_ms_per_token_median']:.2f} ms per step; "
+        f"{out['tokens_per_s']:.2f} generated tokens/s over the run's "
+        f"{out['wall_s']:.2f} s ({out['decode_tokens_per_s']:.2f} per s of "
+        f"decode time); peak memory "
+        f"{out['peak_mem_gb']:.2f} GB; flash-attention launches {launches} "
+        f"= {cfg.n_layers} layers x {waves} waves")
+
+    rng = np.random.RandomState(1)
+    toks = rng.randint(0, cfg.vocab_size, (args.batch, args.prompt_len))
+    capacity = args.prompt_len + args.gen
+    _, pre = serve_mod.build_serve_fn(
+        cfg, args.tp, comm,
+        isp.ShapeSpec("wave", args.prompt_len, args.batch, "prefill"),
+        cache_capacity=capacity, device=dev)
+    rt, step = serve_mod.build_serve_fn(
+        cfg, args.tp, comm,
+        isp.ShapeSpec("wave", capacity, args.batch, "decode"), device=dev)
+    st = pre(sess.params, {"tokens": toks})
+    got = st.last_logits
+    want = plain_attention(lambda: pre(sess.params, {"tokens": toks})
+                           ).last_logits
+
+    def rel(x):
+        return ((x - want).abs().max() / want.abs().max()).item()
+    gap = rel(got)
+    check(bool(torch.isfinite(got).all()) and gap <= PREFILL_REL,
+          f"prefill through the kernel vs the plain version: {gap} of "
+          f"max|logit| (bound {PREFILL_REL})")
+    log(f"[serve] one wave's prefill through the kernel vs the plain "
+        f"version: max|dlogit| {gap:.3e} of max|logit| (bound {PREFILL_REL}),"
+        f" rms {((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt()).item():.3e} relative")
+    for label, fault in FAULTS.items():
+        bad = plain_attention(lambda: pre(sess.params, {"tokens": toks}),
+                              fault).last_logits
+        check(rel(bad) > PREFILL_REL, f"the prefill gate misses the planted "
+              f"fault '{label}': {rel(bad)} of max|logit|")
+        log(f"[serve] the same prefill with the planted fault '{label}': "
+            f"max|dlogit| {rel(bad):.3e} of max|logit| vs the plain version")
+    del got, want, bad
+
+    # where a wave's time goes: one prefill, one decode step
+    profile_device_time("serve prefill", lambda: pre(sess.params,
+                                                     {"tokens": toks}))
+    tok = dec.greedy_tokens(st, rt)
+    st = step(sess.params, tok, st)
+    profile_device_time("serve decode", lambda: step(sess.params, tok, st))
+    del st
+
+    # the streaming row-parallel combine of the MLP at this wave's shape
+    gen = torch.Generator(device=dev).manual_seed(4)
+    tokens = args.batch * args.prompt_len
+    h = torch.randn((args.tp, tokens, cfg.d_ff // args.tp), generator=gen,
+                    device=dev).to(cfg.dtype)
+    w = sess.params["layers"]["mlp"]["w_down"][0]
+    whole = collectives.all_reduce(streaming.matmul_f32(h, w), rt.tp_comm(),
+                                   comm).to(cfg.dtype)
+    chunked = streaming.overlapped_matmul_allreduce(h, w, rt.tp_comm(), comm)
+    check(torch.equal(chunked, whole), f"overlapped combine differs by "
+          f"{(chunked.float() - whole.float()).abs().max().item()}")
+    log(f"[serve] overlapped matmul + all-reduce ({args.tp}, {tokens}, "
+        f"{cfg.d_ff // args.tp}) x w_down vs the whole matmul + all-reduce: "
+        f"bitwise equal")
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_serve_smoke(dev) -> None:
+    """The smoke config in f32, tp = 4, on the card and on the CPU from the
+    same weights: greedy tokens over 4 decode steps equal; on the card,
+    decode equals prefill of the extended sequence."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.config import CommConfig
+    from repro_torch.launch import input_specs as isp
+    from repro_torch.models import decode as dec, sharding, transformer
+    from repro_torch.train import serve as serve_mod
+    cfg = dataclasses.replace(get_smoke_config("qwen3-8b"),
+                              dtype=torch.float32)
+    tp, B, S, GEN = 4, 4, 24, 4
+    full = transformer.init_model(0, cfg, tp, "cpu")
+    toks = np.random.RandomState(0).randint(0, cfg.vocab_size, (B, S))
+    runs = []
+    for where in ("cpu", dev):
+        params = sharding.shard_params(full, cfg, tp, where)
+        rt, pre = serve_mod.build_serve_fn(
+            cfg, tp, CommConfig(), isp.ShapeSpec("s", S, B, "prefill"),
+            cache_capacity=S + GEN, device=where)
+        _, step = serve_mod.build_serve_fn(
+            cfg, tp, CommConfig(), isp.ShapeSpec("s", S + GEN, B, "decode"),
+            device=where)
+        st = pre(params, {"tokens": toks})
+        out = []
+        for _ in range(GEN):
+            nxt = dec.greedy_tokens(st, rt)
+            out.append(nxt.cpu())
+            st = step(params, nxt, st)
+        runs.append((torch.stack(out, 1), st, params, rt))
+    (cpu_toks, cpu_st, _, _), (card_toks, st, params, rt) = runs
+    check(torch.equal(cpu_toks, card_toks),
+          f"smoke greedy tokens on the card {card_toks.tolist()} differ from "
+          f"the CPU's {cpu_toks.tolist()}")
+    seq = np.concatenate([toks, card_toks.numpy()], axis=1)
+    _, pre = serve_mod.build_serve_fn(
+        cfg, tp, CommConfig(), isp.ShapeSpec("s", S + GEN, B, "prefill"),
+        device=dev)
+    ext = pre(params, {"tokens": seq})
+    check(torch.equal(dec.greedy_tokens(st, rt), dec.greedy_tokens(ext, rt)),
+          "smoke decode's next token differs from the extended prefill's")
+    rel = ((st.last_logits - ext.last_logits).abs().max()
+           / ext.last_logits.abs().max()).item()
+    rel_cpu = ((st.last_logits.cpu() - cpu_st.last_logits).abs().max()
+               / cpu_st.last_logits.abs().max()).item()
+    check(rel <= SMOKE_REL and rel_cpu <= SMOKE_REL,
+          f"smoke logits: decode vs extended prefill {rel}, card vs CPU "
+          f"{rel_cpu} (bound {SMOKE_REL})")
+    log(f"[serve] smoke f32 tp {tp}: greedy tokens over {GEN} decode steps "
+        f"equal on the card and the CPU; decode vs prefill of the extended "
+        f"sequence {rel:.2e}, card vs CPU {rel_cpu:.2e} of max|logit|")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a card",
@@ -623,6 +957,7 @@ def main() -> int:
     from repro_torch.core.config import (BASELINE_CONFIG, OVERLAPPED_CONFIG,
                                          CommConfig, Scheduling)
     from repro_torch.core.topology import TorusSpec
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.quant import ops as quant_ops
     from repro_torch.kernels.swe_step import ops as swe_ops, ref as swe_ref
     from repro_torch.swe import driver
@@ -640,8 +975,9 @@ def main() -> int:
     log(f"[card] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    build_all({"swe_step": swe_ops.LIBRARY, "quant": quant_ops.LIBRARY})
-    log(f"[build] both libraries built and loaded in "
+    build_all({"swe_step": swe_ops.LIBRARY, "quant": quant_ops.LIBRARY,
+               "flash_attention": flash_ops.LIBRARY})
+    log(f"[build] the three libraries built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     bw = card_bandwidth(name)
 
@@ -720,6 +1056,7 @@ def main() -> int:
             f"{timings[label]['bound_by']}); library call: none")
 
     quant_timings = phase_quant_kernels(dev, flush, bw)
+    flash_timing = phase_flash_kernel(dev, flush, bw)
 
     # -- 3. main path at full size -------------------------------------
     modes = (("fused", CommConfig(), 1 + N_INNER),
@@ -785,11 +1122,16 @@ def main() -> int:
     phase_sweep(dev, db_path)
     phase_auto(driver, sim, db_path, dev)
 
-    # -- 6. summary ----------------------------------------------------
+    # -- 6. the LM serving path ------------------------------------------
+    flash_launches = phase_serve(dev)
+    phase_serve_smoke(dev)
+
+    # -- 7. summary ----------------------------------------------------
     log(f"kernels: swe_step launches={main_launches} "
         + " ".join(f"{k}={v}" for k, v in launches_by_mode.items())
         + " ".join(f"; {k} launches={v} (gradient sync)"
-                   for k, v in quant_launches.items()))
+                   for k, v in quant_launches.items())
+        + f"; flash_attention launches={flash_launches} (serving)")
     full = timings["full pass"]
     rows = [{
         "name": "swe_step", "route": "cuda",
@@ -809,6 +1151,12 @@ def main() -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
+        "launches": flash_launches, **flash_timing})
     log(json.dumps({"kernels": rows}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

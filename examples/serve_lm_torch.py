@@ -1,0 +1,225 @@
+"""Continuous-batching LM serving on the PyTorch port: waves of requests
+arriving mid-flight, greedy decode on the sequence-sharded KV cache, all
+tensor-parallel ranks stacked on one CUDA card.
+
+Requests arrive on a seeded schedule while earlier waves are still
+decoding.  Waiting requests are admitted in fixed-shape waves; each wave
+is prefilled at the prompt length into KV caches that cover prompt +
+generation, and active waves then decode round-robin, one token per step,
+retiring as their (per-request, variable) generation targets complete.
+Prefill attention runs the hand-written CUDA flash-attention kernel; the
+row-parallel combines, the vocab-sharded embedding and sampling, the K/V
+all-gather and the decode LSE combine run through ACCL-X collectives under
+``--comm``.
+
+Run:  PYTHONPATH=src python examples/serve_lm_torch.py            # card
+      PYTHONPATH=src python examples/serve_lm_torch.py --smoke --device cpu
+
+Without ``--smoke`` the model is the full-width configuration (bf16,
+random weights from ``--seed``).
+"""
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.config import (BASELINE_CONFIG, OVERLAPPED_CONFIG,
+                                     CommConfig)
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.launch import input_specs as isp, setup
+from repro_torch.models import decode as dec
+from repro_torch.train import serve as serve_mod
+
+COMMS = {"static": CommConfig(), "baseline": BASELINE_CONFIG,
+         "overlapped": OVERLAPPED_CONFIG}
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    arrival: int              # decode-step tick the request arrives at
+    prompt: np.ndarray        # (prompt_len,) int32
+    gen_target: int           # tokens to generate (variable per request)
+
+
+@dataclasses.dataclass
+class Wave:
+    wid: int
+    requests: list            # Request per slot (tail slots may repeat)
+    valid: list               # bool per slot (False = tail padding)
+    state: object = None
+    steps: int = 0
+    tokens: list = dataclasses.field(default_factory=list)  # (B,) per step
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the arch's reduced smoke config in float32")
+    ap.add_argument("--tp", type=int, default=4,
+                    help="tensor-parallel ranks, stacked on the device")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="wave size (fixed serving shape)")
+    ap.add_argument("--prompt-len", type=int, default=48)
+    ap.add_argument("--gen", type=int, default=32,
+                    help="max tokens per request (each request draws a "
+                    "target in [gen/2, gen])")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--arrival-every", type=int, default=3,
+                    help="a new request arrives every N decode steps")
+    ap.add_argument("--max-active", type=int, default=2,
+                    help="concurrent waves in flight")
+    ap.add_argument("--comm", default="static", choices=sorted(COMMS))
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+def model_config(args):
+    if args.smoke:
+        cfg = dataclasses.replace(get_smoke_config(args.arch),
+                                  dtype=torch.float32)
+    else:
+        cfg = get_config(args.arch)
+    return cfg
+
+
+def run(args, log=print, sess=None) -> dict:
+    """Serve ``args.requests`` requests; returns the run's metrics.
+    ``sess`` is a session built earlier for ``model_config(args)`` (one is
+    built from ``args.seed`` otherwise)."""
+    cfg = model_config(args)
+    comm = COMMS[args.comm]
+    if sess is None:
+        sess = setup.build_session(cfg, args.tp, comm, seed=args.seed,
+                                   device=args.device)
+    dev = sess.params["final_norm"].device
+    sync = (torch.cuda.synchronize if dev.type == "cuda" else lambda: None)
+    max_len = args.prompt_len + args.gen
+    shape_p = isp.ShapeSpec("serve", args.prompt_len, args.batch, "prefill")
+    shape_d = isp.ShapeSpec("serve", max_len, args.batch, "decode")
+    rt, prefill_fn = serve_mod.build_serve_fn(
+        cfg, args.tp, comm, shape_p,
+        cache_capacity=serve_mod.cache_len(cfg, shape_d), device=dev)
+    _, decode_fn = serve_mod.build_serve_fn(cfg, args.tp, comm, shape_d,
+                                            device=dev)
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, {cfg.dtype}, tp {args.tp} on {dev}; comm "
+        f"{comm.mode.value}/{comm.scheduling.value}/{comm.algorithm}")
+
+    rng = np.random.RandomState(args.seed)
+    reqs = [Request(rid=r, arrival=r * args.arrival_every,
+                    prompt=rng.randint(0, cfg.vocab_size,
+                                       args.prompt_len).astype(np.int32),
+                    gen_target=int(rng.randint(max(1, args.gen // 2),
+                                               args.gen + 1)))
+            for r in range(args.requests)]
+    pending = list(reqs)          # not yet arrived
+    waiting: list = []            # arrived, not yet admitted to a wave
+    active: list = []             # waves in flight
+    finished: dict = {}           # rid -> list of generated token ids
+    prefill_ms: list = []
+    decode_ms: list = []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    launches0 = fa_ops.launches
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    tick = wid = rr = 0
+    t_run = time.perf_counter()
+    while pending or waiting or active:
+        while pending and pending[0].arrival <= tick:
+            waiting.append(pending.pop(0))
+        if len(active) < args.max_active and waiting and (
+                len(waiting) >= args.batch or not pending):
+            members = waiting[:args.batch]
+            del waiting[:len(members)]
+            valid = [True] * len(members)
+            while len(members) < args.batch:     # tail wave: pad + mask
+                members.append(members[-1])
+                valid.append(False)
+            wave = Wave(wid=wid, requests=members, valid=valid)
+            wid += 1
+            toks = np.stack([r.prompt for r in members])
+            sync()
+            t0 = time.perf_counter()
+            wave.state = prefill_fn(sess.params, {"tokens": toks})
+            sync()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            finite &= torch.isfinite(wave.state.last_logits).all()
+            log(f"[prefill] wave {wave.wid}: {sum(valid)} reqs x "
+                f"{args.prompt_len} tok, {prefill_ms[-1]:.1f} ms "
+                f"({len(active) + 1} wave(s) in flight)")
+            active.append(wave)
+            continue
+        if not active:
+            tick += 1             # idle: nothing admitted, wait for arrivals
+            continue
+        wave = active[rr % len(active)]
+        t0 = time.perf_counter()
+        tok = dec.greedy_tokens(wave.state, rt)
+        wave.state = decode_fn(sess.params, tok, wave.state)
+        sync()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        finite &= torch.isfinite(wave.state.last_logits).all()
+        wave.tokens.append(tok.cpu().numpy())
+        wave.steps += 1
+        tick += 1
+        need = max(r.gen_target for r, v in zip(wave.requests, wave.valid)
+                   if v)
+        if wave.steps >= need:
+            gen = np.stack(wave.tokens, 1)       # (B, steps)
+            for i, (r, v) in enumerate(zip(wave.requests, wave.valid)):
+                if v and r.rid not in finished:
+                    finished[r.rid] = gen[i, :r.gen_target].tolist()
+            active.remove(wave)
+            log(f"[decode]  wave {wave.wid}: retired after {wave.steps} "
+                f"steps ({len(active)} wave(s) remain)")
+        rr += 1
+    wall = time.perf_counter() - t_run
+    if sorted(finished) != [r.rid for r in reqs]:
+        raise RuntimeError("dropped requests")
+    gen_tokens = sum(len(v) for v in finished.values())
+    out = {
+        "requests": len(finished), "generated_tokens": gen_tokens,
+        "wall_s": wall, "prefill_ms": prefill_ms,
+        "decode_steps": len(decode_ms),
+        "decode_ms_per_token_median": float(np.median(decode_ms)),
+        "tokens_per_s": gen_tokens / wall,
+        "decode_tokens_per_s": gen_tokens / max(sum(decode_ms) / 1e3, 1e-9),
+        "flash_launches": fa_ops.launches - launches0,
+        "all_logits_finite": bool(finite),
+        "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                        if dev.type == "cuda" else None),
+        "finished": finished,
+    }
+    log(f"served {len(finished)}/{args.requests} requests, {gen_tokens} "
+        f"tokens in {wall:.2f} s: {out['tokens_per_s']:.2f} generated "
+        f"tokens/s")
+    log(f"[decode]  {len(decode_ms)} steps, median "
+        f"{out['decode_ms_per_token_median']:.2f} ms/step (one token per "
+        f"request of the wave), {out['decode_tokens_per_s']:.2f} tokens/s of "
+        f"decode time")
+    log(f"[prefill] {len(prefill_ms)} waves: "
+        + ", ".join(f"{m:.1f}" for m in prefill_ms) + " ms; flash-attention "
+        f"kernel launches {out['flash_launches']}"
+        + (f"; peak memory {out['peak_mem_gb']:.2f} GB"
+           if out["peak_mem_gb"] is not None else ""))
+    for rid in sorted(finished)[:2]:
+        log(f"  req{rid}: {finished[rid][:12]}")
+    if not out["all_logits_finite"]:
+        raise RuntimeError("non-finite logits")
+    return out
+
+
+def main():
+    run(parser().parse_args())
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,45 @@
+"""Architecture registry: ``get_config(name)`` / ``get_smoke_config(name)``.
+
+Each registered architecture has its exact public configuration plus a
+reduced smoke variant of the same family (small widths and depths, a tiny
+vocab) that the CPU tests use.  The port registers the architectures whose
+serving path it runs: ``qwen3-8b``.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Callable, Dict
+
+from repro_torch.models.common import ModelConfig
+
+_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
+_SMOKE: Dict[str, Callable[[], ModelConfig]] = {}
+
+_MODULES = ["qwen3_8b"]
+_LOADED = False
+
+
+def _load_all():
+    global _LOADED
+    if _LOADED:
+        return
+    _LOADED = True
+    for m in _MODULES:
+        importlib.import_module(f"repro_torch.configs.{m}")
+
+
+def register(name: str, full: Callable[[], ModelConfig],
+             smoke: Callable[[], ModelConfig]):
+    _REGISTRY[name] = full
+    _SMOKE[name] = smoke
+
+
+def get_config(name: str) -> ModelConfig:
+    _load_all()
+    return _REGISTRY[name]()
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    _load_all()
+    return _SMOKE[name]()
+

@@ -308,7 +308,12 @@ def all_reduce(x: torch.Tensor, comm: Communicator, cfg: CommConfig,
     The JAX package wraps the sum in a ``custom_vjp`` whose backward is the
     identity (replicated-output gradient semantics for tensor-parallel
     layers); that waits for the port's training slice, which is the first
-    caller to differentiate through a collective."""
+    caller to differentiate through a collective.
+
+    Every call counts once in ``comm.collectives{kind=all_reduce,op=...}``
+    (the per-layer collective count of the LM path reads it)."""
+    obs_metrics.registry().counter("comm.collectives", kind="all_reduce",
+                                   op=op).inc()
     with obs_trace.span("all_reduce", cat="collective", op=op,
                         nbytes=_nbytes(x), algorithm=cfg.algorithm,
                         mode=cfg.mode, transport=cfg.transport,

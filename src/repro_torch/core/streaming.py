@@ -301,3 +301,104 @@ def chunked_all_to_all(x: torch.Tensor, comm, cfg: CommConfig,
         sl = x.narrow(1 + tile_axis, start, min(width, dim - start))
         outs.append(all_to_all_blocks(sl, n, cfg, split_axis, concat_axis))
     return torch.cat(outs, dim=1 + tile_axis)
+
+
+# ----------------------------------------------------------------------
+# Streaming tensor parallelism: the row-parallel matmul's combine
+# ----------------------------------------------------------------------
+
+def rank_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-rank product of stacked ``x (P, ..., K)`` and ``w (P, K, N)`` ->
+    ``(P, ..., N)`` in x's dtype: one batched matmul over the rank
+    dimension (fp32 accumulation, one rounding to x's dtype)."""
+    P, K = x.shape[0], x.shape[-1]
+    out = torch.bmm(x.reshape(P, -1, K), w)
+    return out.reshape(x.shape[:-1] + (w.shape[-1],))
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`rank_matmul` with an fp32 result (the JAX package's
+    ``jnp.dot(..., preferred_element_type=float32)``): a bf16 product is
+    not rounded to bf16 before it is summed across ranks."""
+    P, K = x.shape[0], x.shape[-1]
+    x3 = x.reshape(P, -1, K)
+    if x.dtype == torch.float32:
+        out = torch.bmm(x3, w)
+    elif x.is_cuda:
+        out = torch.bmm(x3, w, out_dtype=torch.float32)
+    else:
+        out = torch.bmm(x3.float(), w.float())
+    return out.reshape(x.shape[:-1] + (w.shape[-1],))
+
+
+_side_streams: dict = {}
+
+
+def overlapped_matmul_allreduce(h: torch.Tensor, w: torch.Tensor, comm,
+                                cfg: CommConfig,
+                                n_chunks: int | None = None) -> torch.Tensor:
+    """Row-parallel TP matmul with the reduction double-buffered against
+    compute.
+
+    ``h``: stacked ``(P, tokens, ff_shard)`` activation shards; ``w``:
+    ``(P, ff_shard, d)`` weight shards; result: ``(P, tokens, d)`` fully
+    reduced, in h's dtype.  ``comm`` is the caller's TP communicator.
+
+    Token rows are split into wire chunks (``plans.chunk_plan`` of one
+    rank's f32 ``(tokens, d)`` partial, aligned to whole rows).  On the
+    card each chunk's all-reduce runs on a second stream, forked after the
+    chunk's matmul, so reduce *i* overlaps matmul *i + 1*; under ordered
+    transport chunk *i*'s matmul waits on reduce *i − 2* (the two-deep ack
+    chain of the per-layer double buffering).  On the CPU the chunks run in
+    order.  The per-chunk combine is the native all-reduce (an int8 wire
+    becomes no compression, as in the JAX package).  On the CPU the result
+    is bitwise equal to the whole matmul + all-reduce: row chunking never
+    changes a row's arithmetic there.
+    """
+    import dataclasses
+    from repro_torch.core import collectives
+    from repro_torch.core.config import Transport
+    tokens = h.shape[1]
+    if n_chunks is None:
+        p = plans.chunk_plan((tokens, w.shape[-1]), torch.float32, cfg,
+                             align=w.shape[-1])
+        n_chunks = p.n_chunks
+    n_chunks = max(1, min(n_chunks, tokens))
+    while tokens % n_chunks:
+        n_chunks -= 1
+    cfg_native = dataclasses.replace(
+        cfg, algorithm="native",
+        compression=(Compression.NONE if cfg.compression == Compression.INT8
+                     else cfg.compression))
+    rows = tokens // n_chunks
+    ordered = cfg.transport == Transport.ORDERED
+    side = main = None
+    if h.is_cuda and n_chunks > 1:
+        main = torch.cuda.current_stream(h.device)
+        side = _side_streams.get(h.device)
+        if side is None:
+            side = _side_streams[h.device] = torch.cuda.Stream(h.device)
+    parts: list[torch.Tensor] = []
+    done: list = []
+    for i in range(n_chunks):
+        hc = h[:, i * rows:(i + 1) * rows]
+        if side is not None and ordered and i >= 2:
+            main.wait_event(done[i - 2])
+        partial = matmul_f32(hc, w)
+        if side is None:
+            parts.append(collectives.all_reduce(partial, comm, cfg_native))
+            continue
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = collectives.all_reduce(partial, comm, cfg_native)
+            ev = torch.cuda.Event()
+            ev.record(side)
+        # the caching allocator must not hand either buffer to the other
+        # stream's next allocation before this stream is done with it
+        partial.record_stream(side)
+        out.record_stream(main)
+        parts.append(out)
+        done.append(ev)
+    if side is not None:
+        main.wait_stream(side)
+    return torch.cat(parts, dim=1).to(h.dtype)

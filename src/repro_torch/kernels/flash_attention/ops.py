@@ -1,0 +1,131 @@
+"""Wrapper, build and launch counter for the CUDA flash-attention kernel.
+
+``flash_attention(q, k, v, ...)`` takes the model layout: ``q (N, S, H,
+d)``, ``k``/``v (N, T, KV, d)`` with ``H % KV == 0``.  On CPU tensors it
+runs the plain PyTorch version (:mod:`.ref`); on CUDA tensors it launches
+the kernel of ``csrc/flash_attention.cu`` or raises — there is no fallback.
+The kernel is compiled at first use by :mod:`repro_torch.kernels._build`
+and loaded with ``ctypes``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+
+# Kernel launches issued by `flash_attention`.
+launches = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's instantiations
+_GRID_MAX = 65535                    # grid.y (heads) and grid.z (N)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    vp, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_float)
+    fn = lib.flash_attention_launch
+    fn.argtypes = [vp] * 4 + [i] * 7 + [ll] * 12 + [f, i, i, f, vp]
+    fn.restype = i
+
+
+LIBRARY = _build.Library(SOURCE, _bind)
+
+
+def load_library() -> ctypes.CDLL:
+    """Build the kernel library if needed and load it (once per process)."""
+    return LIBRARY.load()
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0 and all(
+        st * t.element_size() % 16 == 0 for st in t.stride()[:3])
+
+
+def _check(q, k, v, window, softcap) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention takes q (N, S, H, d) and k, v "
+                         "(N, T, KV, d)")
+    N, S, H, d = q.shape
+    if tuple(k.shape) != tuple(v.shape) or k.shape[0] != N \
+            or k.shape[3] != d:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if H % k.shape[2]:
+        raise ValueError(f"flash_attention: {H} q heads do not group onto "
+                         f"{k.shape[2]} kv heads")
+    if window is not None and window < 0:
+        raise ValueError(f"flash_attention: window must be >= 0, got "
+                         f"{window}")
+    if softcap is not None and softcap < 0:
+        raise ValueError(f"flash_attention: softcap must be >= 0, got "
+                         f"{softcap}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """Attention of ``q (N, S, H, d)`` over ``k``/``v (N, T, KV, d)`` ->
+    ``(N, S, H, d)`` in q's dtype (f32 or bf16 on the card), fp32 inside.
+
+    Options as in the JAX package's kernel: ``causal`` (``k_pos <= q_pos``),
+    a sliding ``window`` (``k_pos > q_pos - window``) and a tanh
+    ``softcap``."""
+    global launches
+    _check(q, k, v, window, softcap)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
+                         f"{q.device}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: q, k and v must share a device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention takes float32 or bfloat16 q, k, v "
+                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    N, S, H, d = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if d > HEAD_DIMS[-1]:
+        raise ValueError(f"flash_attention: head dim {d} over "
+                         f"{HEAD_DIMS[-1]}")
+    if H > _GRID_MAX or N > _GRID_MAX or max(S, T) >= 2**31 - 64:
+        raise ValueError(f"flash_attention: shape {tuple(q.shape)} over the "
+                         f"kernel's grid")
+    out_shape = tuple(q.shape)
+    if N * S * H == 0:
+        return q.new_empty(out_shape)
+    dp = next(h for h in HEAD_DIMS if h >= d)
+    if dp != d:
+        # zero columns change no product and give zero output columns
+        q, k, v = (F.pad(t, (0, dp - d)) for t in (q, k, v))
+    # unit inner stride, and every row 16-byte aligned for the tensor-core
+    # path's vector loads: a view that is not is copied (a fresh tensor is)
+    q, k, v = (t if t.stride(-1) == 1 and _rows_aligned(t)
+               else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
+    out = torch.empty((N, S, H, dp), dtype=q.dtype, device=q.device)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], dp, N, S, T, H, KV,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], 1.0 / math.sqrt(d), int(causal),
+            -1 if window is None else int(window),
+            float(softcap) if softcap else 0.0,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    launches += 1
+    return out if dp == d else out[..., :d]

@@ -1,0 +1,57 @@
+"""Plain PyTorch version of the flash-attention kernel.
+
+Dense fp32 attention in the model layout with the masks, the order of
+operations and the floor of the JAX package's Pallas kernel
+(``repro/kernels/flash_attention/flash_attention.py``): scores times
+``1/sqrt(d)``, then the tanh softcap; masked scores are ``-1e30`` and their
+probabilities exactly 0; the output is ``(p @ v) / max(sum p, 1e-30)``.
+Grouped-query attention maps q head ``h`` to kv head ``h // (H / KV)``, as
+the JAX wrapper's ``jnp.repeat`` does.  It serves CPU tensors and the tests;
+the card runs the kernel.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def visible(S: int, T: int, causal: bool, window: Optional[int],
+            device) -> torch.Tensor:
+    """``(S, T)`` mask of the keys each query sees: positions unshifted,
+    both from 0 (also when ``S != T``)."""
+    q_pos = torch.arange(S, device=device)[:, None]
+    k_pos = torch.arange(T, device=device)[None, :]
+    ok = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        ok &= k_pos <= q_pos
+    if window is not None:
+        ok &= k_pos > q_pos - window
+    return ok
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None) -> torch.Tensor:
+    """``q (N, S, H, d)``, ``k``/``v (N, T, KV, d)`` -> ``(N, S, H, d)`` in
+    q's dtype, computed in fp32."""
+    N, S, H, d = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    qf = q.float().transpose(1, 2)                                # N H S d
+    kf = k.float().transpose(1, 2).repeat_interleave(rep, dim=1)  # N H T d
+    vf = v.float().transpose(1, 2).repeat_interleave(rep, dim=1)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    if softcap:
+        c = s.new_full((), softcap)
+        s = c * torch.tanh(s / c)
+    ok = visible(S, T, causal, window, q.device)
+    s = torch.where(ok, s, s.new_full((), NEG_INF))
+    p = torch.where(ok, torch.exp(s - s.amax(-1, keepdim=True)),
+                    s.new_zeros(()))
+    denom = torch.clamp_min(p.sum(-1, keepdim=True), 1e-30)
+    out = torch.matmul(p, vf) / denom
+    return out.transpose(1, 2).to(q.dtype)

@@ -1,0 +1,220 @@
+"""Core layers of the dense LM path on stacked tensor-parallel ranks.
+
+Every activation and every weight carries the ranks of the ``model`` axis
+as its leading dimension: rank ``p``'s value is ``x[p]``.  A replicated
+weight (a norm's scale) is the same row on every rank.
+
+Tensor-parallel convention, as in the JAX package: activations enter
+replicated across the ``model`` axis; column-parallel matmuls produce
+sharded features; row-parallel matmuls produce partial sums that are
+combined with an ACCL-X all-reduce.  The combine runs **buffered** (one
+all-reduce after the full matmul) or **streaming** (the chunk-pipelined
+:func:`repro_torch.core.streaming.overlapped_matmul_allreduce`) per the
+CommConfig — the paper's §3.1 modes applied to TP.
+
+Where the JAX package reads ``lax.axis_index``, these functions take the
+rank from ``comm.rank()``: one value per row of the rank dimension.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import collectives, plans, streaming
+from repro_torch.core.config import CommMode, Scheduling
+from repro_torch.models.common import Runtime
+
+rank_matmul = streaming.rank_matmul
+matmul_f32 = streaming.matmul_f32
+
+
+def per_rank(w: torch.Tensor, ndim: int) -> torch.Tensor:
+    """View a per-rank leaf ``(P, *shape)`` so that it broadcasts against a
+    stacked ``(P, ..., *shape)`` tensor of ``ndim`` dimensions."""
+    return w.reshape((w.shape[0],) + (1,) * (ndim - w.dim())
+                     + tuple(w.shape[1:]))
+
+
+def rank_index(rt: Runtime, device) -> torch.Tensor:
+    """This row's rank on the ``model`` axis, for every row: ``(tp,)``."""
+    return rt.tp_comm().rank(device)
+
+
+# ----------------------------------------------------------------------
+# Initialization helpers (full, unsharded arrays; sharding.shard_params
+# cuts them into per-rank shards)
+# ----------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
+               device) -> torch.Tensor:
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                    device=device)
+    return (w * (1.0 / d_in) ** 0.5).to(dtype)
+
+
+# ----------------------------------------------------------------------
+# Normalization
+# ----------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    """``x (P, ..., D)``, ``weight (P, D)``; the scale is ``1 + weight``."""
+    h = x.float()
+    var = torch.mean(h * h, dim=-1, keepdim=True)
+    h = h * torch.rsqrt(var + eps)
+    return (h * (1.0 + per_rank(weight, x.dim()).float())).to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# Rotary position embedding
+# ----------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None
+                     ) -> torch.Tensor:
+    """``1 / theta ** (arange(0, hd, 2) / hd)`` in f32, computed once on the
+    CPU per (head_dim, theta) and kept on ``device``: the same table on
+    every device, and no host-to-device copy (a sync) per call."""
+    def build():
+        exps = (torch.arange(0, head_dim, 2, dtype=torch.float32)
+                / torch.tensor(float(head_dim)))
+        base = torch.tensor(theta, dtype=torch.float32)
+        return (torch.ones(()) / torch.pow(base, exps)).to(device)
+    return plans._memo("rope_frequencies",
+                       (head_dim, float(theta), str(device)), build)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq), broadcast
+    against x's leading dims."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs      # (..., seq, hd/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# Tensor-parallel matmuls
+# ----------------------------------------------------------------------
+
+def tp_grad_sum(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's *f* operator: identity forward.  Its backward (an
+    all-reduce of the cotangent) comes with the training slice; serving
+    runs only the forward."""
+    return x
+
+
+def col_parallel(x: torch.Tensor, w_shard: torch.Tensor) -> torch.Tensor:
+    """Replicated x @ column-sharded w -> feature-sharded output (no
+    comm)."""
+    return rank_matmul(x, w_shard)
+
+
+def row_parallel(x_shard: torch.Tensor, w_shard: torch.Tensor,
+                 rt: Runtime) -> torch.Tensor:
+    """Feature-sharded x @ row-sharded w -> replicated output (one
+    combine).
+
+    Streaming mode — and any config with ``Scheduling.OVERLAPPED`` — routes
+    the combine through ``streaming.overlapped_matmul_allreduce`` (the
+    per-layer TP reduce chunked and double-buffered against the matmul);
+    buffered non-overlapped configs issue one all-reduce after the full
+    matmul.  On the CPU all paths are bitwise identical."""
+    if rt.mesh.tp == 1:
+        return rank_matmul(x_shard, w_shard)
+    if (rt.comm.mode == CommMode.STREAMING
+            or rt.comm.scheduling == Scheduling.OVERLAPPED):
+        lead = x_shard.shape[:-1]
+        h2 = x_shard.reshape(x_shard.shape[0], -1, x_shard.shape[-1])
+        out = streaming.overlapped_matmul_allreduce(
+            h2, w_shard, rt.tp_comm(), rt.comm)
+        return out.reshape(*lead, w_shard.shape[-1]).to(x_shard.dtype)
+    partial = matmul_f32(x_shard, w_shard)
+    out = collectives.all_reduce(partial, rt.tp_comm(), rt.comm)
+    return out.to(x_shard.dtype)
+
+
+# ----------------------------------------------------------------------
+# MLP (SwiGLU / GELU), column->row parallel
+# ----------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, mlp_type: str,
+             dtype, device):
+    p = {"w_up": dense_init(gen, d_model, d_ff, dtype, device),
+         "w_down": dense_init(gen, d_ff, d_model, dtype, device)}
+    if mlp_type == "swiglu":
+        p["w_gate"] = dense_init(gen, d_model, d_ff, dtype, device)
+    return p
+
+
+def mlp(params, x: torch.Tensor, rt: Runtime, mlp_type: str
+        ) -> torch.Tensor:
+    x = tp_grad_sum(x)
+    up = col_parallel(x, params["w_up"])
+    if mlp_type == "swiglu":
+        gate = col_parallel(x, params["w_gate"])
+        h = F.silu(gate.float()).to(x.dtype) * up
+    else:
+        h = F.gelu(up.float(), approximate="tanh").to(x.dtype)
+    return row_parallel(h, params["w_down"], rt)
+
+
+# ----------------------------------------------------------------------
+# Vocab-sharded embedding / logits / greedy sampling
+# ----------------------------------------------------------------------
+
+def init_embedding(gen: torch.Generator, vocab: int, d_model: int, dtype,
+                   device):
+    emb = torch.randn((vocab, d_model), generator=gen, dtype=torch.float32,
+                      device=device) * 0.02
+    return {"table": emb.to(dtype)}
+
+
+def embed(params, token_ids: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """Vocab-sharded lookup of ``token_ids (B, S)`` (the same on every
+    rank): local gather + all-reduce of masked rows -> ``(P, B, S, D)``."""
+    table = params["table"]            # (P, vocab/tp, D) local shards
+    tp = rt.mesh.tp
+    if tp == 1 or table.shape[1] >= rt.cfg.vocab_size:
+        return table[:, token_ids]
+    shard = rank_index(rt, table.device).view((tp,) + (1,) * token_ids.dim())
+    vshard = table.shape[1]
+    local = token_ids.unsqueeze(0) - shard * vshard     # (P, B, S)
+    valid = (local >= 0) & (local < vshard)
+    rows = table[shard, local.clamp(0, vshard - 1)]     # (P, B, S, D)
+    rows = torch.where(valid[..., None], rows, torch.zeros_like(rows))
+    return collectives.all_reduce(rows, rt.tp_comm(), rt.comm
+                                  ).to(table.dtype)
+
+
+def logits_shard(params, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """x (P, …, D) -> vocab-sharded f32 logits (P, …, vocab/tp); no
+    combine (sampling handles the sharded vocab with two small
+    reductions)."""
+    table = params["table"]
+    x = tp_grad_sum(x)
+    return matmul_f32(x, table.transpose(1, 2).to(x.dtype))
+
+
+def greedy_sample_vocab_sharded(logits: torch.Tensor, rt: Runtime
+                                ) -> torch.Tensor:
+    """argmax over vocab-sharded logits ``(P, B, vocab/tp)`` -> int32
+    ``(P, B)``, the same token on every rank: an all-reduce ``max`` of the
+    local maxima, then an all-reduce ``min`` of the int32 candidates (the
+    lowest index among equal maxima, as ``argmax`` picks)."""
+    tp = rt.mesh.tp
+    vshard = logits.shape[-1]
+    local_max = logits.amax(dim=-1)
+    local_arg = logits.argmax(dim=-1).to(torch.int32)
+    if tp == 1 or vshard >= rt.cfg.vocab_size:
+        return local_arg
+    shard = rank_index(rt, logits.device).to(torch.int32).view(
+        (tp,) + (1,) * (local_arg.dim() - 1))
+    global_arg = local_arg + shard * vshard
+    gmax = collectives.all_reduce(local_max, rt.tp_comm(), rt.comm, op="max")
+    cand = torch.where(local_max >= gmax, global_arg,
+                       torch.full_like(global_arg, torch.iinfo(torch.int32).max))
+    return collectives.all_reduce(cand, rt.tp_comm(), rt.comm, op="min")

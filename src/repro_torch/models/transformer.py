@@ -1,0 +1,119 @@
+"""Model assembly for the dense family (qwen3): initialisation and the full
+forward pass (prefill logits), on stacked tensor-parallel ranks.
+
+The JAX package scans its stacked layers with ``lax.scan``; here the
+per-layer loop is a Python loop over views of the stacked weights.
+Families other than dense without local/global attention come with later
+slices and raise here.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.models import attention, layers
+from repro_torch.models.common import ModelConfig, Runtime
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.local_global_ratio or cfg.use_mla:
+        raise NotImplementedError(
+            f"the port runs the dense family without local/global attention "
+            f"so far, not {cfg.name} ({cfg.family}); see ROADMAP.md Queue 1 "
+            f"item 8")
+
+
+def layer_params(stacked: Any, i: int) -> Any:
+    """Layer ``i``'s weights: views of the stacked ``(L, ...)`` leaves."""
+    if isinstance(stacked, dict):
+        return {k: layer_params(v, i) for k, v in stacked.items()}
+    return stacked[i]
+
+
+# ----------------------------------------------------------------------
+# Initialization (full, unsharded arrays; sharding.shard_params cuts them)
+# ----------------------------------------------------------------------
+
+def init_dense_layer(gen: torch.Generator, cfg: ModelConfig, tp: int,
+                     device) -> dict:
+    return {
+        "ln1": torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device),
+        "attn": attention.init_attention(gen, cfg, cfg.dtype, device, tp),
+        "ln2": torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device),
+        "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type,
+                               cfg.dtype, device),
+    }
+
+
+def _fill(stack: Any, i: int, layer: Any) -> None:
+    if isinstance(layer, dict):
+        for k, v in layer.items():
+            _fill(stack[k], i, v)
+    else:
+        stack[i].copy_(layer)
+
+
+def _alloc(layer: Any, n: int) -> Any:
+    if isinstance(layer, dict):
+        return {k: _alloc(v, n) for k, v in layer.items()}
+    return layer.new_empty((n,) + tuple(layer.shape))
+
+
+def init_model(seed: int, cfg: ModelConfig, tp: int = 1, device=None):
+    """Full parameter tree of the JAX package's layout (``layers`` leaves
+    stacked ``(n_layers, ...)``), drawn from ``torch.Generator(seed)`` on
+    ``device``.  The JAX package draws other numbers from the same seed:
+    to run both on the same weights, take the JAX package's parameters
+    through ``sharding.from_reference``."""
+    _require_dense(cfg)
+    device = torch.device(device or "cpu")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params: dict[str, Any] = {
+        "embed": layers.init_embedding(gen, cfg.vocab_size, cfg.d_model,
+                                       cfg.dtype, device),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.dtype,
+                                  device=device),
+    }
+    stack = None
+    for i in range(cfg.n_layers):
+        layer = init_dense_layer(gen, cfg, tp, device)
+        if stack is None:
+            stack = _alloc(layer, cfg.n_layers)
+        _fill(stack, i, layer)
+    params["layers"] = stack
+    return params
+
+
+# ----------------------------------------------------------------------
+# Forward
+# ----------------------------------------------------------------------
+
+def dense_block(p, x, positions, rt: Runtime, window=None):
+    h = layers.rms_norm(x, p["ln1"], rt.cfg.norm_eps)
+    x = x + attention.attention(p["attn"], h, positions, rt, window=window)
+    h = layers.rms_norm(x, p["ln2"], rt.cfg.norm_eps)
+    return x + layers.mlp(p["mlp"], h, rt, rt.cfg.mlp_type)
+
+
+class ForwardOut(NamedTuple):
+    logits: torch.Tensor     # vocab-sharded (P, B, S, V/tp), f32
+
+
+def positions_for(tokens: torch.Tensor) -> torch.Tensor:
+    B, S = tokens.shape
+    return torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+
+
+def forward(params, batch: dict, rt: Runtime) -> ForwardOut:
+    """Logits of every position of ``batch["tokens"] (B, S)``."""
+    cfg = rt.cfg
+    _require_dense(cfg)
+    tokens = batch["tokens"]
+    x = layers.embed(params["embed"], tokens, rt)
+    positions = positions_for(tokens)
+    for i in range(cfg.n_layers):
+        x = dense_block(layer_params(params["layers"], i), x, positions, rt,
+                        window=cfg.sliding_window)
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return ForwardOut(logits=layers.logits_shard(params["embed"], x, rt))

@@ -14,7 +14,12 @@ plain version vs the kernel 1e-4 (``tests/test_swe.py``'s parity bound).
 The int8 ring on the card vs the plain wire on the CPU: bitwise equal (the
 kernels divide as the plain version does, IEEE, and the same f32 reducer
 runs in the same order); a streamed sendrecv: one quantisation step of the
-source rank's block."""
+source rank's block.
+
+The flash-attention kernel against its plain version: 3e-5 in float32 and
+2e-2 in bfloat16 (``tests/test_kernels.py``'s bounds); the smoke serving
+path (float32) on the card against the CPU: equal greedy tokens, logits
+within 1e-4 of max|logit| (``tests/test_torch_serve.py``'s bound)."""
 import dataclasses
 
 import numpy as np
@@ -24,7 +29,9 @@ import torch
 from repro_torch.core import collectives
 from repro_torch.core.communicator import Communicator
 from repro_torch.core.config import (BASELINE_CONFIG, OVERLAPPED_CONFIG,
-                                     CommConfig, Compression, Scheduling)
+                                     CommConfig, Compression, Scheduling,
+                                     Transport)
+from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.quant import ops as quant_ops, ref as quant_ref
 from repro_torch.kernels.swe_step import ops, ref
 from repro_torch.swe import driver
@@ -170,3 +177,128 @@ def test_int8_wire_streams_strided_chunks(card):
     want = collectives.sendrecv(x_cpu, comm.ring_perm(), comm, cfg)
     step = x_cpu.abs().amax(1).roll(1).unsqueeze(1) / 127.0
     assert ((got.cpu() - want).abs() <= step * 1.0001).all()
+
+
+# (N, S, T, H, KV, d, causal, window, softcap)
+FLASH_CASES = [
+    (2, 64, 64, 4, 2, 16, True, None, None),
+    (2, 100, 77, 4, 4, 32, False, None, None),
+    (1, 130, 200, 8, 2, 64, True, 37, None),
+    (3, 65, 129, 4, 1, 128, False, None, 5.0),
+    (1, 33, 300, 2, 2, 48, True, 17, 5.0),
+    (2, 257, 257, 4, 2, 256, True, None, None),
+    (1, 150, 70, 2, 2, 16, True, 20, None),
+    (16, 1024, 1024, 8, 2, 128, True, None, None),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(card, case, dtype):
+    N, S, T, H, KV, d, causal, window, softcap = case
+    gen = torch.Generator(device=card).manual_seed(sum(case[:6]))
+    q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
+               for shape in ((N, S, H, d), (N, T, KV, d), (N, T, KV, d)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa_ref.flash_attention_ref(q, k, v, **kw).float()
+    tol = 3e-5 if dtype == torch.float32 else 2e-2
+    # tests/test_kernels.py's assert_allclose(atol=tol, rtol=tol)
+    assert ((got.float() - want).abs() <= tol + tol * want.abs()).all()
+
+
+def test_flash_kernel_takes_strided_views(card):
+    """q/k/v as views of a fused (N, S, 3, H, d) projection: the kernel
+    reads them through their strides."""
+    qkv = torch.randn(2, 96, 3, 4, 32, device=card)
+    q, k, v = qkv.unbind(2)
+    got = fa_ops.flash_attention(q, k, v, window=10, softcap=2.0)
+    want = fa_ref.flash_attention_ref(q, k, v, window=10, softcap=2.0)
+    assert ((got - want).abs() <= 3e-5 + 3e-5 * want.abs()).all()
+
+
+def test_flash_kernel_copies_unaligned_bf16_views(card):
+    """bf16 views whose rows do not start 16-byte aligned (an odd element
+    offset, an odd row stride) still take the tensor-core path: the
+    wrapper copies them first."""
+    N, S, H, d = 2, 80, 4, 64
+    buf = torch.randn(1 + N * S * H * (d + 1), device=card).bfloat16()
+    q = buf[1:].view(N, S, H, d + 1)[..., :d]
+    k, v = q[:, :, :2], q[:, :, 2:]
+    got = fa_ops.flash_attention(q, k, v)
+    want = fa_ref.flash_attention_ref(q, k, v).float()
+    assert ((got.float() - want).abs() <= 2e-2 + 2e-2 * want.abs()).all()
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(card):
+    q = torch.randn(1, 8, 2, 16, device=card)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, q.cpu(), q)
+    big = torch.randn(1, 8, 2, 512, device=card)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(big, big, big)
+
+
+def test_smoke_serving_on_the_card_matches_the_cpu(card):
+    """qwen3's smoke config in float32 at tp = 4 from the same weights:
+    one flash-kernel launch per layer per prefill, the same greedy tokens
+    over 4 decode steps as on the CPU, logits within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import input_specs as isp
+    from repro_torch.models import decode as dec, sharding, transformer
+    from repro_torch.train import serve
+    cfg = dataclasses.replace(get_smoke_config("qwen3-8b"),
+                              dtype=torch.float32)
+    tp, B, S, GEN = 4, 4, 24, 4
+    full = transformer.init_model(0, cfg, tp, "cpu")
+    toks = np.random.RandomState(0).randint(0, cfg.vocab_size, (B, S))
+    out = {}
+    for where in ("cpu", card):
+        params = sharding.shard_params(full, cfg, tp, where)
+        rt, pre = serve.build_serve_fn(
+            cfg, tp, CommConfig(), isp.ShapeSpec("s", S, B, "prefill"),
+            cache_capacity=S + GEN, device=where)
+        _, step = serve.build_serve_fn(
+            cfg, tp, CommConfig(), isp.ShapeSpec("s", S + GEN, B, "decode"),
+            device=where)
+        before = fa_ops.launches
+        st = pre(params, {"tokens": toks})
+        launched = fa_ops.launches - before
+        got = []
+        for _ in range(GEN):
+            nxt = dec.greedy_tokens(st, rt)
+            got.append(nxt.cpu())
+            st = step(params, nxt, st)
+        out[str(where)] = (torch.stack(got, 1), st.last_logits.cpu(),
+                           launched)
+    cpu, gpu = out["cpu"], out[str(card)]
+    assert cpu[2] == 0 and gpu[2] == cfg.n_layers
+    assert torch.equal(cpu[0], gpu[0])
+    assert (cpu[1] - gpu[1]).abs().max() <= 1e-4 * cpu[1].abs().max()
+
+
+def test_overlapped_combine_on_the_card(card):
+    """The streamed row-parallel combine (16 chunks on a second stream)
+    against the whole matmul + all-reduce: bitwise equal, as the JAX
+    package promises, so that a stream or event ordering fault shows."""
+    from repro_torch.core import streaming
+    comm = Communicator(("model",), (4,))
+    gen = torch.Generator(device=card).manual_seed(0)
+    h = torch.randn(4, 1024, 768, generator=gen, device=card)
+    w = torch.randn(4, 768, 1024, generator=gen, device=card)
+    whole = collectives.all_reduce(streaming.matmul_f32(h, w), comm,
+                                   CommConfig())
+    for cfg in (CommConfig(chunk_bytes=1 << 18),
+                CommConfig(chunk_bytes=1 << 18,
+                           transport=Transport.ORDERED, window=2)):
+        got = streaming.overlapped_matmul_allreduce(h, w, comm, cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(got, whole), (got - whole).abs().max().item()

@@ -1,0 +1,102 @@
+"""The port's flash attention (its plain version, which the CPU runs)
+against the JAX package's, on the CPU.
+
+- against ``repro/kernels/flash_attention/ops.py::flash_attention``, the
+  Pallas kernel in interpret mode, and against its oracle
+  ``flash_attention_reference`` (``ref.py::attention_ref``), in the model
+  layout ``(B, S, H, d)`` / ``(B, T, KV, d)`` with GQA;
+- options: causal or not, a sliding window, a tanh softcap, lengths that
+  are not multiples of the tile, S != T both ways, rows that see no key,
+  and q heads over kv heads at rep 1, 2 and 4.
+
+Tolerances: 3e-5 in float32 and 2e-2 in bfloat16, the bounds of
+``tests/test_kernels.py::test_flash_attention_sweep`` (the summation order
+of the products and of the online softmax differs; bf16 outputs round
+once).  The CUDA kernel is held against this plain version on the card at
+the same tolerances (``tests/test_torch_cuda.py``, ``cuda`` marker).
+
+JAX runs in this process (one CPU device suffices): no subprocess."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as jax_ops
+
+from repro_torch.kernels.flash_attention import ops, ref
+
+# name -> (B, S, T, H, KV, d, causal, window, softcap)
+CASES = {
+    "causal_rep2": (2, 100, 100, 4, 2, 16, True, None, None),
+    "full_rep1": (1, 64, 64, 2, 2, 32, False, None, None),
+    "window_rep4": (1, 200, 200, 8, 2, 32, True, 37, None),
+    "softcap": (2, 130, 130, 4, 2, 16, True, None, 5.0),
+    "window_softcap_bidirectional": (1, 90, 90, 4, 4, 16, False, 20, 3.0),
+    "cross_S_lt_T": (1, 64, 300, 2, 2, 32, False, None, None),
+    "cross_causal_S_gt_T_rep4": (1, 150, 70, 4, 1, 16, True, None, None),
+    "ragged_multi_tile_rep4": (2, 129, 129, 8, 2, 64, True, None, None),
+    "cross_causal_window": (1, 50, 140, 4, 2, 16, True, 30, None),
+    "rows_without_keys": (1, 150, 70, 2, 2, 16, True, 20, None),
+}
+DTYPES = {"f32": (torch.float32, jnp.float32, 3e-5),
+          "bf16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
+
+
+def _inputs(case, seed=0):
+    B, S, T, H, KV, d = CASES[case][:6]
+    rng = np.random.RandomState(seed + sum(map(ord, case)))
+    return (rng.randn(B, S, H, d).astype(np.float32),
+            rng.randn(B, T, KV, d).astype(np.float32),
+            rng.randn(B, T, KV, d).astype(np.float32))
+
+
+def _kwargs(case):
+    causal, window, softcap = CASES[case][6:]
+    return dict(causal=causal, window=window, softcap=softcap)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_version_matches_the_jax_kernel(case, dtype):
+    tdt, jdt, tol = DTYPES[dtype]
+    q, k, v = _inputs(case)
+    kw = _kwargs(case)
+    got = ref.flash_attention_ref(*(torch.from_numpy(a).to(tdt)
+                                    for a in (q, k, v)), **kw)
+    assert got.dtype == tdt and tuple(got.shape) == q.shape
+    got = got.float().numpy()
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+    kernel = np.asarray(jax_ops.flash_attention(jq, jk, jv, interpret=True,
+                                                **kw), np.float32)
+    oracle = np.asarray(jax_ops.flash_attention_reference(jq, jk, jv, **kw),
+                        np.float32)
+    np.testing.assert_allclose(got, kernel, atol=tol, rtol=tol)
+    np.testing.assert_allclose(got, oracle, atol=tol, rtol=tol)
+    if case == "rows_without_keys":
+        # q rows >= T - 1 + window see no key: exactly zero on both sides
+        S, T, w = CASES[case][1], CASES[case][2], CASES[case][7]
+        assert not got[:, T - 1 + w:].any()
+        assert not kernel[:, T - 1 + w:].any()
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """On CPU tensors the wrapper is the plain version: the same values,
+    bitwise, and no kernel launch counted."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs("window_rep4"))
+    before = ops.launches
+    got = ops.flash_attention(q, k, v, causal=True, window=37)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=37)
+    assert torch.equal(got, want)
+    assert ops.launches == before
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v = (torch.from_numpy(a) for a in _inputs("causal_rep2"))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k[:, :, :1].expand(-1, -1, 3, -1), v)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v[:, :50])
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v, window=-1)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q[0], k[0], v[0])
