@@ -44,7 +44,19 @@ exits non-zero:
    version, one prefill and one decode step profiled by kernel, the
    overlapped row-parallel combine against the whole matmul + all-reduce,
    and the smoke config in f32 on the card against the CPU;
-7. a ``kernels:`` line, the kernel table as one JSON line, and as the last
+7. the SSM serving path: the SSD chunked-scan kernel against its plain
+   version at test_ssd_scan_sweep's shapes (f32) and at the serving shape
+   (tp 4 x batch 8 x 6 heads, 2048 tokens, head dim 64, state 128, chunk
+   128; bf16 and f32, against the plain version in float64), timed beside
+   its plain version and its bound (before phase 3, beside the other
+   kernels); then mamba2-130m at full width (24 layers, d_model 768,
+   vocab 50,280, bf16, tp = 4 stacked, random weights from seed 0) serving
+   16 requests in waves of 8 with 2048-token prompts through
+   ``examples/serve_lm_torch.py``, one wave's logits through the kernel
+   against the plain version and against two faults planted in the plain
+   version, one prefill and one decode step profiled by kernel, and the
+   smoke config in f32 on the card against the CPU;
+8. a ``kernels:`` line, the kernel table as one JSON line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and exits non-zero without one, or when the repository
@@ -895,18 +907,18 @@ def _leaves(tree):
         yield tree
 
 
-def phase_serve_smoke(dev) -> None:
-    """The smoke config in f32, tp = 4, on the card and on the CPU from the
-    same weights: greedy tokens over 4 decode steps equal; on the card,
-    decode equals prefill of the extended sequence."""
+def phase_serve_smoke(dev, arch: str, S: int, GEN: int) -> None:
+    """``arch``'s smoke config in f32, tp = 4, on the card and on the CPU
+    from the same weights: greedy tokens over GEN decode steps after an
+    S-token prompt equal; on the card, decode equals prefill of the
+    extended sequence."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.config import CommConfig
     from repro_torch.launch import input_specs as isp
     from repro_torch.models import decode as dec, sharding, transformer
     from repro_torch.train import serve as serve_mod
-    cfg = dataclasses.replace(get_smoke_config("qwen3-8b"),
-                              dtype=torch.float32)
-    tp, B, S, GEN = 4, 4, 24, 4
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    tp, B = 4, 4
     full = transformer.init_model(0, cfg, tp, "cpu")
     toks = np.random.RandomState(0).randint(0, cfg.vocab_size, (B, S))
     runs = []
@@ -943,9 +955,232 @@ def phase_serve_smoke(dev) -> None:
     check(rel <= SMOKE_REL and rel_cpu <= SMOKE_REL,
           f"smoke logits: decode vs extended prefill {rel}, card vs CPU "
           f"{rel_cpu} (bound {SMOKE_REL})")
-    log(f"[serve] smoke f32 tp {tp}: greedy tokens over {GEN} decode steps "
-        f"equal on the card and the CPU; decode vs prefill of the extended "
-        f"sequence {rel:.2e}, card vs CPU {rel_cpu:.2e} of max|logit|")
+    log(f"[serve] {cfg.name} f32 tp {tp}: greedy tokens over {GEN} decode "
+        f"steps after {S} prompt tokens equal on the card and the CPU; "
+        f"decode vs prefill of the extended sequence {rel:.2e}, card vs CPU "
+        f"{rel_cpu:.2e} of max|logit|")
+
+
+# ----------------------------------------------------------------------
+# The SSM serving path: the SSD scan kernel and mamba2-130m
+# ----------------------------------------------------------------------
+
+# tests/test_kernels.py::test_ssd_scan_sweep's bound, its atol = rtol form
+SSD_TOL = 1e-4
+# (R, B, S, H, P, N, chunk): the three shapes of test_ssd_scan_sweep, then
+# mamba2-130m's serving shape (tp 4 x batch 8 x 6 heads per rank, 2048
+# tokens in 16 chunks of 128)
+SSD_GRID = [(1, 1, 32, 2, 8, 8, 16), (1, 2, 64, 3, 16, 8, 16),
+            (1, 1, 128, 4, 32, 16, 32)]
+SSD_SERVE = (4, 8, 2048, 6, 64, 128, 128)
+# At the serving shape the cumulative decay reaches ~-1.4e3, where f32's
+# spacing is ~1e-4: two right summation orders differ at that level, so
+# the kernel is held against the plain version run in float64, to at most
+# SSD_F64_SLACK times the f32 plain version's own error plus
+# SSD_F64_FLOOR * max|y|.
+SSD_F64_SLACK, SSD_F64_FLOOR = 2.0, 1e-6
+SSM_ARGV = ["--arch", "mamba2-130m", "--tp", "4", "--batch", "8",
+            "--prompt-len", "2048", "--gen", "64", "--requests", "16",
+            "--comm", "static"]
+# kernel vs plain logits of one full-width bf16 wave, as a share of
+# max|logit|, over every position, through the served model's first
+# SSM_GATE_LAYERS layers.  The random-weight model is chaotic with depth: a
+# relative 1e-7 noise on y moves every-position logits by 1.189e-3 of
+# max|logit| through one bf16 layer and 7.685e-2 through two, and a 1e-6
+# noise the last position of all 24 by 0.7862, so only a shallow cut tells
+# rounding from a fault.  The two planted faults move the one-layer logits
+# by 0.5014 and 1.719 (examples/ssm_fault_probe_torch.py on the CPU, 2 x
+# 512 tokens), and the phase checks that each still exceeds the bound.
+SSM_GATE_LAYERS = 1
+SSM_LOGITS_REL = 5e-2
+
+
+def ssd_work(case, itemsize: int) -> tuple[int, int]:
+    """(FLOPs, bytes) the scan must spend on these inputs: per chunk, C·Bᵀ
+    over the i >= j triangle once per (rank, batch, group), and per head
+    W·(dt·x) over the triangle, C·h_prev and the state update Bᵀ·x; x, B,
+    C (itemsize), dt and A (f32) read once, y and h_final (f32) written
+    once."""
+    R, B, S, H, P, N, L = case
+    G, nc, tri = 1, S // L, L * (L + 1) // 2
+    flops = (R * B * G * nc * 2 * tri * N
+             + R * B * H * nc * (2 * tri * P + 4 * L * N * P))
+    nbytes = (itemsize * (R * B * S * H * P + 2 * R * B * S * G * N)
+              + 4 * (R * B * S * H + R * H + R * B * S * H * P
+                     + R * B * H * N * P))
+    return flops, nbytes
+
+
+def ssd_inputs(case, dtype, gen, dev, serving=False):
+    """Seeded scan inputs.  The unit shapes take test_ssd_scan_sweep's
+    (dt in [0.01, ~0.4], A in -[0.5, ~3]); the serving shape the model's
+    (dt = softplus of a unit normal, A = -linspace(1, 16, 24) cut into
+    each rank's 6 heads), where the decay is steepest."""
+    R, B, S, H, P, N, _ = case
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    if serving:
+        dt = torch.nn.functional.softplus(rnd(R, B, S, H))
+        a = -torch.linspace(1.0, 16.0, R * H, device=dev).view(R, H)
+    else:
+        dt = rnd(R, B, S, H).abs() * 0.1 + 0.01
+        a = -(rnd(R, H).abs() + 0.5)
+    return (rnd(R, B, S, H, P).to(dtype), dt, a,
+            rnd(R, B, S, 1, N).to(dtype), rnd(R, B, S, 1, N).to(dtype))
+
+
+def phase_ssd_kernel(dev, flush, bw) -> dict:
+    """The SSD scan kernel against its plain version at the unit shapes
+    (f32, per element) and at the serving shape (bf16 and f32, against the
+    plain version in float64), then timed at the serving shape in bf16
+    beside its plain version and its bound (no PyTorch call computes the
+    scan: no library time)."""
+    from repro_torch.kernels.ssd_scan import ops as ssd, ref
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst = 0.0
+    for case in SSD_GRID:
+        inp = ssd_inputs(case, torch.float32, gen, dev)
+        got = ssd.ssd_chunked(*inp, case[-1])
+        want = ref.ssd_chunked_ref(*inp, case[-1])
+        for g, w, what in zip(got, want, ("y", "h_final")):
+            diff = (g - w).abs()
+            err = diff.max().item()
+            check(bool((diff <= SSD_TOL + SSD_TOL * w.abs()).all()),
+                  f"ssd_scan {case} {what}: max|kernel - plain| {err} over "
+                  f"{SSD_TOL} + {SSD_TOL} |plain|")
+            worst = max(worst, err)
+    log(f"[ssd] kernel vs plain on {len(SSD_GRID)} unit shapes (f32): "
+        f"max|err| {worst:.3e} (tol {SSD_TOL} + {SSD_TOL} |plain|)")
+    L = SSD_SERVE[-1]
+    for dt in (torch.bfloat16, torch.float32):
+        inp = ssd_inputs(SSD_SERVE, dt, gen, dev, serving=True)
+        got = ssd.ssd_chunked(*inp, L)
+        plain = ref.ssd_chunked_ref(*inp, L)
+        exact = ref.ssd_chunked_ref(*(t.double() for t in inp), L)
+        for g, p, e, what in zip(got, plain, exact, ("y", "h_final")):
+            err_k = (g.double() - e).abs().max().item()
+            err_p = (p.double() - e).abs().max().item()
+            bound = (SSD_F64_SLACK * err_p
+                     + SSD_F64_FLOOR * e.abs().max().item())
+            gap = (g - p).abs().max().item()
+            check(err_k <= bound, f"ssd_scan serving shape {dt} {what}: "
+                  f"kernel off float64 by {err_k}, over {bound} (f32 plain "
+                  f"off by {err_p})")
+            log(f"[ssd] serving shape {dt} {what}: max|kernel - f64| "
+                f"{err_k:.3e}, max|plain f32 - f64| {err_p:.3e} (bound "
+                f"{bound:.3e}); max|kernel - plain| {gap:.3e}")
+            worst = max(worst, gap)
+        del got, plain, exact
+    inp = ssd_inputs(SSD_SERVE, torch.bfloat16, gen, dev, serving=True)
+    flops, nbytes = ssd_work(SSD_SERVE, 2)
+    ops_ms, bytes_ms = flops / BF16_FLOP_PER_S * 1e3, nbytes / bw * 1e3
+    k_ms = time_ms(lambda: ssd.ssd_chunked(*inp, L), flush)
+    p_ms = time_ms(lambda: ref.ssd_chunked_ref(*inp, L), flush)
+    out = dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
+               bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               max_abs_err=worst)
+    log(f"[ssd] serving shape {SSD_SERVE} bf16: kernel {k_ms * 1e3:.2f} us, "
+        f"plain {p_ms * 1e3:.2f} us, bound {out['bound_ms'] * 1e3:.2f} us "
+        f"({flops / 1e9:.2f} GFLOP at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s, "
+        f"{nbytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s: {out['bound_by']});"
+        f" kernel at {100 * out['bound_ms'] / k_ms:.1f} % of its bound; "
+        f"library call: none")
+    return out
+
+
+def phase_serve_ssm(dev) -> int:
+    """mamba2-130m at full width serving 16 requests through the example's
+    continuous-batching loop; then one wave's logits at every position
+    through the served model's first layer(s), through the kernel against
+    the plain version and against two faults planted in the plain version;
+    the full-depth prefill's last-position gap is printed.  Returns the
+    SSD launches of the serving run."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.launch import input_specs as isp, setup
+    from repro_torch.models import decode as dec, transformer
+    from repro_torch.train import serve as serve_mod
+    ex = load_example("serve_lm_torch")
+    probe = load_example("ssm_fault_probe_torch")
+    args = ex.parser().parse_args(SSM_ARGV)
+    cfg = ex.model_config(args)
+    comm = ex.COMMS[args.comm]
+    t0 = time.perf_counter()
+    sess = setup.build_session(cfg, args.tp, comm, seed=args.seed,
+                               device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(sess.params))
+    log(f"[ssm] {cfg.name} full width: {n_params / 1e6:.1f} M stacked "
+        f"parameters (tp {args.tp}) initialised on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ssd.launches = 0
+    out = ex.run(args, log=log, sess=sess)
+    launches = ssd.launches
+    waves = len(out["prefill_ms"])
+    check(launches == out["ssd_launches"] == cfg.n_layers * waves,
+          f"SSD scan launches {launches}, want {cfg.n_layers} x {waves} "
+          f"waves")
+    check(out["all_logits_finite"], "non-finite logits while serving")
+    log(f"[ssm] prefill ms per wave {out['prefill_ms']}; median decode "
+        f"{out['decode_ms_per_token_median']:.2f} ms per step; "
+        f"{out['tokens_per_s']:.2f} generated tokens/s over the run's "
+        f"{out['wall_s']:.2f} s ({out['decode_tokens_per_s']:.2f} per s of "
+        f"decode time); peak memory {out['peak_mem_gb']:.2f} GB; SSD scan "
+        f"launches {launches} = {cfg.n_layers} layers x {waves} waves")
+
+    rng = np.random.RandomState(1)
+    toks = rng.randint(0, cfg.vocab_size, (args.batch, args.prompt_len))
+    shape = isp.ShapeSpec("wave", args.prompt_len, args.batch, "prefill")
+    _, pre = serve_mod.build_serve_fn(
+        cfg, args.tp, comm, shape,
+        cache_capacity=args.prompt_len + args.gen, device=dev)
+    rt, step = serve_mod.build_serve_fn(
+        cfg, args.tp, comm, isp.ShapeSpec("wave", args.prompt_len
+                                          + args.gen, args.batch, "decode"),
+        device=dev)
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+
+    def rel(x, want):
+        return ((x - want).abs().max() / want.abs().max()).item()
+    # the served model's first layers: the same full-width weights
+    cut = dataclasses.replace(cfg, n_layers=SSM_GATE_LAYERS)
+    cut_params = dict(sess.params, layers={
+        k: v[:SSM_GATE_LAYERS] if torch.is_tensor(v) else
+        {kk: vv[:SSM_GATE_LAYERS] for kk, vv in v.items()}
+        for k, v in sess.params["layers"].items()})
+    cut_rt = serve_mod.serve_runtime(cut, args.tp, comm, shape)
+    every = lambda: transformer.forward(cut_params, batch, cut_rt).logits
+    got, want = every(), probe.through(every)
+    gap = rel(got, want)
+    check(bool(torch.isfinite(got).all()) and gap <= SSM_LOGITS_REL,
+          f"every position through the kernel vs the plain version: {gap} "
+          f"of max|logit| (bound {SSM_LOGITS_REL})")
+    del got
+    bad = {label: rel(probe.through(every, fault), want)
+           for label, fault in probe.FAULTS.items()}
+    del want
+    last = lambda: pre(sess.params, batch).last_logits
+    got, want = last(), probe.through(last)
+    check(bool(torch.isfinite(got).all()), "non-finite prefill logits")
+    log(f"[ssm] one wave through the kernel vs the plain version: "
+        f"max|dlogit| {gap:.3e} of max|logit| over every position through "
+        f"the first {SSM_GATE_LAYERS} layer(s) (bound {SSM_LOGITS_REL}); "
+        f"{rel(got, want):.3e} at the prefill's last position through all "
+        f"{cfg.n_layers} layers (not gated: the random-weight model "
+        f"amplifies rounding with depth)")
+    del got, want
+    for label, moved in bad.items():
+        check(moved > SSM_LOGITS_REL, f"the logits gate misses the planted "
+              f"fault '{label}': {moved} of max|logit|")
+        log(f"[ssm] the same cut with the planted fault '{label}': "
+            f"max|dlogit| {moved:.3e} of max|logit|")
+
+    # where a wave's time goes: one prefill, one decode step
+    profile_device_time("ssm prefill", lambda: pre(sess.params, batch))
+    st = pre(sess.params, batch)
+    tok = dec.greedy_tokens(st, rt)
+    st = step(sess.params, tok, st)
+    profile_device_time("ssm decode", lambda: step(sess.params, tok, st))
+    return launches
 
 
 def main() -> int:
@@ -959,6 +1194,7 @@ def main() -> int:
     from repro_torch.core.topology import TorusSpec
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.quant import ops as quant_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.swe_step import ops as swe_ops, ref as swe_ref
     from repro_torch.swe import driver
     from repro_torch.swe.dg_solver import FLOP_PER_ELEMENT, SWEConfig
@@ -976,8 +1212,9 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     build_all({"swe_step": swe_ops.LIBRARY, "quant": quant_ops.LIBRARY,
-               "flash_attention": flash_ops.LIBRARY})
-    log(f"[build] the three libraries built and loaded in "
+               "flash_attention": flash_ops.LIBRARY,
+               "ssd_scan": ssd_ops.LIBRARY})
+    log(f"[build] the four libraries built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     bw = card_bandwidth(name)
 
@@ -1057,6 +1294,7 @@ def main() -> int:
 
     quant_timings = phase_quant_kernels(dev, flush, bw)
     flash_timing = phase_flash_kernel(dev, flush, bw)
+    ssd_timing = phase_ssd_kernel(dev, flush, bw)
 
     # -- 3. main path at full size -------------------------------------
     modes = (("fused", CommConfig(), 1 + N_INNER),
@@ -1124,14 +1362,19 @@ def main() -> int:
 
     # -- 6. the LM serving path ------------------------------------------
     flash_launches = phase_serve(dev)
-    phase_serve_smoke(dev)
+    phase_serve_smoke(dev, "qwen3-8b", 24, 4)
 
-    # -- 7. summary ----------------------------------------------------
+    # -- 7. the SSM serving path -----------------------------------------
+    ssd_launches = phase_serve_ssm(dev)
+    phase_serve_smoke(dev, "mamba2-130m", 16, 16)
+
+    # -- 8. summary ----------------------------------------------------
     log(f"kernels: swe_step launches={main_launches} "
         + " ".join(f"{k}={v}" for k, v in launches_by_mode.items())
         + " ".join(f"; {k} launches={v} (gradient sync)"
                    for k, v in quant_launches.items())
-        + f"; flash_attention launches={flash_launches} (serving)")
+        + f"; flash_attention launches={flash_launches} (serving)"
+        + f"; ssd_scan launches={ssd_launches} (serving)")
     full = timings["full pass"]
     rows = [{
         "name": "swe_step", "route": "cuda",
@@ -1157,6 +1400,11 @@ def main() -> int:
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
         "launches": flash_launches, **flash_timing})
+    rows.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:74",
+        "launches": ssd_launches, **ssd_timing})
     log(json.dumps({"kernels": rows}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

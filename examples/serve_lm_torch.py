@@ -1,22 +1,28 @@
 """Continuous-batching LM serving on the PyTorch port: waves of requests
-arriving mid-flight, greedy decode on the sequence-sharded KV cache, all
-tensor-parallel ranks stacked on one CUDA card.
+arriving mid-flight, greedy decode on the sequence-sharded KV cache (dense
+family) or the fixed-size SSM state (ssm family), all tensor-parallel ranks
+stacked on one CUDA card.
 
 Requests arrive on a seeded schedule while earlier waves are still
 decoding.  Waiting requests are admitted in fixed-shape waves; each wave
 is prefilled at the prompt length into KV caches that cover prompt +
-generation, and active waves then decode round-robin, one token per step,
-retiring as their (per-request, variable) generation targets complete.
-Prefill attention runs the hand-written CUDA flash-attention kernel; the
-row-parallel combines, the vocab-sharded embedding and sampling, the K/V
-all-gather and the decode LSE combine run through ACCL-X collectives under
-``--comm``.
+generation (or into the SSM state), and active waves then decode
+round-robin, one token per step, retiring as their (per-request, variable)
+generation targets complete.  Prefill attention runs the hand-written CUDA
+flash-attention kernel, and the ssm family's prefill the hand-written CUDA
+SSD chunked-scan kernel; the row-parallel combines, the vocab-sharded
+embedding and sampling, the K/V all-gather and the decode LSE combine run
+through ACCL-X collectives under ``--comm``.
 
 Run:  PYTHONPATH=src python examples/serve_lm_torch.py            # card
+      PYTHONPATH=src python examples/serve_lm_torch.py --arch mamba2-130m \
+          --prompt-len 2048 --batch 8
       PYTHONPATH=src python examples/serve_lm_torch.py --smoke --device cpu
 
 Without ``--smoke`` the model is the full-width configuration (bf16,
-random weights from ``--seed``).
+random weights from ``--seed``).  The ssm family's ``--prompt-len`` must
+be a multiple of its chunk (``ssm_chunk``: 128 at full width, 16 in the
+smoke config): the SSD scan takes whole chunks, and no padding is done.
 """
 import argparse
 import dataclasses
@@ -29,6 +35,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.config import (BASELINE_CONFIG, OVERLAPPED_CONFIG,
                                      CommConfig)
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch import input_specs as isp, setup
 from repro_torch.models import decode as dec
 from repro_torch.train import serve as serve_mod
@@ -57,7 +64,8 @@ class Wave:
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--arch", default="qwen3-8b",
+                    choices=["qwen3-8b", "mamba2-130m"])
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced smoke config in float32")
     ap.add_argument("--tp", type=int, default=4,
@@ -94,6 +102,9 @@ def run(args, log=print, sess=None) -> dict:
     ``sess`` is a session built earlier for ``model_config(args)`` (one is
     built from ``args.seed`` otherwise)."""
     cfg = model_config(args)
+    if cfg.family == "ssm" and args.prompt_len % cfg.ssm_chunk:
+        raise ValueError(f"--prompt-len {args.prompt_len} is not a multiple "
+                         f"of {cfg.name}'s SSD chunk {cfg.ssm_chunk}")
     comm = COMMS[args.comm]
     if sess is None:
         sess = setup.build_session(cfg, args.tp, comm, seed=args.seed,
@@ -127,7 +138,7 @@ def run(args, log=print, sess=None) -> dict:
     decode_ms: list = []
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    launches0 = fa_ops.launches
+    launches0 = (fa_ops.launches, ssd_ops.launches)
     finite = torch.ones((), dtype=torch.bool, device=dev)
     tick = wid = rr = 0
     t_run = time.perf_counter()
@@ -191,7 +202,8 @@ def run(args, log=print, sess=None) -> dict:
         "decode_ms_per_token_median": float(np.median(decode_ms)),
         "tokens_per_s": gen_tokens / wall,
         "decode_tokens_per_s": gen_tokens / max(sum(decode_ms) / 1e3, 1e-9),
-        "flash_launches": fa_ops.launches - launches0,
+        "flash_launches": fa_ops.launches - launches0[0],
+        "ssd_launches": ssd_ops.launches - launches0[1],
         "all_logits_finite": bool(finite),
         "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
                         if dev.type == "cuda" else None),
@@ -205,8 +217,9 @@ def run(args, log=print, sess=None) -> dict:
         f"request of the wave), {out['decode_tokens_per_s']:.2f} tokens/s of "
         f"decode time")
     log(f"[prefill] {len(prefill_ms)} waves: "
-        + ", ".join(f"{m:.1f}" for m in prefill_ms) + " ms; flash-attention "
-        f"kernel launches {out['flash_launches']}"
+        + ", ".join(f"{m:.1f}" for m in prefill_ms) + " ms; kernel launches: "
+        f"flash attention {out['flash_launches']}, SSD scan "
+        f"{out['ssd_launches']}"
         + (f"; peak memory {out['peak_mem_gb']:.2f} GB"
            if out["peak_mem_gb"] is not None else ""))
     for rid in sorted(finished)[:2]:

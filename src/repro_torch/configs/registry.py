@@ -3,7 +3,7 @@
 Each registered architecture has its exact public configuration plus a
 reduced smoke variant of the same family (small widths and depths, a tiny
 vocab) that the CPU tests use.  The port registers the architectures whose
-serving path it runs: ``qwen3-8b``.
+serving path it runs: ``qwen3-8b`` (dense) and ``mamba2-130m`` (ssm).
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from repro_torch.models.common import ModelConfig
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE: Dict[str, Callable[[], ModelConfig]] = {}
 
-_MODULES = ["qwen3_8b"]
+_MODULES = ["qwen3_8b", "mamba2_130m"]
 _LOADED = False
 
 

@@ -1,0 +1,100 @@
+"""Wrapper, build and launch counter for the CUDA SSD chunked-scan kernel.
+
+``ssd_chunked(x, dt, A, B, C, chunk)`` takes the model layout: ``x (R,
+Bt, S, H, P)``, ``dt (R, Bt, S, H)``, ``A (R, H)``, ``B``/``C (R, Bt, S,
+G, N)`` with R the stacked ranks.  On CPU tensors it runs the plain
+PyTorch version (:mod:`.ref`); on CUDA tensors it launches the kernel of
+``csrc/ssd_scan.cu`` or raises — there is no fallback.  The kernel is
+compiled at first use by :mod:`repro_torch.kernels._build` and loaded with
+``ctypes``.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ssd_scan import ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
+
+# Kernel launches issued by `ssd_chunked`.
+launches = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's tiles (216 KB of shared memory at the largest)
+MAX_CHUNK, MAX_STATE, MAX_HEAD_DIM = 128, 128, 64
+_GRID_MAX = 2**31 - 1
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = lib.ssd_scan_launch
+    fn.argtypes = [vp] * 7 + [i] * 9 + [ll] * 18 + [vp]
+    fn.restype = i
+
+
+LIBRARY = _build.Library(SOURCE, _bind)
+
+
+def load_library() -> ctypes.CDLL:
+    """Build the kernel library if needed and load it (once per process)."""
+    return LIBRARY.load()
+
+
+def _unit_inner(t: torch.Tensor) -> torch.Tensor:
+    return t if t.stride(-1) == 1 or t.shape[-1] == 1 else t.contiguous()
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, chunk: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SSD scan of ``x`` over chunks of ``chunk`` rows: ``y (R, Bt, S,
+    H, P)`` and ``h_final (R, Bt, H, N, P)``, both float32.  x, B and C are
+    float32 or bfloat16 of one dtype on the card; dt and A float32."""
+    global launches
+    ref._check(x, dt, A, B, C, chunk)
+    if x.device.type == "cpu":
+        return ref.ssd_chunked_ref(x, dt, A, B, C, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunked runs on CUDA or CPU tensors, got "
+                         f"{x.device}")
+    if any(t.device != x.device for t in (dt, A, B, C)):
+        raise ValueError("ssd_chunked: x, dt, A, B and C must share a device")
+    if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise ValueError(f"ssd_chunked takes float32 or bfloat16 x, B, C of "
+                         f"one dtype, got {x.dtype}, {B.dtype}, {C.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise ValueError(f"ssd_chunked takes float32 dt and A, got "
+                         f"{dt.dtype}, {A.dtype}")
+    R, Bt, S, H, P = x.shape
+    N = B.shape[4]
+    if chunk > MAX_CHUNK or N > MAX_STATE or P > MAX_HEAD_DIM \
+            or R * Bt * H > _GRID_MAX:
+        raise ValueError(f"ssd_chunked: chunk {chunk}, state {N}, head dim "
+                         f"{P} or {R * Bt * H} (rank, batch, head) blocks "
+                         f"over the kernel's limits ({MAX_CHUNK}, "
+                         f"{MAX_STATE}, {MAX_HEAD_DIM}, {_GRID_MAX})")
+    y = torch.empty((R, Bt, S, H, P), dtype=torch.float32, device=x.device)
+    if R * Bt * H == 0 or S == 0:
+        return y, torch.zeros((R, Bt, H, N, P), dtype=torch.float32,
+                              device=x.device)
+    h_final = torch.empty((R, Bt, H, N, P), dtype=torch.float32,
+                          device=x.device)
+    # the kernel reads dt and A through all their strides, x, B and C
+    # through all but a unit inner one
+    x, B, C = (_unit_inner(t) for t in (x, B, C))
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        err = lib.ssd_scan_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), h_final.data_ptr(), _DTYPES[x.dtype],
+            R, Bt, S, H, P, B.shape[3], N, chunk, *x.stride()[:4],
+            *dt.stride(), *A.stride(), *B.stride()[:4], *C.stride()[:4],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
+    launches += 1
+    return y, h_final

@@ -87,20 +87,6 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, device,
     return p
 
 
-def _rank_slice(x: torch.Tensor, start: torch.Tensor, width: int,
-                dim: int) -> torch.Tensor:
-    """Row ``p`` of the stacked ``x`` sliced to ``[start[p], start[p] +
-    width)`` along message dimension ``dim`` (``lax.dynamic_slice_in_dim``
-    with a per-rank start)."""
-    P = x.shape[0]
-    idx = start.view(P, 1) + torch.arange(width, device=x.device)
-    shape = [P] + [1] * (x.dim() - 1)
-    shape[dim + 1] = width
-    idx = idx.view(shape).expand(*x.shape[:dim + 1], width,
-                                 *x.shape[dim + 2:])
-    return torch.gather(x, dim + 1, idx)
-
-
 def _sdpa(q, k, v, softcap: Optional[float], causal: bool,
           window: Optional[int]):
     """q (P, B, S, H, hd), k/v (P, B, T, KV, hd) -> (P, B, S, H, hd): the
@@ -154,8 +140,8 @@ def attention(params, x: torch.Tensor, positions: torch.Tensor, rt: Runtime,
         group = dims.n_heads // dims.n_kv
         n_need = max(1, dims.local_heads // group)
         start = layers.rank_index(rt, x.device) * dims.local_heads // group
-        k = _rank_slice(k, start, n_need, dim=2)
-        v = _rank_slice(v, start, n_need, dim=2)
+        k = layers.rank_slice(k, start, n_need, dim=2)
+        v = layers.rank_slice(v, start, n_need, dim=2)
 
     # zero-weight padded q heads meet zero rows of wo: they add nothing
     # (the JAX package also zeroes their outputs, which only gradients see)
@@ -219,7 +205,7 @@ def prefill_into_cache(cache: KVCache, k_full: torch.Tensor,
     for full, buf in ((k_full, cache.k), (v_full, cache.v)):
         if pad > 0:
             full = F.pad(full, (0, 0, 0, 0, 0, pad))
-        buf.copy_(_rank_slice(full, start, L, dim=1))
+        buf.copy_(layers.rank_slice(full, start, L, dim=1))
     return KVCache(k=cache.k, v=cache.v, length=S)
 
 
@@ -330,8 +316,8 @@ def decode_attention(params, x: torch.Tensor, cache: KVCache, rt: Runtime,
     if dims.q_sharded:
         # row-parallel output projection: each rank takes its heads
         width = dims.local_heads * hd
-        out_loc = _rank_slice(out, layers.rank_index(rt, x.device) * width,
-                              width, dim=2)
+        out_loc = layers.rank_slice(
+            out, layers.rank_index(rt, x.device) * width, width, dim=2)
         y = layers.row_parallel(out_loc, params["wo"], rt)
     else:
         y = layers.rank_matmul(out, params["wo"])

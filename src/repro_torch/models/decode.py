@@ -1,30 +1,36 @@
-"""Serving path of the dense family: prefill (build caches) and
+"""Serving path of the dense and ssm families: prefill (build caches) and
 single-token decode, on stacked tensor-parallel ranks.
 
-Caches carry a leading layer axis, ``KVCache(k (L, P, B, S_shard, KV,
-hd), ...)``, and every cache is **sequence-sharded over the model axis**:
-row ``p`` holds positions ``[p·S_shard, (p+1)·S_shard)`` of every layer,
-and decode's partial attention combines via two small ACCL-X all-reduces
-(the LSE trick).
+Caches carry a leading layer axis.  The dense family's are
+``KVCache(k (L, P, B, S_shard, KV, hd), ...)``, every cache
+**sequence-sharded over the model axis**: row ``p`` holds positions
+``[p·S_shard, (p+1)·S_shard)`` of every layer, and decode's partial
+attention combines via two small ACCL-X all-reduces (the LSE trick).  The
+ssm family's are ``SSMState(conv (L, P, B, W-1, d_inner_local), h (L, P,
+B, local_heads, state, head_dim) f32)``: a fixed size, whatever the
+sequence length, sharded over heads when they divide.
 
 Unlike the JAX package's functional update, :func:`decode_step` writes the
-new token's K/V into the caches it is given (in place) and returns a state
-that shares them: the state passed in is consumed.
+new token's K/V, or the new SSM state, into the caches it is given (in
+place) and returns a state that shares them: the state passed in is
+consumed.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Union
 
 import torch
 
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, ssm
 from repro_torch.models.common import Runtime
-from repro_torch.models.transformer import (_require_dense, layer_params,
-                                            positions_for)
+from repro_torch.models.transformer import (layer_params, positions_for,
+                                            require_ported_family)
 
 
 class ServeState(NamedTuple):
-    caches: attention.KVCache     # leading layer axis on k and v
+    # leading layer axis on every leaf: the KV caches (dense) or the
+    # stacked SSM state (ssm)
+    caches: Union[attention.KVCache, ssm.SSMState]
     last_logits: torch.Tensor     # (P, B, V/tp) vocab-sharded, f32
     length: int
 
@@ -60,40 +66,67 @@ def _decode_dense(p, x, cache, rt: Runtime, window=None):
 
 def prefill(params, batch: dict, rt: Runtime, max_len: int) -> ServeState:
     """Prefill ``batch["tokens"] (B, S)`` into caches of ``max_len``
-    positions; ``last_logits`` are the last position's."""
+    positions (dense; the ssm family's state has a fixed size and ignores
+    ``max_len``); ``last_logits`` are the last position's."""
     cfg = rt.cfg
-    _require_dense(cfg)
+    require_ported_family(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = layers.embed(params["embed"], tokens, rt)
-    positions = positions_for(tokens)
-    caches = attention.init_kv_cache(cfg, B, max_len, rt.sp_size, cfg.dtype,
-                                     rt.mesh.tp, x.device, cfg.n_layers)
-    for i in range(cfg.n_layers):
-        x = _prefill_dense(layer_params(params["layers"], i), x, positions,
-                           rt, layer_cache(caches, i), cfg.sliding_window)
+    if cfg.family == "ssm":
+        caches = ssm.init_ssm_state(cfg, B, rt.mesh.tp, x.device,
+                                    cfg.n_layers)
+        for i in range(cfg.n_layers):
+            p = layer_params(params["layers"], i)
+            h = layers.rms_norm(x, p["ln"], cfg.norm_eps)
+            y, (conv, hstate) = ssm.ssm_forward(p["ssm"], h, rt,
+                                                return_state=True)
+            x = x + y
+            caches.conv[i].copy_(conv)
+            caches.h[i].copy_(hstate)
+    else:
+        positions = positions_for(tokens)
+        caches = attention.init_kv_cache(cfg, B, max_len, rt.sp_size,
+                                         cfg.dtype, rt.mesh.tp, x.device,
+                                         cfg.n_layers)
+        for i in range(cfg.n_layers):
+            x = _prefill_dense(layer_params(params["layers"], i), x,
+                               positions, rt, layer_cache(caches, i),
+                               cfg.sliding_window)
+        caches = caches._replace(length=S)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     last = layers.logits_shard(params["embed"], x[:, :, -1], rt)
-    return ServeState(caches=caches._replace(length=S), last_logits=last,
-                      length=S)
+    return ServeState(caches=caches, last_logits=last, length=S)
 
 
 def decode_step(params, token: torch.Tensor, state: ServeState, rt: Runtime
                 ) -> ServeState:
-    """token: (B,) — append one token (its K/V written into the caches in
-    place), return the updated state."""
+    """token: (B,) — append one token (its K/V, or the new SSM state,
+    written into the caches in place), return the updated state."""
     cfg = rt.cfg
-    _require_dense(cfg)
+    require_ported_family(cfg)
     x = layers.embed(params["embed"], token[:, None], rt)
     caches = state.caches
-    for i in range(cfg.n_layers):
-        x, _ = _decode_dense(layer_params(params["layers"], i), x,
-                             layer_cache(caches, i), rt, cfg.sliding_window)
+    length = state.length + 1
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            p = layer_params(params["layers"], i)
+            h = layers.rms_norm(x, p["ln"], cfg.norm_eps)
+            y, new = ssm.ssm_decode(
+                p["ssm"], h, ssm.SSMState(conv=caches.conv[i],
+                                          h=caches.h[i]), rt)
+            x = x + y
+            caches.conv[i].copy_(new.conv)
+            caches.h[i].copy_(new.h)
+    else:
+        for i in range(cfg.n_layers):
+            x, _ = _decode_dense(layer_params(params["layers"], i), x,
+                                 layer_cache(caches, i), rt,
+                                 cfg.sliding_window)
+        caches = caches._replace(length=length)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = layers.logits_shard(params["embed"], x[:, :, -1], rt)
-    length = state.length + 1
-    return ServeState(caches=caches._replace(length=length),
-                      last_logits=logits, length=length)
+    return ServeState(caches=caches, last_logits=logits, length=length)
 
 
 def greedy_tokens(state: ServeState, rt: Runtime) -> torch.Tensor:

@@ -40,6 +40,20 @@ def rank_index(rt: Runtime, device) -> torch.Tensor:
     return rt.tp_comm().rank(device)
 
 
+def rank_slice(x: torch.Tensor, start: torch.Tensor, width: int,
+               dim: int) -> torch.Tensor:
+    """Row ``p`` of the stacked ``x`` sliced to ``[start[p], start[p] +
+    width)`` along message dimension ``dim`` (``lax.dynamic_slice_in_dim``
+    with a per-rank start)."""
+    P = x.shape[0]
+    idx = start.view(P, 1) + torch.arange(width, device=x.device)
+    shape = [P] + [1] * (x.dim() - 1)
+    shape[dim + 1] = width
+    idx = idx.view(shape).expand(*x.shape[:dim + 1], width,
+                                 *x.shape[dim + 2:])
+    return torch.gather(x, dim + 1, idx)
+
+
 # ----------------------------------------------------------------------
 # Initialization helpers (full, unsharded arrays; sharding.shard_params
 # cuts them into per-rank shards)

@@ -2,8 +2,8 @@
 
 ``param_specs`` gives every leaf of a full (global) parameter tree its
 tensor-parallel spec, the JAX package's ``_base_spec`` rules for the dense
-leaves; ``shard_params`` cuts the full arrays into per-rank shards stacked
-on a rank dimension, and ``unshard_params`` puts them back together.
+and ssm leaves; ``shard_params`` cuts the full arrays into per-rank shards
+stacked on a rank dimension, and ``unshard_params`` puts them back together.
 ``from_reference`` is the weight carrier from the JAX package: its
 parameters as numpy arrays (``jax.device_get`` of a ``build_session``
 tree) in, the port's stacked shards out.
@@ -15,7 +15,11 @@ TP rules (model axis), with ``tp`` the stacked rank count:
   attn wo            (Heff*hd, D)   -> ('model', None)   row-parallel
   mlp w_up/w_gate    (D, F)         -> (None, 'model')
   mlp w_down         (F, D)         -> ('model', None)
-  norms                             -> replicated
+  ssm w_z/w_x        (D, d_inner)   -> (None, 'model') if ssm heads shard
+  ssm conv_x         (W, d_inner)   -> (None, 'model') if ssm heads shard
+  ssm w_out          (d_inner, D)   -> ('model', None) if ssm heads shard
+  ssm w_B/w_C/w_dt                  -> replicated
+  norms, A_log, D, dt_bias          -> replicated
 A leaf under ``layers`` carries one leading layer dimension; its shards
 are laid out ``(n_layers, tp, ...)`` so that layer ``i``'s view is a
 stacked ``(tp, ...)`` tensor.
@@ -27,7 +31,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.models import attention
+from repro_torch.models import attention, ssm
 from repro_torch.models.common import ModelConfig
 
 _STACK_KEYS = ("layers",)
@@ -42,6 +46,7 @@ def _base_spec(names: list[str], cfg: ModelConfig, tp: int):
     replicated."""
     leaf = names[-1]
     dims = attention.attn_dims(cfg, tp)
+    _, ssm_sharded = ssm.ssm_dims(cfg, tp)
     mlp_shardable = bool(cfg.d_ff) and cfg.d_ff % tp == 0 and tp > 1
     if leaf == "table":
         return ("model", None) if tp > 1 and cfg.vocab_size % tp == 0 \
@@ -56,7 +61,11 @@ def _base_spec(names: list[str], cfg: ModelConfig, tp: int):
         return (None, "model") if mlp_shardable else (None, None)
     if leaf == "w_down":
         return ("model", None) if mlp_shardable else (None, None)
-    return None  # norms
+    if leaf in ("w_z", "w_x", "conv_x"):
+        return (None, "model") if ssm_sharded else (None, None)
+    if leaf == "w_out":
+        return ("model", None) if ssm_sharded else (None, None)
+    return None  # norms, w_B, w_C, w_dt, A_log, D, dt_bias
 
 
 def _map(fn, tree: Any, names: tuple = ()):
@@ -119,10 +128,15 @@ def unshard_params(params: Any, cfg: ModelConfig):
     return _map(glue, params)
 
 
+_TORCH_FLOATS = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def from_reference(np_params: Any, cfg: ModelConfig, tp: int, device=None):
-    """The JAX package's parameter tree (numpy arrays, any float dtype) ->
-    the port's stacked per-rank shards in ``cfg.dtype`` on ``device``."""
+    """The JAX package's parameter tree (numpy arrays) -> the port's stacked
+    per-rank shards on ``device``, each leaf in its own float type (the SSM
+    layer's ``A_log``, ``D`` and ``dt_bias`` stay float32 under a bf16
+    config, as in the JAX package)."""
     def to_torch(names, a):
-        t = torch.from_numpy(np.asarray(a, dtype=np.float32))
-        return t.to(device=device, dtype=cfg.dtype)
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
+        return t.to(device=device, dtype=_TORCH_FLOATS[np.dtype(a.dtype).name])
     return shard_params(_map(to_torch, np_params), cfg, tp)

@@ -1,10 +1,11 @@
-"""Model assembly for the dense family (qwen3): initialisation and the full
-forward pass (prefill logits), on stacked tensor-parallel ranks.
+"""Model assembly for the dense (qwen3) and ssm (mamba2) families:
+initialisation and the full forward pass (prefill logits), on stacked
+tensor-parallel ranks.
 
 The JAX package scans its stacked layers with ``lax.scan``; here the
 per-layer loop is a Python loop over views of the stacked weights.
-Families other than dense without local/global attention come with later
-slices and raise here.
+The other families (local/global attention, MoE, MLA, hybrid, VLM,
+audio) come with later slices and raise here.
 """
 from __future__ import annotations
 
@@ -12,16 +13,20 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, ssm
 from repro_torch.models.common import ModelConfig, Runtime
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.local_global_ratio or cfg.use_mla:
+def require_ported_family(cfg: ModelConfig) -> None:
+    """Raise unless the port runs ``cfg``'s family: dense without
+    local/global attention or MLA, or ssm."""
+    dense = (cfg.family == "dense" and not cfg.local_global_ratio
+             and not cfg.use_mla)
+    if not dense and cfg.family != "ssm":
         raise NotImplementedError(
             f"the port runs the dense family without local/global attention "
-            f"so far, not {cfg.name} ({cfg.family}); see ROADMAP.md Queue 1 "
-            f"item 8")
+            f"and the ssm family so far, not {cfg.name} ({cfg.family}); see "
+            f"ROADMAP.md Queue 1 item 8")
 
 
 def layer_params(stacked: Any, i: int) -> Any:
@@ -46,6 +51,11 @@ def init_dense_layer(gen: torch.Generator, cfg: ModelConfig, tp: int,
     }
 
 
+def init_ssm_layer(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    return {"ln": torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device),
+            "ssm": ssm.init_ssm(gen, cfg, cfg.dtype, device)}
+
+
 def _fill(stack: Any, i: int, layer: Any) -> None:
     if isinstance(layer, dict):
         for k, v in layer.items():
@@ -66,7 +76,7 @@ def init_model(seed: int, cfg: ModelConfig, tp: int = 1, device=None):
     ``device``.  The JAX package draws other numbers from the same seed:
     to run both on the same weights, take the JAX package's parameters
     through ``sharding.from_reference``."""
-    _require_dense(cfg)
+    require_ported_family(cfg)
     device = torch.device(device or "cpu")
     gen = torch.Generator(device=device).manual_seed(seed)
     params: dict[str, Any] = {
@@ -77,7 +87,8 @@ def init_model(seed: int, cfg: ModelConfig, tp: int = 1, device=None):
     }
     stack = None
     for i in range(cfg.n_layers):
-        layer = init_dense_layer(gen, cfg, tp, device)
+        layer = (init_ssm_layer(gen, cfg, device) if cfg.family == "ssm"
+                 else init_dense_layer(gen, cfg, tp, device))
         if stack is None:
             stack = _alloc(layer, cfg.n_layers)
         _fill(stack, i, layer)
@@ -96,6 +107,11 @@ def dense_block(p, x, positions, rt: Runtime, window=None):
     return x + layers.mlp(p["mlp"], h, rt, rt.cfg.mlp_type)
 
 
+def ssm_block(p, x, rt: Runtime):
+    return x + ssm.ssm_forward(p["ssm"], layers.rms_norm(x, p["ln"],
+                                                         rt.cfg.norm_eps), rt)
+
+
 class ForwardOut(NamedTuple):
     logits: torch.Tensor     # vocab-sharded (P, B, S, V/tp), f32
 
@@ -108,12 +124,15 @@ def positions_for(tokens: torch.Tensor) -> torch.Tensor:
 def forward(params, batch: dict, rt: Runtime) -> ForwardOut:
     """Logits of every position of ``batch["tokens"] (B, S)``."""
     cfg = rt.cfg
-    _require_dense(cfg)
+    require_ported_family(cfg)
     tokens = batch["tokens"]
     x = layers.embed(params["embed"], tokens, rt)
     positions = positions_for(tokens)
     for i in range(cfg.n_layers):
-        x = dense_block(layer_params(params["layers"], i), x, positions, rt,
-                        window=cfg.sliding_window)
+        p = layer_params(params["layers"], i)
+        if cfg.family == "ssm":
+            x = ssm_block(p, x, rt)
+        else:
+            x = dense_block(p, x, positions, rt, window=cfg.sliding_window)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return ForwardOut(logits=layers.logits_shard(params["embed"], x, rt))

@@ -63,12 +63,13 @@ def build_serve_fn(cfg: ModelConfig, tp: int, comm, shape: isp.ShapeSpec,
       of exactly ``(global_batch, seq_len)``;
     - decode kind: ``fn(params, token, state) -> ServeState``, ``token``
       ``(global_batch,)``, on caches of ``cache_len(cfg, shape)`` positions
-      (updated in place).
+      (dense) or on the fixed-size SSM state (ssm), updated in place.
 
     ``cache_capacity`` (prefill only) decouples the KV-cache capacity from
     the prompt length: the caches a prefill returns cover
     ``cache_capacity`` positions (prompt + planned generation).  Defaults
-    to ``cache_len(cfg, shape)``."""
+    to ``cache_len(cfg, shape)``.  The ssm family's state does not depend
+    on it, as in the JAX package's prefill."""
     rt = serve_runtime(cfg, tp, comm, shape)
     dev = resolve_device(device)
     B = shape.global_batch
@@ -94,16 +95,31 @@ def build_serve_fn(cfg: ModelConfig, tp: int, comm, shape: isp.ShapeSpec,
     if cache_capacity is not None:
         raise ValueError("cache_capacity applies to the prefill builder; "
                          "a decode ShapeSpec's seq_len IS the capacity")
-    capacity = -(-cache_len(cfg, shape) // rt.sp_size)
+
+    if cfg.family == "ssm":
+        # a fixed-size state: the sequence length does not enter it
+        want = isp.ssm_state_abstract(cfg, B, tp, cfg.n_layers)
+
+        def check_caches(caches):
+            for got, ref in zip(caches, want):
+                if got.shape != ref.shape or got.dtype != ref.dtype:
+                    raise ValueError(
+                        f"decode built for SSM states of {tuple(ref.shape)} "
+                        f"{ref.dtype}, got {tuple(got.shape)} {got.dtype}")
+    else:
+        capacity = -(-cache_len(cfg, shape) // rt.sp_size)
+
+        def check_caches(caches):
+            if caches.k.shape[3] != capacity:
+                raise ValueError(f"decode built for caches of {capacity} "
+                                 f"positions per shard, got "
+                                 f"{caches.k.shape[3]}")
 
     def decode_fn(params, token, state):
         token = _tokens(token, dev)
         if tuple(token.shape) != (B,):
             raise ValueError(f"decode built for tokens of {(B,)}, got "
                              f"{tuple(token.shape)}")
-        if state.caches.k.shape[3] != capacity:
-            raise ValueError(f"decode built for caches of {capacity} "
-                             f"positions per shard, got "
-                             f"{state.caches.k.shape[3]}")
+        check_caches(state.caches)
         return dec.decode_step(params, token, state, rt)
     return rt, decode_fn

@@ -19,7 +19,13 @@ source rank's block.
 The flash-attention kernel against its plain version: 3e-5 in float32 and
 2e-2 in bfloat16 (``tests/test_kernels.py``'s bounds); the smoke serving
 path (float32) on the card against the CPU: equal greedy tokens, logits
-within 1e-4 of max|logit| (``tests/test_torch_serve.py``'s bound)."""
+within 1e-4 of max|logit| (``tests/test_torch_serve.py``'s bound).
+
+The SSD scan kernel against its plain version: 1e-4 + 1e-4 |plain| on y
+and h_final (``tests/test_kernels.py::test_ssd_scan_sweep``'s bound), in
+float32 and in bfloat16 (both compute in float32 from the same bf16
+values); mamba2's smoke serving path on the card against the CPU, as
+qwen3's."""
 import dataclasses
 
 import numpy as np
@@ -33,6 +39,7 @@ from repro_torch.core.config import (BASELINE_CONFIG, OVERLAPPED_CONFIG,
                                      Transport)
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.quant import ops as quant_ops, ref as quant_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
 from repro_torch.kernels.swe_step import ops, ref
 from repro_torch.swe import driver
 
@@ -247,17 +254,94 @@ def test_flash_kernel_rejects_what_it_does_not_take(card):
         fa_ops.flash_attention(big, big, big)
 
 
-def test_smoke_serving_on_the_card_matches_the_cpu(card):
-    """qwen3's smoke config in float32 at tp = 4 from the same weights:
-    one flash-kernel launch per layer per prefill, the same greedy tokens
-    over 4 decode steps as on the CPU, logits within 1e-4."""
+# (R, B, S, H, P, N, chunk): tests/test_kernels.py's sweep, a chunk that
+# is no multiple of 32, stacked ranks, and mamba2-130m's serving head
+SSD_CASES = [
+    (1, 1, 32, 2, 8, 8, 16),
+    (1, 2, 64, 3, 16, 8, 16),
+    (1, 1, 128, 4, 32, 16, 32),
+    (2, 1, 120, 2, 24, 40, 40),
+    (4, 2, 512, 6, 64, 128, 128),
+]
+
+
+def _ssd_inputs(case, dtype, card):
+    R, B, S, H, P, N, _ = case
+    gen = torch.Generator(device=card).manual_seed(sum(case))
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=card)
+    return (rnd(R, B, S, H, P).to(dtype),
+            rnd(R, B, S, H).abs() * 0.1 + 0.01,
+            -(rnd(R, H).abs() + 0.5),
+            rnd(R, B, S, 1, N).to(dtype), rnd(R, B, S, 1, N).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernel_matches_plain(card, case, dtype):
+    inp = _ssd_inputs(case, dtype, card)
+    before = ssd_ops.launches
+    y, h = ssd_ops.ssd_chunked(*inp, case[-1])
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    y_p, h_p = ssd_ref.ssd_chunked_ref(*inp, case[-1])
+    for got, want in ((y, y_p), (h, h_p)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert ((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all()
+
+
+def test_ssd_kernel_reads_strided_views(card):
+    """x, B and C as views of one fused projection, dt as a transposed
+    view: the kernel reads them through their strides."""
+    R, B, S, H, P, N = 1, 2, 64, 2, 16, 8
+    gen = torch.Generator(device=card).manual_seed(1)
+    fused = torch.randn((R, B, S, H * P + 2 * N), generator=gen, device=card)
+    x = fused[..., :H * P].view(R, B, S, H, P)
+    b = fused[..., H * P:H * P + N].unsqueeze(3)
+    c = fused[..., H * P + N:].unsqueeze(3)
+    dt = (torch.rand((R, B, H, S), generator=gen, device=card) * 0.1
+          + 0.01).transpose(2, 3)
+    a = -torch.rand((R, H), generator=gen, device=card) - 0.5
+    got = ssd_ops.ssd_chunked(x, dt, a, b, c, 16)
+    want = ssd_ref.ssd_chunked_ref(x, dt, a, b, c, 16)
+    for g, w in zip(got, want):
+        assert ((g - w).abs() <= 1e-4 + 1e-4 * w.abs()).all()
+
+
+def test_cuda_tensors_never_reach_the_ssd_plain_version(card, monkeypatch):
+    """With the plain version made to raise, the wrapper on CUDA tensors
+    still answers (the kernel), and rejects what the kernel does not
+    take instead of falling back."""
+    inp = _ssd_inputs(SSD_CASES[1], torch.float32, card)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(ssd_ref, "ssd_chunked_ref", refuse)
+    y, h = ssd_ops.ssd_chunked(*inp, 16)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    x, dt, a, b, c = inp
+    with pytest.raises(ValueError):          # dtypes differ
+        ssd_ops.ssd_chunked(x, dt, a, b.bfloat16(), c, 16)
+    with pytest.raises(ValueError):          # a head dim over 64
+        ssd_ops.ssd_chunked(x.repeat(1, 1, 1, 1, 5), dt, a, b, c, 16)
+    with pytest.raises(ValueError):          # devices differ
+        ssd_ops.ssd_chunked(x, dt.cpu(), a, b, c, 16)
+
+
+# mamba2's prompt is whole SSD chunks of 16
+@pytest.mark.parametrize("arch,S", [("qwen3-8b", 24), ("mamba2-130m", 32)])
+def test_smoke_serving_on_the_card_matches_the_cpu(card, arch, S):
+    """The smoke config in float32 at tp = 4 from the same weights: one
+    kernel launch (flash attention, or the SSD scan) per layer per prefill,
+    the same greedy tokens over 4 decode steps as on the CPU, logits within
+    1e-4."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import input_specs as isp
     from repro_torch.models import decode as dec, sharding, transformer
     from repro_torch.train import serve
-    cfg = dataclasses.replace(get_smoke_config("qwen3-8b"),
-                              dtype=torch.float32)
-    tp, B, S, GEN = 4, 4, 24, 4
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    kernel = ssd_ops if cfg.family == "ssm" else fa_ops
+    tp, B, GEN = 4, 4, 4
     full = transformer.init_model(0, cfg, tp, "cpu")
     toks = np.random.RandomState(0).randint(0, cfg.vocab_size, (B, S))
     out = {}
@@ -269,9 +353,9 @@ def test_smoke_serving_on_the_card_matches_the_cpu(card):
         _, step = serve.build_serve_fn(
             cfg, tp, CommConfig(), isp.ShapeSpec("s", S + GEN, B, "decode"),
             device=where)
-        before = fa_ops.launches
+        before = kernel.launches
         st = pre(params, {"tokens": toks})
-        launched = fa_ops.launches - before
+        launched = kernel.launches - before
         got = []
         for _ in range(GEN):
             nxt = dec.greedy_tokens(st, rt)
