@@ -9,7 +9,10 @@ Phases, each printing its own lines; any failed check raises and the script
 exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit), the torch and CUDA
-   versions, and the build of every kernel from this checkout's sources;
+   versions, the build of every kernel from this checkout's sources (each
+   kernel's ``-Xptxas -v`` registers and spills), and ``cuobjdump -sass``
+   of the flash library, which must hold HGMMA (wgmma) and UTMALDG (TMA)
+   instructions;
 2. every kernel held against its plain PyTorch version on the card, at the
    test shapes and at the main paths' full-size shapes (``swe_step`` with
    and without the boundary row list; ``quantize``/``dequantize`` at blocks
@@ -32,11 +35,13 @@ exits non-zero:
    fit); and ``comm_cfg="auto"`` at full size from that TuneDB, flat and on
    a 6x8 torus, bitwise equal to the runs with the selected configs given
    explicitly;
-6. the LM serving path: the flash-attention kernel against its plain
-   version at the serving shape (bf16, N = 16, S = T = 1024, 8 q heads over
-   2 kv heads, d = 128, causal) and on a grid of small shapes (window,
-   softcap, ragged and cross lengths, f32), timed beside its plain version,
-   ``scaled_dot_product_attention`` and its bound; then qwen3-8b at full
+6. the LM serving path: the flash-attention kernel (bf16 at d 64 and 128:
+   the wgmma + TMA kernel) against its plain version at the serving shape
+   (bf16, N = 16, S = T = 1024, 8 q heads over 2 kv heads, d = 128, causal)
+   and on a grid of small shapes (window, softcap, ragged and cross
+   lengths, f32), timed beside its plain version,
+   ``scaled_dot_product_attention`` and its bound, with the card's SM clock
+   sampled beside the timing; then qwen3-8b at full
    width (36 layers, d_model 4096, vocab 151,936, bf16, tp = 4 stacked,
    random weights from seed 0) serving 8 requests in waves of 4 with
    1024-token prompts through ``examples/serve_lm_torch.py``, one wave's
@@ -48,16 +53,17 @@ exits non-zero:
    version at test_ssd_scan_sweep's shapes (f32) and at the serving shape
    (tp 4 x batch 8 x 6 heads, 2048 tokens, head dim 64, state 128, chunk
    128; bf16 and f32, against the plain version in float64), timed beside
-   its plain version and its bound (before phase 3, beside the other
-   kernels); then mamba2-130m at full width (24 layers, d_model 768,
+   its plain version and its bound, its three passes profiled by kernel
+   (before phase 3, beside the other kernels); then mamba2-130m at full
+   width (24 layers, d_model 768,
    vocab 50,280, bf16, tp = 4 stacked, random weights from seed 0) serving
    16 requests in waves of 8 with 2048-token prompts through
    ``examples/serve_lm_torch.py``, one wave's logits through the kernel
    against the plain version and against two faults planted in the plain
    version, one prefill and one decode step profiled by kernel, and the
    smoke config in f32 on the card against the CPU;
-8. a ``kernels:`` line, the kernel table as one JSON line, and as the last
-   line ``{"ok": true, "device": {...}}``.
+8. a ``kernels:`` line, the kernel table as one JSON line, and as the
+   last line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and exits non-zero without one, or when the repository
 is missing beside it.
@@ -105,6 +111,15 @@ def card_bandwidth(name: str) -> float:
         if key in name:
             return bw
     return HBM_BYTES_PER_S["H100 80GB HBM3"]
+
+
+def smi_sample(tag: str) -> None:
+    """The card's name, power limit and SM clock now (``nvidia-smi``),
+    printed beside a timing."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,"
+                          "clocks.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    log(f"[{tag}] nvidia-smi: {out.splitlines()[0] if out else 'no answer'}")
 
 
 # ----------------------------------------------------------------------
@@ -266,8 +281,32 @@ def build_all(libraries) -> None:
     for name, lib in libraries.items():
         log(f"[build] {name}: nvcc {lib.seconds:.2f} s")
         for line in lib.log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+                log(f"[build]   {_kernel_name(entry)}:")
+            elif ("registers" in line or "spill" in line
+                  or "Performance Loss" in line):
+                log(f"[build]     {line.strip()}")
+
+
+def _kernel_name(mangled: str) -> str:
+    """The kernel's name and template arguments out of its mangled name
+    (enough to tell the instantiations apart in the build log)."""
+    import re
+    m = re.search(r"\d+([a-z][a-z_]*_kernel)(I[^E]*E)?", mangled)
+    return (m.group(1) + (m.group(2) or "")) if m else mangled
+
+
+def sass_counts(library, opcodes) -> dict:
+    """How many of each opcode ``cuobjdump -sass`` finds in the built
+    library: proof of which instructions the kernels run."""
+    from repro_torch.kernels import _build
+    so = library.build_dir / f"lib{library.source.stem}-{library.digest()}.so"
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    return {op: sum(op in line for line in sass.splitlines())
+            for op in opcodes}
 
 
 def quant_bytes(P: int, n: int, block: int, itemsize: int,
@@ -732,6 +771,7 @@ def phase_flash_kernel(dev, flush, bw) -> dict:
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     flops, nbytes = flash_work(FLASH_SERVE)
     ops_ms, bytes_ms = flops / BF16_FLOP_PER_S * 1e3, nbytes / bw * 1e3
+    smi_sample("flash")
     k_ms = time_ms(lambda: fa.flash_attention(q, k, v), flush)
     p_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v), flush)
     l_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -740,11 +780,13 @@ def phase_flash_kernel(dev, flush, bw) -> dict:
     qf, kf, vf = (t.float() for t in (q, k, v))
     f32_ms = time_ms(lambda: fa.flash_attention(qf, kf, vf), flush)
     del qf, kf, vf
+    smi_sample("flash")
     out = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                bound_ms=max(ops_ms, bytes_ms),
                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                max_abs_err=max(worst.values()))
-    log(f"[flash] serving shape {FLASH_SERVE[:6]} bf16 causal: kernel "
+    log(f"[flash] serving shape {FLASH_SERVE[:6]} bf16 causal (wgmma + "
+        f"TMA kernel): kernel "
         f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, "
         f"scaled_dot_product_attention {l_ms * 1e3:.2f} us, bound "
         f"{out['bound_ms'] * 1e3:.2f} us ({flops / 1e9:.2f} GFLOP at "
@@ -1073,8 +1115,34 @@ def phase_ssd_kernel(dev, flush, bw) -> dict:
     inp = ssd_inputs(SSD_SERVE, torch.bfloat16, gen, dev, serving=True)
     flops, nbytes = ssd_work(SSD_SERVE, 2)
     ops_ms, bytes_ms = flops / BF16_FLOP_PER_S * 1e3, nbytes / bw * 1e3
+    smi_sample("ssd")
     k_ms = time_ms(lambda: ssd.ssd_chunked(*inp, L), flush)
     p_ms = time_ms(lambda: ref.ssd_chunked_ref(*inp, L), flush)
+    smi_sample("ssd")
+    # the call's three kernels (chunk states, hand-off, outputs)
+    profile_device_time("ssd", lambda: ssd.ssd_chunked(*inp, L))
+    # The kernel skips products whose decays all underflow expf, which the
+    # serving shape's steep decay makes common.  At the unit shapes' shallow
+    # decay (dt in [0.01, ~0.4], A in -[0.5, ~3]) no decay in a chunk comes
+    # near that, nothing is skipped, and the time is the kernel's worst
+    # case; the float64 gate holds there too.
+    shallow = ssd_inputs(SSD_SERVE, torch.bfloat16, gen, dev)
+    got = ssd.ssd_chunked(*shallow, L)
+    plain = ref.ssd_chunked_ref(*shallow, L)
+    exact = ref.ssd_chunked_ref(*(t.double() for t in shallow), L)
+    for g, p, e, what in zip(got, plain, exact, ("y", "h_final")):
+        err_k = (g.double() - e).abs().max().item()
+        err_p = (p.double() - e).abs().max().item()
+        bound = SSD_F64_SLACK * err_p + SSD_F64_FLOOR * e.abs().max().item()
+        check(err_k <= bound, f"ssd_scan serving shape, shallow decay, "
+              f"{what}: kernel off float64 by {err_k}, over {bound} (f32 "
+              f"plain off by {err_p})")
+        log(f"[ssd] serving shape, shallow decay, bf16 {what}: max|kernel - "
+            f"f64| {err_k:.3e}, max|plain f32 - f64| {err_p:.3e} (bound "
+            f"{bound:.3e})")
+    del got, plain, exact
+    shallow_ms = time_ms(lambda: ssd.ssd_chunked(*shallow, L), flush)
+    smi_sample("ssd")
     out = dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
                bound_ms=max(ops_ms, bytes_ms),
                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
@@ -1084,7 +1152,8 @@ def phase_ssd_kernel(dev, flush, bw) -> dict:
         f"({flops / 1e9:.2f} GFLOP at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s, "
         f"{nbytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s: {out['bound_by']});"
         f" kernel at {100 * out['bound_ms'] / k_ms:.1f} % of its bound; "
-        f"library call: none")
+        f"library call: none; at the shallow decay (no product skipped) "
+        f"kernel {shallow_ms * 1e3:.2f} us")
     return out
 
 
@@ -1217,6 +1286,11 @@ def main() -> int:
     log(f"[build] the four libraries built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     bw = card_bandwidth(name)
+    sass = sass_counts(flash_ops.LIBRARY, ("HGMMA", "UTMALDG", "HMMA"))
+    log(f"[build] cuobjdump -sass of the flash library: {sass}")
+    check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
+          "the flash library holds no wgmma (HGMMA) or TMA (UTMALDG) "
+          "instruction")
 
     # -- 2. kernel against its plain version ----------------------------
     max_err = 0.0

@@ -1,11 +1,12 @@
 """One ``nvcc`` build path for every hand-written kernel of the port.
 
-Each kernel folder holds a ``csrc/*.cu`` source with a plain C interface.
-:class:`Library` compiles it at first use for ``sm_90a`` into a shared
-library under that folder's ``build/`` (gitignored), named by the source's
-hash so an edited source never loads a stale build, and loads it with
-``ctypes``.  The flags leave out ``--use_fast_math``: the kernels' divisions,
-square roots and roundings must be IEEE, as the JAX package's are.
+Each kernel folder holds a ``csrc/*.cu`` source with a plain C interface,
+and may hold headers (``*.cuh``) beside it.  :class:`Library` compiles it
+at first use for ``sm_90a`` into a shared library under that folder's
+``build/`` (gitignored), named by a hash of every file under ``csrc/`` and
+of ``NVCC_FLAGS``, so an edited source or header never loads a stale build,
+and loads it with ``ctypes``.  The flags leave out ``--use_fast_math``: the
+kernels' divisions, square roots and roundings must be IEEE, as the JAX package's are.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ class Library:
     ``bind(lib)`` sets the ``argtypes``/``restype`` of the library's entry
     points.  After :meth:`load`, ``log`` holds what the build printed
     (``-Xptxas -v``: registers, spills) and ``seconds`` what it took; both
-    stay empty when an earlier process had built the same source."""
+    stay empty when an earlier process had built the same sources."""
 
     def __init__(self, source: Path, bind: Callable[[ctypes.CDLL], None]):
         self.source = Path(source)
@@ -47,12 +48,22 @@ class Library:
         self._lib = None
         self._lock = threading.Lock()
 
+    def digest(self) -> str:
+        """Hash of ``NVCC_FLAGS`` and of every file under the source's folder
+        (names and contents), which names the build."""
+        h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+        for f in sorted(p for p in self.source.parent.rglob("*")
+                        if p.is_file()):
+            h.update(f.relative_to(self.source.parent).as_posix().encode())
+            h.update(b"\0")
+            h.update(f.read_bytes())
+        return h.hexdigest()[:16]
+
     def load(self) -> ctypes.CDLL:
         with self._lock:
             if self._lib is not None:
                 return self._lib
-            digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
-            so = self.build_dir / f"lib{self.source.stem}-{digest}.so"
+            so = self.build_dir / f"lib{self.source.stem}-{self.digest()}.so"
             if not so.exists():
                 self.build_dir.mkdir(parents=True, exist_ok=True)
                 tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")

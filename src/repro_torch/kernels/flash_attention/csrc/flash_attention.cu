@@ -11,7 +11,8 @@
 // head h / (H / KV) for q head h: the repeated K and V of the JAX wrapper
 // are never materialised.  f32 or bf16 inputs; every product, the running
 // max m, the running sum l and the accumulator are fp32.  d is one of 16,
-// 32, 64, 128, 256 (the wrapper zero-pads any other d up to one of them).
+// 32, 64, 128, 256 for f32 and one of 64, 128, 256 for bf16 (the wrapper
+// zero-pads any other d up to one of them).
 //
 // Semantics, those of the Pallas kernel:
 // - s = (q . k) * scale, then the tanh softcap c * tanh(s / c) when c != 0;
@@ -19,8 +20,9 @@
 //   set to exactly 0: k_pos >= T (the padded kv tail); with causal,
 //   k_pos > q_pos (positions unshifted, both from 0, also when S != T);
 //   with a window w, k_pos <= q_pos - w;
-// - the output is acc / max(l, 1e-30) (IEEE division: no --use_fast_math),
-//   so a row with no visible key comes out 0;
+// - the output is acc / max(l, 1e-30) (IEEE division: no --use_fast_math;
+//   the wgmma path multiplies by the IEEE reciprocal, within an f32 ulp,
+//   before the bf16 rounding), so a row with no visible key comes out 0;
 // - padded q rows (q_pos >= S) are computed and never written.
 // A kv tile in which every score is masked leaves (m, l, acc) exactly as
 // they were (m_new = m, p = 0, corr = exp(0) = 1), so such tiles are
@@ -30,30 +32,59 @@
 // What bounds it on this card: operations.  At the serving shape (N 16,
 // S = T = 1024, 8 q heads over 2 kv heads, d 128, causal, bf16) it must
 // move 84 MB and do 34 GFLOP of products, ~410 operations per byte: above
-// the card's ~295 (989 TFLOP/s over 3.35 TB/s).
+// the card's ~295 (989 TFLOP/s over 3.35 TB/s).  Only wgmma reaches the
+// tensor cores' rate; mma.sync, which the first version ran, cannot.
 //
-// What the design does about it (a simple design), in two paths:
-// - bf16 with d <= 128 (the serving path) runs on the tensor cores:
-//   mma.sync m16n8k16 with fp32 accumulation, below;
+// What the design does about it, two kernels chosen by dtype and d in
+// flash_attention_launch:
+// - bf16 with d = 64 or 128 (the serving path; bf16 head dims below 64 are
+//   padded to 64: a 128-byte swizzled row holds 64 bf16),
+//   flash_attention_wgmma_kernel,
+//   persistent: one block per SM walks the (q tile of 128 rows, head, n)
+//   work items, longest causal q tiles first.  Warp 8 is the producer: one
+//   thread issues TMA loads (4-D tensor maps over (d, heads, seq, n),
+//   128-byte swizzle, out-of-range rows zero-filled) of each item's Q
+//   (two buffers) and of its K and V tiles of 64 rows into a 2-stage
+//   ring, each stage's K and V guarded by a full/empty mbarrier pair; it
+//   runs ahead across items, so the next item's loads overlap this one's
+//   tail and epilogue.  Warpgroups 0 and 1 each own 64 q rows: S = Q . K^T
+//   is wgmma m64n64k16 with both operands in shared memory; the online
+//   softmax runs on the accumulator fragment (a row's max and sum are
+//   shuffles in its quad; the exponent is one FMA of the raw score into
+//   log2 units and one ex2.approx.ftz; max.NaN propagates NaN; masks only
+//   on tiles not wholly visible); P is rounded to bf16 in registers and is
+//   the register A operand of O += P . V (wgmma m64n{d}k16, V read MN-major
+//   through the descriptor's transpose bit).  O stays in registers and is
+//   written once per item.  Kv tiles are 64 rows, not 128: with nine warps
+//   a block gets at most 168 registers a thread, and at 128 ptxas
+//   serialised every wgmma (C7512, insufficient registers; setmaxnreg with
+//   a producer warpgroup did not lift it);
 // - f32 inputs, which must hold 3e-5 against the plain version (no TF32 or
-//   bf16 tensor cores), and d = 256 run on fp32 FMA:
-// - one block of 256 threads per (q tile of 64 rows, q head, n); a loop
-//   over 64-row kv tiles takes the place of Pallas' sequential grid axis,
-//   with (m, l, acc) in registers;
-// - Q, K and V tiles are staged in shared memory as fp32, rows padded by
-//   one word so that column reads are free of bank conflicts; the
-//   probability tile P reuses the K tile's buffer;
-// - each thread owns a 4 x 4 block of the 64 x 64 score tile (rows 4ty..,
-//   columns tx + 16j) and the same 4 rows x d/16 columns of the output;
-//   the row max and sum are warp shuffles within the 16 threads of a row.
-// The tensor-core path rounds the probabilities to bf16 for P . V (the
-// Pallas kernel multiplies them in fp32) and takes them as exp2 of scores
+//   bf16 tensor cores), and d = 256 run on fp32 FMA,
+//   flash_attention_kernel:
+//   - one block of 256 threads per (q tile of 64 rows, q head, n); a loop
+//     over 64-row kv tiles takes the place of Pallas' sequential grid axis,
+//     with (m, l, acc) in registers;
+//   - Q, K and V tiles are staged in shared memory as fp32, rows padded by
+//     one word so that column reads are free of bank conflicts; the
+//     probability tile P reuses the K tile's buffer;
+//   - each thread owns a 4 x 4 block of the 64 x 64 score tile (rows
+//     4ty.., columns tx + 16j) and the same 4 rows x d/16 columns of the
+//     output; the row max and sum are warp shuffles within the 16 threads
+//     of a row.
+// The wgmma kernel rounds the probabilities to bf16 for P . V (the
+// Pallas kernel multiplies them in fp32) and take them as exp2 of scores
 // in log2 units: one more bf16 rounding and a few f32 ulps, inside the
 // 2e-2 that bf16 outputs are held to.
-// Both launch on the caller's stream and allocate nothing.
+// All launch on the caller's stream and allocate nothing.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <climits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -243,292 +274,382 @@ flash_attention_kernel(const Args a) {
   }
 }
 
-// ---------------------------------------------------------------------
-// bf16 on the tensor cores: mma.sync m16n8k16 with fp32 accumulation
-// ---------------------------------------------------------------------
-//
-// One block of 4 warps per (q tile of 64 rows, q head, n); warp w owns q
-// rows 16w .. 16w + 15.  Q, K and V tiles are staged in shared memory as
-// bf16 rows padded by 16 bytes (ldmatrix reads 8 rows of 16 bytes from
-// distinct banks), copied with cp.async: every 16-byte copy of a tile is
-// in flight at once, and K/V are double-buffered, so tile i + 1 lands
-// while tile i is computed.  A warp skips a kv tile that masks all of its
-// own rows.  Per kv tile of 64 keys a warp computes its 16 x 64
-// scores with 4 x (d/16) mma.sync from Q fragments held in registers and K
-// fragments read by ldmatrix; the online softmax runs on the score
-// fragments (a row's 64 scores live in the 4 lanes of a quad: two
-// shuffles); the probabilities are rounded to bf16 and fed straight back as
-// the A operand of P . V, with V fragments read by ldmatrix.trans.  The
-// output accumulator (16 x d per warp) stays in registers.
-
-constexpr int MMA_WARPS = 4;
-constexpr int MMA_THREADS = 32 * MMA_WARPS;
-
-template <int D>
-struct MmaSmem {
-  static constexpr int LDS = D + 8;  // bf16 per padded row (16 B of pad)
-  // Q, then K and V in two stages each
-  static constexpr size_t BYTES = sizeof(__nv_bfloat16) * 5 * BQ * LDS;
-};
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16 x 16, row) . b (16 x 8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
+// bf16 pair -> one 32-bit register (lo in the low half)
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-// Issue the cp.async copies of rows [r0, r0 + 64) of a (rows, D) bf16
-// matrix with row stride `ld` (elements, a multiple of 8) into padded
-// shared rows; rows >= n are zero-filled (a 0-byte source).  The caller
-// commits the group.
+// ---------------------------------------------------------------------
+// bf16, d = 64 or 128: wgmma fed by TMA, warp-specialised, persistent
+// ---------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int BM = 128;         // q rows per work item: two warpgroups
+constexpr int BN = 64;          // kv rows per tile
+constexpr int STAGES = 2;       // K/V ring depth
+constexpr int CONSUMERS = 2;    // warpgroups 0, 1; then one producer warp
+constexpr int THREADS = 128 * CONSUMERS + 32;
+constexpr int ROW = 128;        // bytes of one swizzled row: 64 bf16
+
+// Two Q buffers, then K stages, then V stages, then the mbarriers.  A tile
+// of d columns is d / 64 column halves, each rows x 128 B and 1024-byte
+// aligned, as TMA's 128-byte swizzle writes it.
 template <int D>
-__device__ __forceinline__ void copy_tile_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                long long ld, int r0, int n) {
-  constexpr int LDS = MmaSmem<D>::LDS;
-  constexpr int VEC = D / 8;  // 16-byte vectors per row
-  static_assert(BQ * VEC % MMA_THREADS == 0, "whole copies per thread");
-#pragma unroll
-  for (int it = 0; it < BQ * VEC / MMA_THREADS; ++it) {
-    const int i = it * MMA_THREADS + threadIdx.x;
-    const int r = i / VEC, c = (i % VEC) * 8;
-    const bool in = r0 + r < n;
-    const __nv_bfloat16* from = in ? src + (r0 + r) * ld + c : src;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_addr(dst + r * LDS + c)), "l"(from),
-                    "r"(in ? 16 : 0)
-                 : "memory");
-  }
+struct Smem {
+  static constexpr int HALVES = D / 64;
+  static constexpr uint32_t Q_BYTES = BM * D * 2;
+  static constexpr uint32_t KV_BYTES = BN * D * 2;   // one K or V tile
+  static constexpr uint32_t K_OFF = 2 * Q_BYTES;
+  static constexpr uint32_t V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr uint32_t BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BARS = 4 + 4 * STAGES;
+  // + 1024 to align the dynamic buffer's start
+  static constexpr size_t BYTES = BAR_OFF + 8 * BARS + 1024;
+};
+
+// mbarrier slots: Q full and Q empty per buffer, then per stage K full,
+// V full, K empty, V empty
+__device__ __forceinline__ int bar_q_full(int b) { return b; }
+__device__ __forceinline__ int bar_q_empty(int b) { return 2 + b; }
+__device__ __forceinline__ int bar_k_full(int s) { return 4 + s; }
+__device__ __forceinline__ int bar_v_full(int s) { return 4 + STAGES + s; }
+__device__ __forceinline__ int bar_k_empty(int s) {
+  return 4 + 2 * STAGES + s;
+}
+__device__ __forceinline__ int bar_v_empty(int s) {
+  return 4 + 3 * STAGES + s;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// max that propagates NaN (max.NaN), as jnp.max does
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+// 2^x in one MUFU.EX2; a result below 2^-126 flushes to 0 (a probability
+// that small changes no bf16 output)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
 }
 
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_attention_mma_kernel(const Args a) {
-  constexpr int LDS = MmaSmem<D>::LDS;
-  constexpr int KD = D / 16;   // k16 steps over the head dim
-  constexpr int NS = BK / 8;   // score n-tiles per kv tile
-  constexpr int ND = D / 8;    // output n-tiles
-  extern __shared__ uint4 smem_v4[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_v4);
-  __nv_bfloat16* sK0 = sQ + BQ * LDS;     // K stage 0, then stage 1
-  __nv_bfloat16* sV0 = sK0 + 2 * BK * LDS;  // V stage 0, then stage 1
+// A work item: q tile (longest first), head, n
+struct Item {
+  int q0, h, n, lo, nt;
+};
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const long long n = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = lane & 3;
-  const int kvh = h / a.rep;
-  const __nv_bfloat16* Q =
-      static_cast<const __nv_bfloat16*>(a.q) + n * a.qs0 + h * a.qs2;
-  const __nv_bfloat16* K =
-      static_cast<const __nv_bfloat16*>(a.k) + n * a.ks0 + kvh * a.ks2;
-  const __nv_bfloat16* V =
-      static_cast<const __nv_bfloat16*>(a.v) + n * a.vs0 + kvh * a.vs2;
-
+__device__ __forceinline__ Item item(int w, int nq, int H, int N,
+                                     const Args& a) {
+  Item it;
+  const int hn = H * N;
+  it.q0 = (nq - 1 - w / hn) * BM;
+  it.h = (w % hn) % H;
+  it.n = (w % hn) / H;
+  // kv tiles that can hold a visible key for some row of this item
   int hi = a.T;
-  if (a.causal) hi = min(hi, q0 + BQ);
-  int lo = 0;
-  if (a.has_window) lo = max(0, q0 - a.window + 1) / BK * BK;
+  if (a.causal) hi = min(hi, it.q0 + BM);
+  it.lo = 0;
+  if (a.has_window) it.lo = max(0, it.q0 - a.window + 1) / BN * BN;
+  it.nt = hi > it.lo ? (hi - it.lo + BN - 1) / BN : 0;
+  return it;
+}
 
-  copy_tile_async<D>(sQ, Q, a.qs1, q0, a.S);
-  cp_async_commit();
-  if (lo < hi) {  // the first kv tile, stage 0
-    copy_tile_async<D>(sK0, K, a.ks1, lo, a.T);
-    copy_tile_async<D>(sV0, V, a.vs1, lo, a.T);
+// Scale, softcap and (MASK) mask one 64 x BN score tile held as the
+// accumulator fragment: register r is row qp0 + 8 ((r >> 1) & 1), key k0 +
+// 8 (r >> 2) + 2c + (r & 1).  Without a softcap the scores stay raw (the
+// exponent scales them: one FMA); with one they leave in log2 units.
+// Hidden scores become NEG_INF with their bit in ok cleared; rmax takes
+// the row maxima.
+template <bool MASK, bool CAP>
+__device__ __forceinline__ void score_tile(float (&sc)[BN / 2],
+                                           uint32_t& ok, float (&rmax)[2],
+                                           const Args& a, float scale2,
+                                           int qp0, int k0, int c) {
+#pragma unroll
+  for (int r = 0; r < BN / 2; ++r) {
+    float x = sc[r];
+    if (CAP) x = a.softcap * tanhf(x * scale2 / a.softcap) * LOG2E;
+    if (MASK) {
+      const int qp = qp0 + ((r >> 1) & 1) * 8;
+      const int kp = k0 + (r >> 2) * 8 + 2 * c + (r & 1);
+      bool vis = kp < a.T;
+      if (a.causal) vis = vis && kp <= qp;
+      if (a.has_window) vis = vis && kp > qp - a.window;
+      x = vis ? x : NEG_INF;
+      ok |= (vis ? 1u : 0u) << r;
+    }
+    sc[r] = x;
+    rmax[(r >> 1) & 1] = fmax_nan(rmax[(r >> 1) & 1], x);
   }
-  cp_async_commit();
-  cp_async_wait<1>();  // Q is in
+}
+
+}  // namespace wg
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&p)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
+                                             const uint32_t (&p)[4],
+                                             uint64_t db) {
+  hopper::wgmma_rs_n64(o, p, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
+                                              const uint32_t (&p)[4],
+                                              uint64_t db) {
+  hopper::wgmma_rs_n128(o, p, db);
+}
+
+// Persistent: block b takes work items b, b + gridDim.x, ... of the nq * H
+// * N (q tile, head, n) items, q tiles longest first.  The producer runs
+// ahead across items: the next item's Q (two buffers) and K/V tiles land
+// while the consumers finish the current one.
+template <int D>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
+                             const __grid_constant__ CUtensorMap tmk,
+                             const __grid_constant__ CUtensorMap tmv,
+                             const Args a, const int nq, const int H,
+                             const int N) {
+  using namespace hopper;
+  using L = wg::Smem<D>;
+  constexpr int BM = wg::BM, BN = wg::BN, STAGES = wg::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = base + L::K_OFF, sV = base + L::V_OFF;
+  const uint32_t bars = base + L::BAR_OFF;
+  auto bar = [bars](int i) { return bars + 8u * i; };
+  const int items = nq * H * N;
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(bar(wg::bar_q_full(b)), 1);
+      mbar_init(bar(wg::bar_q_empty(b)), 4 * wg::CONSUMERS);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar(wg::bar_k_full(s)), 1);
+      mbar_init(bar(wg::bar_v_full(s)), 1);
+      // one arrival per consumer warp
+      mbar_init(bar(wg::bar_k_empty(s)), 4 * wg::CONSUMERS);
+      mbar_init(bar(wg::bar_v_empty(s)), 4 * wg::CONSUMERS);
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
-  unsigned qf[KD][4];  // this warp's 16 q rows as A fragments
-  {
-    const int mi = lane >> 3;
-    const int row = warp * 16 + (mi & 1) * 8 + (lane & 7);
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
-      ldmatrix_x4(qf[kk], sQ + row * LDS + kk * 16 + (mi >> 1) * 8);
-  }
 
-  const int qp0 = q0 + warp * 16 + g;  // this lane's two rows: qp0, qp0 + 8
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float o[ND][4];
+  // warp-uniform (a shuffle from lane 0): the descriptors below stay in
+  // uniform registers
+  const int wgi = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128,
+                              0);
+  if (wgi == wg::CONSUMERS) {
+    // ---- producer warp: one thread issues every TMA load ----
+    if (threadIdx.x != 128 * wg::CONSUMERS) return;
+    int tile = 0;  // tiles issued so far, across items
+    for (int w = blockIdx.x, j = 0; w < items; w += gridDim.x, ++j) {
+      const wg::Item it = wg::item(w, nq, H, N, a);
+      const int kvh = it.h / a.rep;
+      const int qb = j & 1;
+      mbar_wait(bar(wg::bar_q_empty(qb)), ((j >> 1) & 1) ^ 1);
+      mbar_expect_tx(bar(wg::bar_q_full(qb)), L::Q_BYTES);
 #pragma unroll
-  for (int j = 0; j < ND; ++j)
-    o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-
-  // the rows this warp owns: [wq0, wq0 + 16)
-  const int wq0 = q0 + warp * 16;
-  // scores go to log2 units here, or after the softcap's tanh
-  const float scale2 = a.softcap != 0.f ? a.scale : a.scale * LOG2E;
-  for (int k0 = lo, stage = 0; k0 < hi; k0 += BK, stage ^= 1) {
-    const __nv_bfloat16* sK = sK0 + stage * BK * LDS;
-    const __nv_bfloat16* sV = sV0 + stage * BK * LDS;
-    if (k0 + BK < hi) {  // prefetch the next tile into the other stage
-      copy_tile_async<D>(sK0 + (stage ^ 1) * BK * LDS, K, a.ks1, k0 + BK,
-                         a.T);
-      copy_tile_async<D>(sV0 + (stage ^ 1) * BK * LDS, V, a.vs1, k0 + BK,
-                         a.T);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile is in
-    __syncthreads();
-
-    // a tile that masks every row of this warp changes nothing
-    const bool skip = (a.causal && k0 > wq0 + 15) ||
-                      (a.has_window && k0 + BK - 1 <= wq0 - a.window);
-    if (!skip) {
-      float s[NS][4];
+      for (int hf = 0; hf < L::HALVES; ++hf)
+        tma_load_4d(base + qb * L::Q_BYTES + hf * BM * wg::ROW, &tmq,
+                    bar(wg::bar_q_full(qb)), 64 * hf, it.h, it.q0, it.n);
+      for (int i = 0; i < it.nt; ++i, ++tile) {
+        const int s = tile % STAGES;
+        const uint32_t free_parity = ((tile / STAGES) & 1) ^ 1;
+        const int k0 = it.lo + i * BN;
+        mbar_wait(bar(wg::bar_k_empty(s)), free_parity);
+        mbar_expect_tx(bar(wg::bar_k_full(s)), L::KV_BYTES);
 #pragma unroll
-      for (int j = 0; j < NS; ++j)
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      {
-        const int mi = lane >> 3;
-        const int key = (mi >> 1) * 8 + (lane & 7);
-        const int col = (mi & 1) * 8;
+        for (int hf = 0; hf < L::HALVES; ++hf)
+          tma_load_4d(sK + s * L::KV_BYTES + hf * BN * wg::ROW, &tmk,
+                      bar(wg::bar_k_full(s)), 64 * hf, kvh, k0, it.n);
+        mbar_wait(bar(wg::bar_v_empty(s)), free_parity);
+        mbar_expect_tx(bar(wg::bar_v_full(s)), L::KV_BYTES);
 #pragma unroll
-        for (int kk = 0; kk < KD; ++kk)
-#pragma unroll
-          for (int j = 0; j < NS; j += 2) {
-            unsigned b[4];
-            ldmatrix_x4(b, sK + (j * 8 + key) * LDS + kk * 16 + col);
-            mma_bf16(s[j], qf[kk], b[0], b[1]);
-            mma_bf16(s[j + 1], qf[kk], b[2], b[3]);
-          }
-      }
-
-      // scale, softcap, mask; online-softmax update of (m, l, o).  Scores,
-      // m and the exponents are in log2 units (x * log2(e)), so that
-      // p = exp2(x - m) is one MUFU.EX2; the masks are only evaluated on
-      // a tile that is not visible in full to all of this warp's rows.
-      const bool full = k0 + BK <= a.T &&
-                        (!a.causal || k0 + BK - 1 <= wq0) &&
-                        (!a.has_window || k0 > wq0 + 15 - a.window);
-      float rmax[2] = {NEG_INF, NEG_INF};
-      unsigned ok = 0;  // bit 4j + e: score (j, e) is visible
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[j][e] * scale2;
-          if (a.softcap != 0.f)
-            x = a.softcap * tanhf(x / a.softcap) * LOG2E;
-          bool vis = true;
-          if (!full) {
-            const int qp = qp0 + (e >> 1) * 8;
-            const int kp = k0 + j * 8 + 2 * c + (e & 1);
-            vis = kp < a.T;
-            if (a.causal) vis = vis && kp <= qp;
-            if (a.has_window) vis = vis && kp > qp - a.window;
-          }
-          s[j][e] = vis ? x : NEG_INF;
-          ok |= (vis ? 1u : 0u) << (4 * j + e);
-          rmax[e >> 1] = max_nan(rmax[e >> 1], s[j][e]);
-        }
-      float corr[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        rmax[r] = max_nan(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 1));
-        rmax[r] = max_nan(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 2));
-        const float m_new = max_nan(m[r], rmax[r]);
-        corr[r] = exp2f(m[r] - m_new);
-        m[r] = m_new;
-      }
-      float rsum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] = (ok >> (4 * j + e)) & 1u ? exp2f(s[j][e] - m[e >> 1])
-                                              : 0.f;
-          rsum[e >> 1] += s[j][e];
-        }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
-        rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
-        l[r] = l[r] * corr[r] + rsum[r];
-      }
-#pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        o[j][0] *= corr[0];
-        o[j][1] *= corr[0];
-        o[j][2] *= corr[1];
-        o[j][3] *= corr[1];
-      }
-
-      // o += P . V: the score fragments of n-tiles 2t, 2t+1 are the A
-      // fragment of keys 16t .. 16t + 15
-      {
-        const int mi = lane >> 3;
-        const int key = (mi & 1) * 8 + (lane & 7);
-        const int col = (mi >> 1) * 8;
-#pragma unroll
-        for (int t = 0; t < BK / 16; ++t) {
-          const unsigned pa[4] = {pack_bf16(s[2 * t][0], s[2 * t][1]),
-                                  pack_bf16(s[2 * t][2], s[2 * t][3]),
-                                  pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]),
-                                  pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3])};
-#pragma unroll
-          for (int j = 0; j < ND; j += 2) {
-            unsigned b[4];
-            ldmatrix_x4_trans(b, sV + (t * 16 + key) * LDS + j * 8 + col);
-            mma_bf16(o[j], pa, b[0], b[1]);
-            mma_bf16(o[j + 1], pa, b[2], b[3]);
-          }
-        }
+        for (int hf = 0; hf < L::HALVES; ++hf)
+          tma_load_4d(sV + s * L::KV_BYTES + hf * BN * wg::ROW, &tmv,
+                      bar(wg::bar_v_full(s)), 64 * hf, kvh, k0, it.n);
       }
     }
-    __syncthreads();  // every warp is done with this stage
+    return;
   }
 
+  // ---- consumers: warpgroup wgi owns q rows [q0 + 64 wgi, + 64) ----
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int c = lane % 4;
+  const bool cap = a.softcap != 0.f;
+  // without a softcap the exponent is raw * scale2 - m, in log2 units;
+  // with one, the softcap's output is taken to log2 units
+  const float scale2 = cap ? a.scale : a.scale * LOG2E;
+  const float f = cap ? 1.f : scale2;
+  int tile = 0;
+  for (int w = blockIdx.x, j = 0; w < items; w += gridDim.x, ++j) {
+    const wg::Item it = wg::item(w, nq, H, N, a);
+    const int wq0 = it.q0 + 64 * wgi;
+    const int qp0 = wq0 + 16 * warp + lane / 4;  // rows qp0, qp0 + 8
+    const int qb = j & 1;
+    const uint32_t q_wg = base + qb * L::Q_BYTES + 64 * wgi * wg::ROW;
+
+    float o[D / 2], sc[BN / 2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qr = qp0 + r * 8;
-    if (qr >= a.S) continue;
-    const float denom = max_nan(l[r], 1e-30f);
-    __nv_bfloat16* O = static_cast<__nv_bfloat16*>(a.o) + n * a.os0 +
-                       qr * a.os1 + h * a.os2;
+    for (int r = 0; r < D / 2; ++r) o[r] = 0.f;
 #pragma unroll
-    for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(O + j * 8 + 2 * c) =
-          __floats2bfloat162_rn(o[j][2 * r] / denom, o[j][2 * r + 1] / denom);
+    for (int r = 0; r < BN / 2; ++r) sc[r] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    uint32_t p[BN / 16][4];
+
+    mbar_wait(bar(wg::bar_q_full(qb)), (j >> 1) & 1);
+    for (int i = 0; i < it.nt; ++i, ++tile) {
+      const int s = tile % STAGES;
+      const uint32_t parity = (tile / STAGES) & 1;
+      const int k0 = it.lo + i * BN;
+      // a tile that masks every row of this warpgroup changes nothing; it
+      // still takes part in the ring's hand-shakes
+      const bool skip = (a.causal && k0 > wq0 + 63) ||
+                        (a.has_window && k0 + BN - 1 <= wq0 - a.window);
+      mbar_wait(bar(wg::bar_k_full(s)), parity);
+      if (!skip) {
+        // S = Q . K^T: d / 16 k-steps; a k-step is 32 bytes into a
+        // 128-byte swizzled row, 64 columns per half
+        const uint32_t k_s = sK + s * L::KV_BYTES;
+        uint64_t dq[D / 16], dk[D / 16];
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;
+          dq[kk] = desc_sw128(q_wg + (kk / 4) * BM * wg::ROW + off, 16, 1024);
+          dk[kk] = desc_sw128(k_s + (kk / 4) * BN * wg::ROW + off, 16, 1024);
+        }
+        fence_regs(dq);
+        fence_regs(dk);
+        fence_regs(sc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(sc, dq[kk], dk[kk], kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar(wg::bar_k_empty(s)));
+
+      if (!skip) {
+        // scale, softcap, mask (only on a tile some score of which is
+        // hidden); online-softmax update of (m, l, o)
+        const bool full = k0 + BN <= a.T &&
+                          (!a.causal || k0 + BN - 1 <= wq0) &&
+                          (!a.has_window || k0 > wq0 + 63 - a.window);
+        float rmax[2] = {NEG_INF, NEG_INF};
+        uint32_t ok = 0;
+        if (full) {
+          if (cap)
+            wg::score_tile<false, true>(sc, ok, rmax, a, scale2, qp0, k0, c);
+          else
+            wg::score_tile<false, false>(sc, ok, rmax, a, scale2, qp0, k0, c);
+        } else {
+          if (cap)
+            wg::score_tile<true, true>(sc, ok, rmax, a, scale2, qp0, k0, c);
+          else
+            wg::score_tile<true, false>(sc, ok, rmax, a, scale2, qp0, k0, c);
+        }
+        float corr[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          rmax[e] = wg::fmax_nan(rmax[e],
+                                 __shfl_xor_sync(0xffffffffu, rmax[e], 1));
+          rmax[e] = wg::fmax_nan(rmax[e],
+                                 __shfl_xor_sync(0xffffffffu, rmax[e], 2));
+          const float m_new = wg::fmax_nan(m[e], rmax[e] * f);
+          corr[e] = wg::exp2_ftz(m[e] - m_new);
+          m[e] = m_new;
+        }
+        // p = 2^(score - m); on a tile that hides some score, 0 where hidden
+        float rsum[2] = {0.f, 0.f};
+        if (full) {
+#pragma unroll
+          for (int r = 0; r < BN / 2; ++r) {
+            sc[r] = wg::exp2_ftz(fmaf(sc[r], f, -m[(r >> 1) & 1]));
+            rsum[(r >> 1) & 1] += sc[r];
+          }
+        } else {
+#pragma unroll
+          for (int r = 0; r < BN / 2; ++r) {
+            const float e2 = wg::exp2_ftz(fmaf(sc[r], f, -m[(r >> 1) & 1]));
+            sc[r] = (ok >> r) & 1u ? e2 : 0.f;
+            rsum[(r >> 1) & 1] += sc[r];
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          rsum[e] += __shfl_xor_sync(0xffffffffu, rsum[e], 1);
+          rsum[e] += __shfl_xor_sync(0xffffffffu, rsum[e], 2);
+          l[e] = l[e] * corr[e] + rsum[e];
+        }
+#pragma unroll
+        for (int r = 0; r < D / 2; ++r) o[r] *= corr[(r >> 1) & 1];
+      }
+      if (!skip) {
+        // the score fragments of keys 16kt .. 16kt + 15 are the A fragment
+        // of k-step kt of P . V
+#pragma unroll
+        for (int kt = 0; kt < BN / 16; ++kt) {
+          p[kt][0] = pack_bf16(sc[8 * kt + 0], sc[8 * kt + 1]);
+          p[kt][1] = pack_bf16(sc[8 * kt + 2], sc[8 * kt + 3]);
+          p[kt][2] = pack_bf16(sc[8 * kt + 4], sc[8 * kt + 5]);
+          p[kt][3] = pack_bf16(sc[8 * kt + 6], sc[8 * kt + 7]);
+        }
+      }
+
+      mbar_wait(bar(wg::bar_v_full(s)), parity);
+      if (!skip) {
+        // O += P . V: V is (kv rows = K, d = N), d contiguous: MN-major;
+        // a k-step is 16 rows (2048 bytes), the next 64 columns the other
+        // half (BN * 128 bytes on)
+        const uint32_t v_s = sV + s * L::KV_BYTES;
+        uint64_t dv[BN / 16];
+#pragma unroll
+        for (int kt = 0; kt < BN / 16; ++kt)
+          dv[kt] = desc_sw128(v_s + kt * 16 * wg::ROW, BN * wg::ROW, 1024);
+        fence_regs(dv);
+#pragma unroll
+        for (int kt = 0; kt < BN / 16; ++kt) fence_regs(p[kt]);
+        fence_regs(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kt = 0; kt < BN / 16; ++kt) wgmma_pv<D>(o, p[kt], dv[kt]);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar(wg::bar_v_empty(s)));
+    }
+    // this item's Q buffer is free for the item after next
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar(wg::bar_q_empty(qb)));
+
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int qr = qp0 + 8 * e;
+      if (qr >= a.S) continue;
+      // one IEEE reciprocal per row: o * (1 / l) is within an f32 ulp of
+      // o / l, far under the bf16 rounding that follows
+      const float inv = 1.f / max_nan(l[e], 1e-30f);
+      __nv_bfloat16* O = static_cast<__nv_bfloat16*>(a.o) + it.n * a.os0 +
+                         qr * a.os1 + it.h * a.os2;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj)
+        *reinterpret_cast<__nv_bfloat162*>(O + 8 * jj + 2 * c) =
+            __floats2bfloat162_rn(o[4 * jj + 2 * e] * inv,
+                                  o[4 * jj + 2 * e + 1] * inv);
+    }
   }
 }
 
@@ -544,15 +665,98 @@ cudaError_t launch(const Args& a, int N, int H, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// links no CUDA driver library
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D tensor map over (d, heads, rows, n) of a bf16 tensor whose strides
+// (elements) are s_head, s_row, s_n, with boxes of 64 columns x 128 rows of
+// one (head, n), 128-byte swizzled.  Rows past `rows` read as zeros.  A
+// dimension of extent 1 is never stepped: its stride is replaced by 16
+// bytes when it is not a positive multiple of 16.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int d, int heads,
+                     int rows, int n, long long s_head, long long s_row,
+                     long long s_n, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  auto stride = [](long long s, int extent) -> cuuint64_t {
+    const long long bytes = 2 * s;
+    return extent == 1 && (bytes <= 0 || bytes % 16 != 0)
+               ? 16
+               : static_cast<cuuint64_t>(bytes);
+  };
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows > 0 ? rows : 1),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[3] = {stride(s_head, heads), stride(s_row, rows),
+                                 stride(s_n, n)};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+int sm_count() {
+  int dev = 0, count = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return count;
+}
+
 template <int D>
-cudaError_t launch_mma(const Args& a, int N, int H, cudaStream_t stream) {
-  const size_t smem = MmaSmem<D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_mma_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+cudaError_t launch_wgmma(const Args& a, int N, int H, int KV,
+                         cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err =
+      make_map(&tq, a.q, D, H, a.S, N, a.qs2, a.qs1, a.qs0, wg::BM);
+  if (err == cudaSuccess)
+    err = make_map(&tk, a.k, D, KV, a.T, N, a.ks2, a.ks1, a.ks0, wg::BN);
+  if (err == cudaSuccess)
+    err = make_map(&tv, a.v, D, KV, a.T, N, a.vs2, a.vs1, a.vs0, wg::BN);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + BQ - 1) / BQ, H, N);
-  flash_attention_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(a);
+  const size_t smem = wg::Smem<D>::BYTES;
+  err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int nq = (a.S + wg::BM - 1) / wg::BM;
+  const long long items = static_cast<long long>(nq) * H * N;
+  if (items > INT_MAX) return cudaErrorInvalidValue;
+  // one resident block per SM walks the items
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  const int blocks = static_cast<int>(items < sms ? items : sms);
+  flash_attention_wgmma_kernel<D><<<blocks, wg::THREADS, smem, stream>>>(
+      tq, tk, tv, a, nq, H, N);
   return cudaGetLastError();
 }
 
@@ -571,12 +775,15 @@ cudaError_t launch_d(const Args& a, int d, int N, int H,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides in elements; the inner stride
-// of every tensor is 1.  window < 0 means no window, softcap 0 no softcap.
-// Every row of q, k, v and out starts 16-byte aligned (pointers and
-// strides), as the tensor-core path's 16-byte loads need: bf16 with
-// d <= 128 takes that path, f32 and d = 256 the fp32 FMA path.
-// Returns the CUDA error of the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16; d is an instantiated head dim (the
+// wrapper zero-pads any other, ops.py::padded_head_dim).  bf16 at d = 64 or
+// 128 runs the wgmma + TMA kernel; f32 at any d and bf16 at d = 256 the
+// fp32-FMA kernel; anything else is refused.  Strides in elements; the
+// inner stride of every tensor is 1.  window < 0 means no window, softcap 0
+// no softcap.  The wgmma kernel needs every row of q, k, v and out to start
+// 16-byte aligned and, for TMA, every stride of an extent over 1 to be a
+// positive multiple of 16 bytes (ops.py::_rows_aligned copies a view that
+// is not).  Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int d,
     int N, int S, int T, int H, int KV, long long qs0, long long qs1,
@@ -591,12 +798,8 @@ extern "C" int flash_attention_launch(
          window >= 0 ? 1 : 0, window, softcap};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_d<float>(a, d, N, H, st);
-  if (dtype != 1) return cudaErrorInvalidValue;
-  switch (d) {
-    case 16: return launch_mma<16>(a, N, H, st);
-    case 32: return launch_mma<32>(a, N, H, st);
-    case 64: return launch_mma<64>(a, N, H, st);
-    case 128: return launch_mma<128>(a, N, H, st);
-    default: return launch_d<__nv_bfloat16>(a, d, N, H, st);
-  }
+  if (dtype == 1 && d == 64) return launch_wgmma<64>(a, N, H, KV, st);
+  if (dtype == 1 && d == 128) return launch_wgmma<128>(a, N, H, KV, st);
+  if (dtype == 1 && d == 256) return launch<__nv_bfloat16, 256>(a, N, H, st);
+  return cudaErrorInvalidValue;
 }

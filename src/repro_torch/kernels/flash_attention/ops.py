@@ -6,6 +6,13 @@ runs the plain PyTorch version (:mod:`.ref`); on CUDA tensors it launches
 the kernel of ``csrc/flash_attention.cu`` or raises — there is no fallback.
 The kernel is compiled at first use by :mod:`repro_torch.kernels._build`
 and loaded with ``ctypes``.
+
+The launcher picks one of the source's two kernels by dtype and head dim,
+which the wrapper first zero-pads up to one of the kernels' instantiations
+(:func:`padded_head_dim`): bf16 at d 64 or 128 runs wgmma fed by TMA (the
+serving path; a 128-byte swizzled row holds 64 bf16, so bf16 head dims
+below 64 pad to 64), and f32 inputs, which are held to 3e-5 (no bf16 or
+TF32 tensor cores), and bf16 at d 256 run the fp32-FMA kernel.
 """
 from __future__ import annotations
 
@@ -26,7 +33,10 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's instantiations
+# the kernels' instantiated head dims, by dtype
+HEAD_DIMS = {torch.float32: (16, 32, 64, 128, 256),
+             torch.bfloat16: (64, 128, 256)}
+_D_MAX = 256
 _GRID_MAX = 65535                    # grid.y (heads) and grid.z (N)
 
 
@@ -46,9 +56,20 @@ def load_library() -> ctypes.CDLL:
     return LIBRARY.load()
 
 
+def padded_head_dim(dtype: torch.dtype, d: int) -> int:
+    """The instantiated head dim that ``dtype`` inputs of head dim ``d``
+    are zero-padded up to."""
+    return next(h for h in HEAD_DIMS[dtype] if h >= d)
+
+
 def _rows_aligned(t: torch.Tensor) -> bool:
-    return t.data_ptr() % 16 == 0 and all(
-        st * t.element_size() % 16 == 0 for st in t.stride()[:3])
+    """Whether the kernels read ``t`` in place: a unit inner stride, a
+    16-byte-aligned start, and every other stride of an extent over 1 a
+    positive multiple of 16 bytes (TMA's rule).  A tensor that fails is
+    copied."""
+    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        n == 1 or (st > 0 and st * t.element_size() % 16 == 0)
+        for n, st in zip(t.shape[:3], t.stride()[:3]))
 
 
 def _check(q, k, v, window, softcap) -> None:
@@ -95,22 +116,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     N, S, H, d = q.shape
     T, KV = k.shape[1], k.shape[2]
-    if d > HEAD_DIMS[-1]:
-        raise ValueError(f"flash_attention: head dim {d} over "
-                         f"{HEAD_DIMS[-1]}")
+    if d > _D_MAX:
+        raise ValueError(f"flash_attention: head dim {d} over {_D_MAX}")
     if H > _GRID_MAX or N > _GRID_MAX or max(S, T) >= 2**31 - 64:
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} over the "
                          f"kernel's grid")
     out_shape = tuple(q.shape)
     if N * S * H == 0:
         return q.new_empty(out_shape)
-    dp = next(h for h in HEAD_DIMS if h >= d)
+    if T == 0:   # no key is visible: every row is 0 (and TMA needs keys)
+        return q.new_zeros(out_shape)
+    dp = padded_head_dim(q.dtype, d)
     if dp != d:
         # zero columns change no product and give zero output columns
         q, k, v = (F.pad(t, (0, dp - d)) for t in (q, k, v))
-    # unit inner stride, and every row 16-byte aligned for the tensor-core
-    # path's vector loads: a view that is not is copied (a fresh tensor is)
-    q, k, v = (t if t.stride(-1) == 1 and _rows_aligned(t)
+    # a view the kernels cannot read in place is copied (a fresh tensor is)
+    q, k, v = (t if _rows_aligned(t)
                else t.clone(memory_format=torch.contiguous_format)
                for t in (q, k, v))
     out = torch.empty((N, S, H, dp), dtype=q.dtype, device=q.device)

@@ -4,9 +4,16 @@
 Bt, S, H, P)``, ``dt (R, Bt, S, H)``, ``A (R, H)``, ``B``/``C (R, Bt, S,
 G, N)`` with R the stacked ranks.  On CPU tensors it runs the plain
 PyTorch version (:mod:`.ref`); on CUDA tensors it launches the kernel of
-``csrc/ssd_scan.cu`` or raises — there is no fallback.  The kernel is
+``csrc/ssd_scan.cu`` or raises — there is no fallback.  The kernels are
 compiled at first use by :mod:`repro_torch.kernels._build` and loaded with
 ``ctypes``.
+
+One call launches three kernels, the chunk-parallel form: chunk states,
+the state hand-off across chunks, chunk outputs.  ``launches`` counts
+calls (one per call, as the serving path's one-per-layer-per-wave check
+reads it).  The wrapper allocates the two f32 scratch buffers the passes
+share: the chunk states ``(R, Bt, H, S / chunk, N, P)`` (100 MB at
+mamba2-130m's serving shape) and the cumulative decay ``(R, Bt, H, S)``.
 """
 from __future__ import annotations
 
@@ -14,17 +21,18 @@ import ctypes
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 
-# Kernel launches issued by `ssd_chunked`.
+# Calls of `ssd_chunked` that launched the kernels (three each).
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel's tiles (216 KB of shared memory at the largest)
+# the kernels' tiles (shared memory rows of at most these)
 MAX_CHUNK, MAX_STATE, MAX_HEAD_DIM = 128, 128, 64
 _GRID_MAX = 2**31 - 1
 
@@ -32,7 +40,7 @@ _GRID_MAX = 2**31 - 1
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = lib.ssd_scan_launch
-    fn.argtypes = [vp] * 7 + [i] * 9 + [ll] * 18 + [vp]
+    fn.argtypes = [vp] * 9 + [i] * 9 + [ll] * 18 + [vp]
     fn.restype = i
 
 
@@ -44,8 +52,18 @@ def load_library() -> ctypes.CDLL:
     return LIBRARY.load()
 
 
-def _unit_inner(t: torch.Tensor) -> torch.Tensor:
-    return t if t.stride(-1) == 1 or t.shape[-1] == 1 else t.contiguous()
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Whether the kernels read ``t`` in place with 16-byte loads: a unit
+    inner stride, a 16-byte-aligned start, and every other stride of an
+    extent over 1 a multiple of 16 bytes.  A tensor that fails is
+    copied."""
+    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        n == 1 or st * t.element_size() % 16 == 0
+        for n, st in zip(t.shape[:-1], t.stride()[:-1]))
+
+
+def _pad_last(t: torch.Tensor, to: int) -> torch.Tensor:
+    return t if t.shape[-1] == to else F.pad(t, (0, to - t.shape[-1]))
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -71,30 +89,43 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"{dt.dtype}, {A.dtype}")
     R, Bt, S, H, P = x.shape
     N = B.shape[4]
+    blocks = R * Bt * H * (S // chunk)
     if chunk > MAX_CHUNK or N > MAX_STATE or P > MAX_HEAD_DIM \
-            or R * Bt * H > _GRID_MAX:
+            or blocks > _GRID_MAX:
         raise ValueError(f"ssd_chunked: chunk {chunk}, state {N}, head dim "
-                         f"{P} or {R * Bt * H} (rank, batch, head) blocks "
-                         f"over the kernel's limits ({MAX_CHUNK}, "
+                         f"{P} or {blocks} (rank, batch, head, chunk) "
+                         f"blocks over the kernels' limits ({MAX_CHUNK}, "
                          f"{MAX_STATE}, {MAX_HEAD_DIM}, {_GRID_MAX})")
-    y = torch.empty((R, Bt, S, H, P), dtype=torch.float32, device=x.device)
     if R * Bt * H == 0 or S == 0:
-        return y, torch.zeros((R, Bt, H, N, P), dtype=torch.float32,
-                              device=x.device)
-    h_final = torch.empty((R, Bt, H, N, P), dtype=torch.float32,
+        return (torch.empty((R, Bt, S, H, P), dtype=torch.float32,
+                            device=x.device),
+                torch.zeros((R, Bt, H, N, P), dtype=torch.float32,
+                            device=x.device))
+    # the kernels tile N and P in whole 16-byte vectors: zero columns of x,
+    # B and C change no product and give zero columns, cut off below
+    Pv, Nv = -(-P // 8) * 8, -(-N // 8) * 8
+    x = _pad_last(x, Pv)
+    B, C = _pad_last(B, Nv), _pad_last(C, Nv)
+    x, B, C = (t if _rows_aligned(t) else t.contiguous() for t in (x, B, C))
+    y = torch.empty((R, Bt, S, H, Pv), dtype=torch.float32, device=x.device)
+    h_final = torch.empty((R, Bt, H, Nv, Pv), dtype=torch.float32,
                           device=x.device)
-    # the kernel reads dt and A through all their strides, x, B and C
-    # through all but a unit inner one
-    x, B, C = (_unit_inner(t) for t in (x, B, C))
+    states = torch.empty((R, Bt, H, S // chunk, Nv, Pv), dtype=torch.float32,
+                         device=x.device)
+    cum = torch.empty((R, Bt, H, S), dtype=torch.float32, device=x.device)
     lib = load_library()
     with torch.cuda.device(x.device):
         err = lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), h_final.data_ptr(), _DTYPES[x.dtype],
-            R, Bt, S, H, P, B.shape[3], N, chunk, *x.stride()[:4],
+            C.data_ptr(), y.data_ptr(), h_final.data_ptr(), states.data_ptr(),
+            cum.data_ptr(), _DTYPES[x.dtype],
+            R, Bt, S, H, Pv, B.shape[3], Nv, chunk, *x.stride()[:4],
             *dt.stride(), *A.stride(), *B.stride()[:4], *C.stride()[:4],
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     launches += 1
+    if (Pv, Nv) != (P, N):
+        y = y[..., :P].contiguous()
+        h_final = h_final[..., :N, :P].contiguous()
     return y, h_final

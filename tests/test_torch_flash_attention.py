@@ -15,6 +15,11 @@ of the products and of the online softmax differs; bf16 outputs round
 once).  The CUDA kernel is held against this plain version on the card at
 the same tolerances (``tests/test_torch_cuda.py``, ``cuda`` marker).
 
+The head dim the wrapper pads to by dtype, which picks the kernel
+(``padded_head_dim``), the rule by which it reads a view in place or
+copies it (TMA's alignment), and the build loader's naming of a library by
+all its sources are checked here too; the kernels themselves run only on the card.
+
 JAX runs in this process (one CPU device suffices): no subprocess."""
 import jax.numpy as jnp
 import numpy as np
@@ -100,3 +105,61 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         ops.flash_attention(q, k, v, window=-1)
     with pytest.raises(ValueError):
         ops.flash_attention(q[0], k[0], v[0])
+
+
+# (dtype, head dim) -> the head dim the wrapper zero-pads it to, which the
+# launcher dispatches on: bf16 at 64 or 128 runs wgmma + TMA (a 128-byte
+# swizzled row holds 64 bf16, so smaller bf16 head dims pad to 64); f32
+# (held to 3e-5) at every d and bf16 at 256 run fp32 FMA
+PADDED = {("bf16", 16): 64, ("bf16", 24): 64, ("bf16", 32): 64,
+          ("bf16", 48): 64, ("bf16", 64): 64, ("bf16", 100): 128,
+          ("bf16", 128): 128, ("bf16", 200): 256, ("bf16", 256): 256,
+          ("f32", 16): 16, ("f32", 64): 64, ("f32", 128): 128,
+          ("f32", 256): 256}
+
+
+@pytest.mark.parametrize("dtype,d", list(PADDED))
+def test_padded_head_dim_by_dtype(dtype, d):
+    tdt = DTYPES[dtype][0]
+    assert ops.padded_head_dim(tdt, d) == PADDED[(dtype, d)]
+    assert ops.padded_head_dim(tdt, d) in ops.HEAD_DIMS[tdt]
+
+
+def test_tma_alignment_rule():
+    """The kernels read a tensor in place only with a unit inner stride, a
+    16-byte-aligned start and every other stride of an extent over 1 a
+    positive multiple of 16 bytes (TMA's rule); anything else is copied."""
+    t = torch.zeros(2, 64, 4, 128, dtype=torch.bfloat16)
+    assert ops._rows_aligned(t)
+    # q/k/v as views of one fused projection: strides of 16-byte multiples
+    qkv = torch.zeros(2, 64, 3, 4, 128, dtype=torch.bfloat16)
+    assert all(ops._rows_aligned(v) for v in qkv.unbind(2))
+    flat = torch.zeros(1 + 2 * 64 * 4 * 128, dtype=torch.bfloat16)
+    assert not ops._rows_aligned(flat[1:].view(2, 64, 4, 128))  # start
+    odd = torch.zeros(2, 64, 4, 129, dtype=torch.bfloat16)[..., :128]
+    assert not ops._rows_aligned(odd)                           # row stride
+    kv = torch.zeros(2, 64, 1, 128, dtype=torch.bfloat16)
+    assert not ops._rows_aligned(kv.expand(-1, -1, 4, -1))      # stride 0
+    assert ops._rows_aligned(kv)                  # extent 1: never stepped
+    assert not ops._rows_aligned(t.transpose(2, 3))             # inner
+    assert not ops._rows_aligned(t.float()[..., ::2])
+
+
+def test_library_build_name_covers_sources(tmp_path):
+    """A build is named by every file under ``csrc/`` and the nvcc flags: an
+    edited header or a new file names another build, so a stale library is
+    never loaded; the same sources name the same."""
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "kern" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "k.cu").write_text('#include "k.cuh"\n')
+    (csrc / "k.cuh").write_text("// v1\n")
+    lib = _build.Library(csrc / "k.cu", lambda lib: None)
+    first = lib.digest()
+    assert lib.build_dir == tmp_path / "kern" / "build"
+    assert _build.Library(csrc / "k.cu", lambda lib: None).digest() == first
+    (csrc / "k.cuh").write_text("// v2\n")
+    assert lib.digest() != first
+    second = lib.digest()
+    (csrc / "more.cuh").write_text("\n")
+    assert lib.digest() != second
