@@ -23,7 +23,8 @@ exits non-zero:
    host-scheduled configurations for 200 steps (20-step segments): final
    states bitwise equal, mass drift, finiteness, and the kernel launch
    counts; then one fused run with the plain version, against the kernel run,
-   and a profile of one fused segment (device time by kernel);
+   and a profile of one fused and one overlapped segment (device time by
+   kernel, ``swe_step``'s passes among them);
 4. routing: the 1696-element mesh on a 2x4 torus (8 ranks) and the full size
    on a 6x8 torus (48 ranks), each bitwise equal to its flat run;
 5. the int8 wire (the ``quantize``/``dequantize`` kernels, checked
@@ -226,9 +227,10 @@ def run_fused(driver, sim, update=None):
     return state, (time.perf_counter() - t0) / STEPS * 1e6
 
 
-def profile_segment(driver, sim, step_us: float) -> None:
-    """Device time by kernel over one replayed fused segment: where a step's
-    time goes on the card.  The busy share is taken against ``step_us``, the
+def profile_segment(driver, sim, step_us: float, label: str) -> None:
+    """Device time by kernel over one replayed segment of ``sim``'s schedule:
+    where a step's time goes on the card, the top eight kernels and every
+    ``swe_step`` kernel.  The busy share is taken against ``step_us``, the
     unprofiled step time (the profiler slows the host down)."""
     from torch.profiler import ProfilerActivity, profile
     run = driver.make_sim_runner(sim, N_INNER)
@@ -241,10 +243,11 @@ def profile_segment(driver, sim, step_us: float) -> None:
                    for e in prof.key_averages()
                    if e.self_device_time_total > 0), reverse=True)
     busy = sum(r[0] for r in rows) / N_INNER
-    log(f"[profile] fused segment: {len(rows)} kernel names, device busy "
+    log(f"[profile] {label} segment: {len(rows)} kernel names, device busy "
         f"{busy:.1f} us/step of the {step_us:.1f} us/step measured above "
         f"({100 * busy / step_us:.1f} %)")
-    for us, count, key in rows[:8]:
+    for us, count, key in [r for i, r in enumerate(rows)
+                           if i < 8 or "swe_" in r[2]]:
         log(f"[profile]   {us / N_INNER:8.2f} us/step  {count / N_INNER:5.1f}"
             f"/step  {key[:70]}")
 
@@ -287,6 +290,24 @@ def build_all(libraries) -> None:
             elif ("registers" in line or "spill" in line
                   or "Performance Loss" in line):
                 log(f"[build]     {line.strip()}")
+
+
+def ptxas_summary(build_log: str) -> dict:
+    """Each kernel's ``-Xptxas -v`` registers and spill bytes, by name."""
+    import re
+    out, name = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = _kernel_name(line.split("'")[1] if "'" in line else line)
+            out[name] = {}
+        elif name is not None:
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads")):
+                m = re.search(pat, line)
+                if m:
+                    out[name][key] = int(m.group(1))
+    return out
 
 
 def _kernel_name(mangled: str) -> str:
@@ -1286,6 +1307,8 @@ def main() -> int:
     log(f"[build] the four libraries built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     bw = card_bandwidth(name)
+    swe_ptxas = ptxas_summary(swe_ops.LIBRARY.log)
+    log(f"[build] swe_step registers and spills: {swe_ptxas}")
     sass = sass_counts(flash_ops.LIBRARY, ("HGMMA", "UTMALDG", "HMMA"))
     log(f"[build] cuobjdump -sass of the flash library: {sass}")
     check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
@@ -1395,6 +1418,11 @@ def main() -> int:
         check(bool(torch.isfinite(state).all()), f"{label}: non-finite state")
         check(abs(drift) < MASS_DRIFT, f"{label}: mass drift {drift}")
     main_launches = swe_ops.launches
+    # a graph captures N_INNER steps after one eager warm-up step; the host
+    # runner launches every step
+    per_step = {label: launches_by_mode[label] / (
+        STEPS if label == "host" else N_INNER + 1) for label in step_us}
+    log(f"[main] swe_step launches per step: {per_step}")
     for label in ("overlapped", "host"):
         check(torch.equal(finals[label], finals["fused"]),
               f"{label} final state differs from fused")
@@ -1410,7 +1438,10 @@ def main() -> int:
         f"(atol {ATOL_PLAIN_RUN})")
     check(diff <= ATOL_PLAIN_RUN, "plain-version run disagrees with kernel")
 
-    profile_segment(driver, sim, step_us["fused"])
+    for label, cfg in (("fused", CommConfig()),
+                       ("overlapped", OVERLAPPED_CONFIG)):
+        profile_segment(driver, dataclasses.replace(sim, comm_cfg=cfg),
+                        step_us[label], label)
 
     # -- 4. routing ----------------------------------------------------
     small = driver.build_simulation(1696, 8, CommConfig(), device=dev)
@@ -1449,7 +1480,7 @@ def main() -> int:
                    for k, v in quant_launches.items())
         + f"; flash_attention launches={flash_launches} (serving)"
         + f"; ssd_scan launches={ssd_launches} (serving)")
-    full = timings["full pass"]
+    full, boundary = timings["full pass"], timings["boundary rows"]
     rows = [{
         "name": "swe_step", "route": "cuda",
         "source": "src/repro_torch/kernels/swe_step/csrc/swe_step.cu",
@@ -1457,7 +1488,10 @@ def main() -> int:
         "launches": main_launches, "max_abs_err": max_err,
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
-        "library_ms": None}]
+        "library_ms": None,
+        "boundary_pass": {k: boundary[k] for k in ("ms", "plain_ms",
+                                                   "bound_ms", "bound_by")},
+        "launches_per_step": per_step, "ptxas": swe_ptxas}]
     for kname, line in (("quantize", 34), ("dequantize", 60)):
         t = quant_timings[kname]
         rows.append({

@@ -2,7 +2,8 @@
 
 ``swe_step(...)`` takes stacked-rank tensors.  On CPU tensors it runs the
 plain PyTorch version (:mod:`.ref`); on CUDA tensors it launches the kernel
-in ``csrc/swe_step.cu`` or raises — there is no fallback.  The kernel is
+in ``csrc/swe_step.cu`` (tiles staged by 16-byte ``cp.async``; the row
+list one thread per row) or raises — there is no fallback.  The kernel is
 compiled at first use by :mod:`repro_torch.kernels._build` (``nvcc`` for
 ``sm_90a``, into ``build/`` beside this file) and loaded with ``ctypes``.
 """
@@ -18,8 +19,9 @@ from repro_torch.kernels.swe_step import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "swe_step.cu"
 
-# Kernel launches issued by `swe_step` (a launch captured into a CUDA graph
-# counts once, at capture; replays run no Python).
+# Kernel launches issued by `swe_step`: one per call on CUDA tensors.  Under
+# a CUDA graph this counts the capture, not the replays: a captured launch
+# counts once, and every replay of the graph runs it again without Python.
 launches = 0
 
 

@@ -107,6 +107,99 @@ def test_kernel_rejects_what_it_does_not_take(card):
                      rows=torch.zeros((1, 3), dtype=torch.int32, device=card))
 
 
+def _ranks_inputs(P, E, device, seed):
+    """``P`` ranks of different data, every edge type (0 to 3), and
+    neighbours next to the slot (inside its tile), anywhere in the rank
+    (mostly outside it) and in the halo."""
+    rng = np.random.RandomState(seed)
+    H = E // 3 + 2
+    e = np.arange(E).reshape(1, E, 1)
+    near = np.clip(e + rng.randint(-3, 4, (P, E, 3)), 0, E - 1)
+    far = rng.randint(0, E, (P, E, 3))
+    in_halo = E + rng.randint(0, H, (P, E, 3))
+    pick = rng.randint(0, 3, (P, E, 3))
+    nidx = np.where(pick == 0, near, np.where(pick == 1, far, in_halo))
+    t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
+    return [t(np.abs(rng.randn(P, E, 3)) * 0.1 + [1.0, 0, 0], torch.float32),
+            t(np.abs(rng.randn(P, H, 3)) * 0.1 + [1.0, 0, 0], torch.float32),
+            t(rng.randn(P, E, 3, 2) * 0.01, torch.float32),
+            t(nidx, torch.int32), t(rng.randint(0, 4, (P, E, 3)), torch.int32),
+            t(np.abs(rng.randn(P, E)) * 1e-3 + 1e-4, torch.float32),
+            t(rng.rand(P, E) > 0.05, torch.float32),
+            torch.full((), 1.1, dtype=torch.float32, device=device)]
+
+
+def _ragged_rows(P, E, device, seed):
+    """A row list of odd length with duplicates in every rank."""
+    rng = np.random.RandomState(seed)
+    rows = rng.randint(0, E, (P, E // 2 + 3))
+    rows[:, -2:] = rows[:, :1]
+    return torch.as_tensor(rows, dtype=torch.int32, device=device)
+
+
+def _check_both_passes(args, rows):
+    """The full pass and the row-list pass against the plain version
+    (1e-5), unlisted rows untouched, and the row pass writing the full
+    pass's values bitwise (the schedules' invariant)."""
+    before = ops.launches
+    got = ops.swe_step(*args, dt=DT)
+    base = torch.full_like(got, -7.0)
+    got_b = ops.swe_step(*args, dt=DT, rows=rows, out=base.clone())
+    torch.cuda.synchronize()
+    assert ops.launches == before + 2
+    want = ref.swe_step_ref(*args, dt=DT)
+    want_b = ref.swe_step_ref(*args, dt=DT, rows=rows, out=base.clone())
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0, equal_nan=True)
+    torch.testing.assert_close(got_b, want_b, atol=1e-5, rtol=0,
+                               equal_nan=True)
+    listed = torch.zeros(got.shape[:2], dtype=torch.bool, device=got.device)
+    listed.scatter_(1, rows.long(), True)
+    assert torch.equal(got_b[~listed], base[~listed])
+    assert torch.equal(got_b[listed].nan_to_num(nan=-9.0),
+                       got[listed].nan_to_num(nan=-9.0))
+    return got
+
+
+@pytest.mark.parametrize("E", [1, 3, 255, 257, 1353])
+def test_kernel_edges_match_plain(card, E):
+    """Slot counts that are no multiple of 4 or of the tile, three ranks of
+    different data (tiles straddle ranks), neighbours in and out of the
+    tile and in the halo, every edge type, a ragged row list with
+    duplicates."""
+    _check_both_passes(_ranks_inputs(3, E, card, seed=E),
+                       _ragged_rows(3, E, card, seed=E + 1))
+
+
+def test_kernel_propagates_nan_as_the_plain_version(card):
+    """A NaN depth in the state and in the halo reaches the same slots as
+    in the plain version (a clamp that dropped it would hide a blown-up
+    state)."""
+    P, E = 2, 700
+    args = _ranks_inputs(P, E, card, seed=5)
+    args[0][0, 10, 0] = float("nan")
+    args[0][1, 600, 0] = float("nan")
+    args[1][1, :5, 0] = float("nan")
+    got = _check_both_passes(args, _ragged_rows(P, E, card, seed=6))
+    assert got.isnan().any()
+
+
+def test_kernel_reads_unaligned_views(card):
+    """Contiguous views that start off a 16-byte boundary take the
+    per-thread path and give the aligned launch's values bitwise."""
+    P, E = 2, 300
+    args = _ranks_inputs(P, E, card, seed=7)
+    want = ops.swe_step(*args, dt=DT)
+    shifted = list(args)
+    for i in (0, 2, 3, 4, 5, 6):
+        buf = torch.empty(args[i].numel() + 1, dtype=args[i].dtype,
+                          device=card)
+        shifted[i] = buf[1:].view(args[i].shape)
+        shifted[i].copy_(args[i])
+        assert shifted[i].is_contiguous() and shifted[i].data_ptr() % 16
+    got = _check_both_passes(shifted, _ragged_rows(P, E, card, seed=8))
+    assert torch.equal(got, want)
+
+
 def test_schedules_on_the_card(card):
     """Every schedule launches the kernel, all stay bitwise equal, and the
     plain version agrees with the kernel after 20 steps."""

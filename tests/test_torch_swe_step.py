@@ -48,7 +48,7 @@ def _port_inputs(u, u_n, nx, ny, et, area, valid, device="cpu"):
             torch.ones((), dtype=torch.float32, device=device)]
 
 
-@pytest.mark.parametrize("E", [100, 512, 1300])
+@pytest.mark.parametrize("E", [1, 3, 100, 257, 512, 1300])
 def test_plain_matches_jax_ref_and_pallas(E):
     arrays = _jax_inputs(E)
     jx = [jnp.asarray(a) for a in arrays]
@@ -82,8 +82,46 @@ def test_boundary_rows(E):
                                atol=ATOL, rtol=0)
 
 
+def _stacked(P, E, H, seed, nan):
+    """``P`` ranks of different data with neighbours over ``[state |
+    halo]`` and every edge type (numpy); with ``nan``, NaN depths in a
+    state row and a halo row."""
+    rng = np.random.RandomState(seed)
+    f32 = lambda a: a.astype(np.float32)
+    st = f32(np.abs(rng.randn(P, E, 3)) * 0.1 + [1.0, 0, 0])
+    hl = f32(np.abs(rng.randn(P, H, 3)) * 0.1 + [1.0, 0, 0])
+    if nan:
+        st[0, 5, 0] = hl[P - 1, 2, 0] = np.nan
+    return (st, hl, f32(rng.randn(P, E, 3, 2) * 0.01),
+            rng.randint(0, E + H, (P, E, 3)).astype(np.int32),
+            rng.randint(0, 4, (P, E, 3)).astype(np.int32),
+            f32(np.abs(rng.randn(P, E)) * 1e-3 + 1e-4),
+            f32(rng.rand(P, E) > 0.05))
+
+
+@pytest.mark.parametrize("nan", [False, True])
+def test_plain_matches_jax_ref_on_stacked_ranks(nan):
+    """Three ranks of different data, neighbours in the state and the halo,
+    a slot count that is no multiple of 4: each rank of the plain version
+    against the JAX oracle on that rank's gathered neighbours, NaN depths
+    reaching the same slots."""
+    P, E, H = 3, 257, 40
+    st, hl, nrm, nidx, et, area, valid = _stacked(P, E, H, 11, nan)
+    got = ref.swe_step_ref(*[torch.from_numpy(a) for a in
+                             (st, hl, nrm, nidx, et, area, valid)],
+                           torch.tensor(1.1), dt=DT).numpy()
+    assert np.isnan(got).any() == nan
+    for p in range(P):
+        u_n = np.concatenate([st[p], hl[p]])[nidx[p]]
+        want = np.asarray(jax_swe_step_ref(
+            *[jnp.asarray(a) for a in (st[p], u_n, nrm[p, ..., 0],
+                                       nrm[p, ..., 1], et[p], area[p],
+                                       valid[p])], 1.1, dt=DT))
+        np.testing.assert_allclose(got[p], want, atol=ATOL, rtol=0)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("E", [100, 512, 1300])
+@pytest.mark.parametrize("E", [1, 3, 100, 257, 512, 1300])
 def test_cuda_kernel_matches_jax_ref(E):
     """The CUDA kernel against the JAX package's oracle, on a machine that
     has both a card and JAX (the card-only tests without JAX are in
