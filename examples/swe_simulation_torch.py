@@ -20,6 +20,7 @@ from repro_torch.core import latmodel
 from repro_torch.core.config import (BASELINE_CONFIG, H100, OVERLAPPED_CONFIG,
                                      CommConfig)
 from repro_torch.core.topology import TorusSpec
+from repro_torch.runtime.fault_tolerance import StepWatchdog
 from repro_torch.swe import driver
 
 
@@ -90,10 +91,17 @@ def main():
         run = driver.make_sim_runner(sim, n_inner=n_inner)
         state = run(sim.state, 0.0)          # first segment: warm
         sync()
+        # Segment-level watchdog: each 20-step launch is one "step" — a slow
+        # segment (straggling host) shows up as a watchdog.straggler
+        # instant in the trace and on the watchdog.stragglers counter.
+        watchdog = StepWatchdog(warmup=2, window=16)
         t = n_inner * sim.swe.dt
         t0 = time.perf_counter()
-        for _ in range(args.steps // n_inner - 1):
+        for i in range(args.steps // n_inner - 1):
+            watchdog.start_step(i)
             state = run(state, t)
+            sync()
+            watchdog.end_step()
             t += n_inner * sim.swe.dt
         sync()
         steps = max(args.steps - n_inner, 1)
@@ -104,6 +112,9 @@ def main():
     print(f"ran {args.steps} steps, {us:.1f} us/step on {name}")
     print(f"mass conservation: {m0:.6f} -> {m1:.6f} "
           f"(drift {(m1 - m0) / m0:.2e})")
+    if sim.comm_cfg.scheduling.value != "host":
+        print(f"watchdog: median segment {watchdog.median_step*1e3:.1f}ms, "
+              f"{len(watchdog.events)} straggler(s)")
 
     # Eq. 2/3 model (with the overlap term) on the H100's constants
     w = driver.build_workload(sim)

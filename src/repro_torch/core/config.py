@@ -47,8 +47,9 @@ class Compression(str, enum.Enum):
 
 class Reliability(str, enum.Enum):
     """The paper's network-stack axis: TCP (guaranteed delivery) or UDP
-    (best effort).  The port has no fault injection yet, so a GUARANTEED
-    config runs the fast path, as the JAX package does on a clean wire."""
+    (best effort).  On a clean wire both run the same program; under an
+    injected fault schedule (:mod:`repro_torch.core.reliable`) GUARANTEED
+    executes the retransmit protocol and BEST_EFFORT raises."""
     BEST_EFFORT = "best_effort"
     GUARANTEED = "guaranteed"
 

@@ -8,7 +8,9 @@ shape/dtype)`` captures what the comm layer derives on the host —
 - the :func:`~repro_torch.core.streaming.aligned_chunks` wire-chunk layout,
 - the greedy edge-coloring of a multi-neighbor exchange into permute rounds,
 - ring/neighbor permutations (validated once, replayed as tuples),
-- the ack-window dependency structure of ordered transport.
+- the ack-window dependency structure of ordered transport,
+- the reliable wire's delivery plans (kind ``"wire"``,
+  :func:`repro_torch.core.reliable.delivery_plan`).
 
 Everything here is host-side Python holding static schedule data (and the
 small index tensors the wire derives from it), so cached and uncached

@@ -17,9 +17,12 @@ Transport semantics (paper §3.4):
   stream, in chunk order, and a stream runs its work in issue order — so
   the ack dependency of ``plans.ChunkPlan.ack_of`` holds by construction.
 
-The JAX package's reliable-delivery branch (``reliable.plan_for``) is not
-ported yet: a ``GUARANTEED`` config runs the fast path, as the JAX package
-does on a clean wire.
+Reliable delivery (``Reliability.GUARANTEED`` under an injected
+:class:`~repro_torch.core.reliable.WireFaults` schedule): every message asks
+:func:`repro_torch.core.reliable.plan_for` for a delivery plan and, when it
+gets one, executes it slot by slot (:func:`_reliable_stream`).  A clean
+message, or any message outside a fault context, takes the unprotected path
+and launches exactly what ``BEST_EFFORT`` launches.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.config import CommConfig, CommMode, Compression
-from repro_torch.core import plans, plugins, topology
+from repro_torch.core import plans, plugins, reliable, topology
 from repro_torch.obs import trace as obs_trace
 
 
@@ -135,14 +138,60 @@ def split_chunks(x: torch.Tensor, n: int):
     return chunks, unsplit
 
 
+def _reliable_stream(rplan, chunks, perm, cfg: CommConfig,
+                     consume: Callable | None = None, init=None):
+    """Execute a :class:`~repro_torch.core.reliable.DeliveryPlan`: one real
+    wire round per slot, value-preserving.
+
+    Every slot — original transmission, lost transmission, duplicate,
+    backoff hold — encodes its sequence's chunk and runs a full
+    :func:`_wire` permute of it, so recovery costs real permute rounds.
+    Only ``DELIVER`` slots are decoded into the receiver's reassembly
+    buffer; the other slots' outputs are dropped (eager PyTorch and a CUDA
+    graph execute every launched permute, so no barrier is needed).  Slots
+    are issued in order on one stream, which gives ordered transport's
+    chain of slot *j* on slot *j - window*.
+
+    ``consume(carry, seq, chunk)`` fires in sequence order through the
+    reassembly flush: seq *i* is folded only once every seq ``<= i`` has
+    been delivered, so a pipelined consumer's fold order is the lossless
+    one under any wire reorder.
+
+    ``chunks[seq]`` is sequence ``seq``'s stacked ``(P, ...)`` chunk.
+    Returns ``(carry, [chunk_0, ..., chunk_{n-1}])`` in sequence order.
+    """
+    received: dict = {}
+    carry = init
+    next_flush = 0
+    n_slots = len(rplan.slots)
+    for j, slot in enumerate(rplan.slots):
+        with obs_trace.span("wire.slot", cat="wire", slot=j, of=n_slots,
+                            seq=slot.seq, action=slot.action,
+                            attempt=slot.attempt):
+            enc, dec = plugins.wire_encode(chunks[slot.seq], cfg)
+            out = _wire(enc, perm)
+            if slot.action == reliable.DELIVER:
+                received[slot.seq] = dec(out)
+        if consume is not None:
+            while next_flush in received:
+                carry = consume(carry, next_flush, received[next_flush])
+                next_flush += 1
+    return carry, [received[i] for i in range(rplan.n_chunks)]
+
+
 def chunked_permute(x: torch.Tensor, perm: Sequence[tuple[int, int]],
                     cfg: CommConfig) -> torch.Tensor:
     """Streaming point-to-point transfer of ``x`` along ``perm``: one permute
-    per wire chunk, in the compression plugin's wire format."""
+    per wire chunk (per delivery-plan slot under a fault schedule), in the
+    compression plugin's wire format."""
     plan = plans.chunk_plan(tuple(x.shape[1:]), x.dtype, cfg,
                             equal_split=True)
     n = plan.n_chunks
     chunks, unsplit = split_chunks(x, n)
+    rplan = reliable.plan_for(cfg, n)
+    if rplan is not None:
+        _, seq_chunks = _reliable_stream(rplan, chunks.unbind(1), perm, cfg)
+        return unsplit(torch.stack(seq_chunks, dim=1))
     received = []
     for i in range(n):
         payload = chunks[:, i]
@@ -160,7 +209,12 @@ def buffered_permute(x: torch.Tensor, perm: Sequence[tuple[int, int]],
 
     The copy is the receive buffer in device memory — the consumer reads
     the message only after the *entire* message has landed and been staged
-    (the paper's l_m term)."""
+    (the paper's l_m term).  Under a fault schedule the message is one
+    chunk: losing it costs a whole-message retransmit."""
+    rplan = reliable.plan_for(cfg, 1)
+    if rplan is not None:
+        _, (msg,) = _reliable_stream(rplan, [x], perm, cfg)
+        return msg.clone()
     with obs_trace.span("wire.message", cat="wire",
                         elems=_per_rank_elems(x)):
         enc, dec = plugins.wire_encode(x, cfg)
@@ -191,6 +245,13 @@ def pipelined_consume(x: torch.Tensor, perm: Sequence[tuple[int, int]],
     if pad:
         flat = F.pad(flat, (0, pad))
     chunks = flat.reshape(P, n, chunk_elems)
+    rplan = reliable.plan_for(cfg, n)
+    if rplan is not None:
+        carry, seq_chunks = _reliable_stream(rplan, chunks.unbind(1), perm,
+                                             cfg, consume=consume, init=init)
+        msg = (torch.stack(seq_chunks, dim=1).reshape(P, -1)
+               [:, :_per_rank_elems(x)].reshape(x.shape).to(x.dtype))
+        return carry, msg
     carry = init
     received = []
     for i in range(n):

@@ -138,6 +138,51 @@ class TorusSpec:
         return sum(self.link_slowdown(ranks[i], ranks[i + 1])
                    for i in range(len(ranks) - 1))
 
+    @property
+    def degraded_links(self) -> Tuple[Tuple[int, int], ...]:
+        """Canonical (lo, hi) rank pairs currently degraded."""
+        if not self.link_slowdowns:
+            return ()
+        return tuple(k for k, _ in self.link_slowdowns)
+
+    def with_link_slowdown(self, a: int, b: int,
+                           factor: float) -> "TorusSpec":
+        """A copy with link ``{a, b}`` degraded by ``factor`` (>= 1;
+        ``factor == 1`` heals the link).  Other degradations are kept."""
+        if float(factor) < 1.0:
+            raise ValueError(f"link slowdown must be >= 1, got {factor}")
+        key = (min(int(a), int(b)), max(int(a), int(b)))
+        kept = [(k, f) for k, f in (self.link_slowdowns or ()) if k != key]
+        if float(factor) > 1.0:
+            kept.append((key, float(factor)))
+        return dataclasses.replace(
+            self, link_slowdowns=tuple(sorted(kept)) or None)
+
+    def with_reroute(self, reroute: bool = True) -> "TorusSpec":
+        """A copy with cost-aware routing switched on/off (the monitor's
+        lever after hysteresis confirms a degraded link)."""
+        return dataclasses.replace(self, reroute=bool(reroute))
+
+    def without_degradations(self) -> "TorusSpec":
+        """The healthy twin: same placement/costs, no slowdowns, no reroute."""
+        return dataclasses.replace(self, link_slowdowns=None, reroute=False)
+
+    def shrink(self, n_survivors: int) -> "TorusSpec":
+        """The sub-torus the elastic runtime rebuilds on the survivors: the
+        squarest ``R' x C'`` factorization of ``n_survivors`` (minimal
+        diameter), the bisection bandwidth scaled by the survivor fraction.
+        Placement and degradation state are dropped: survivors are
+        renumbered ``0..n-1`` on a fresh fabric."""
+        n = int(n_survivors)
+        if not 1 <= n <= self.n_ranks:
+            raise ValueError(
+                f"n_survivors must be in [1, {self.n_ranks}], got {n}")
+        rows = max(r for r in range(1, int(math.isqrt(n)) + 1) if n % r == 0)
+        return TorusSpec(
+            shape=(rows, n // rows),
+            per_hop_ns=self.per_hop_ns,
+            bisection_gbps=self.bisection_gbps * n / self.n_ranks)
+
     # ------------------------------------------------------------------
     # Coordinates and distances
     # ------------------------------------------------------------------

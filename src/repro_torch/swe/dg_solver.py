@@ -28,7 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core import collectives, streaming
+from repro_torch.core import collectives, reliable, streaming
 from repro_torch.core.communicator import Communicator
 from repro_torch.core.config import CommConfig, Scheduling
 from repro_torch.obs import trace as obs_trace
@@ -114,6 +114,12 @@ def make_step_fn(pm: PartitionedMesh, comm_cfg: CommConfig,
     ``update`` replaces the element update (default: the ``swe_step``
     kernel's wrapper); a caller passes the plain version to run it on the
     card for comparison.
+
+    Under a wire fault schedule (:func:`repro_torch.core.reliable.inject`)
+    the step's first call draws one delivery plan per message and every
+    later call replays them in issue order (``step.tape``, a
+    :class:`~repro_torch.core.reliable.PlanTape`): one step function is
+    one traced program of the JAX package, whatever calls it how often.
     """
     if update is None:
         from repro_torch.kernels.swe_step import ops
@@ -236,9 +242,16 @@ def make_step_fn(pm: PartitionedMesh, comm_cfg: CommConfig,
                           valid, h_sea, dt=swe.dt, rows=boundary_idx,
                           out=new)
 
-    if comm_cfg.scheduling == Scheduling.OVERLAPPED:
-        return step_overlapped
-    return step_serial
+    body = (step_overlapped if comm_cfg.scheduling == Scheduling.OVERLAPPED
+            else step_serial)
+    tape = reliable.PlanTape()
+
+    def step(*args, **kwargs):
+        with tape.play():
+            return body(*args, **kwargs)
+
+    step.tape = tape
+    return step
 
 
 def initial_state(mesh, hump: bool = True) -> np.ndarray:

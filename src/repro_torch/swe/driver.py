@@ -130,7 +130,8 @@ def build_simulation(n_elements: int, n_parts: int, comm_cfg,
                      topology=None,
                      initial_state: Optional[np.ndarray] = None,
                      device=None, tune_db_path=None,
-                     objective: str = "latency") -> Simulation:
+                     objective: str = "latency",
+                     mesh: Optional[SweMesh] = None) -> Simulation:
     """Generate the bight mesh, partition it over ``n_parts`` stacked ranks
     and place the initial state on ``device`` (default: the card).
 
@@ -142,9 +143,12 @@ def build_simulation(n_elements: int, n_parts: int, comm_cfg,
     the partitions on a virtual multi-hop torus; with ``"auto"`` every
     exchange round is then tuned at its own hop distance
     (``Simulation.round_cfgs``).  ``initial_state`` (global ``(E, 3)``)
-    seeds the partitions instead of the t=0 hump."""
+    seeds the partitions instead of the t=0 hump.  ``mesh`` is the
+    already generated ``generate_bight_mesh(n_elements, seed)`` (the
+    elastic runtime's rebuilds reuse it instead of generating it again)."""
     device = resolve_device(device)
-    mesh = generate_bight_mesh(n_elements, seed=seed)
+    if mesh is None:
+        mesh = generate_bight_mesh(n_elements, seed=seed)
     if initial_state is None:
         initial_state = dg_solver.initial_state(mesh)
     pm = partition_mesh(mesh, n_parts, np.asarray(initial_state))
@@ -220,7 +224,10 @@ def make_sim_runner(sim: Simulation, n_inner: int = 10, update=None):
     On the card the segment is captured once, here, as one CUDA graph
     (after one warm-up step that builds the kernel and fills the plan
     caches) and every ``run`` replays it with one launch.  ``update``
-    replaces the element update, as in :func:`dg_solver.make_step_fn`."""
+    replaces the element update, as in :func:`dg_solver.make_step_fn`.
+    The runner's ``tape`` holds the delivery plans its first step drew
+    under a wire fault schedule; every later step, capture and replay
+    runs the same plans."""
     step = make_step_fn(sim.pm, sim.comm_cfg, sim.swe,
                         topology=sim.topology, round_cfgs=sim.round_cfgs,
                         update=update)
@@ -240,6 +247,7 @@ def make_sim_runner(sim: Simulation, n_inner: int = 10, update=None):
                                 scheduling=scheduling):
                 return advance(state, torch.tensor(t, dtype=torch.float32,
                                                    device=sim.device))
+        run.tape = step.tape
         return run
 
     return _GraphSegment(sim, step, args, advance, n_inner, scheduling)
@@ -253,7 +261,7 @@ class _GraphSegment:
     process-long plan cache)."""
 
     def __init__(self, sim, step, args, advance, n_inner, scheduling):
-        self.args, self.step = args, step
+        self.args, self.step, self.tape = args, step, step.tape
         self.n_inner, self.scheduling = n_inner, scheduling
         self.state_in = sim.state.clone()
         self.t_in = torch.zeros((), dtype=torch.float32, device=sim.device)
@@ -290,6 +298,7 @@ class HostScheduledRunner:
         self._step = make_step_fn(sim.pm, sim.comm_cfg, sim.swe,
                                   topology=sim.topology,
                                   round_cfgs=sim.round_cfgs)
+        self.tape = self._step.tape
         self._args = _static_args(sim)
 
     def _sync(self) -> None:

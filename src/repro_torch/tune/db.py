@@ -78,10 +78,11 @@ class TuneEntry:
     # the dispersion the variance-aware selection breaks near-ties on.
     # 0.0 = not recorded (point-estimate-only entry).
     p95_us: float = 0.0
-    # Injected per-transmission chunk-loss rate the measurement ran under;
-    # 0.0 = clean wire.  Carried so either package loads the other's file
-    # (the JAX package's sweep --loss-rate writes it); the port's sweep
-    # measures a clean wire only, and its queries do not select on it.
+    # Injected per-transmission chunk-loss rate the measurement ran under
+    # (sweep --loss-rate); 0.0 = clean wire.  Entries measured under
+    # different loss rates are distinct data points — the jumbo-vs-segment
+    # winner flips with loss, so a lossy-wire answer must come from a
+    # lossy-wire measurement.
     loss: float = 0.0
     # Which consumer loop produced ``e2e_us`` ("row_parallel",
     # "decode_step", "prefill", "halo_fold", "moe_loop"; "" = bare-latency
@@ -150,6 +151,7 @@ class TuneDB:
     def candidates(self, collective: str, topo: str | None = None,
                    hops: int | None = None,
                    torus: str | None = None,
+                   loss: float | None = None,
                    consumer: str | None = None) -> list[TuneEntry]:
         """Entries for ``collective`` (optionally per topology).
 
@@ -161,7 +163,10 @@ class TuneDB:
         exactly that hop distance; when none exist, relax to the nearest
         measured distance — a 3-hop edge is better served by a 2-hop
         measurement than a 1-hop one (the direct-link vs routed cost
-        structures differ).  ``consumer`` prefers entries
+        structures differ).  ``loss`` works the same way for the injected
+        chunk-loss rate: a lossy caller prefers lossy-wire measurements
+        (jumbo frames win clean links, small segments win lossy ones) and
+        relaxes to the nearest measured rate.  ``consumer`` prefers entries
         whose ``e2e_us`` was measured inside that consumer loop (a decode
         caller must not be answered by a prefill-loop measurement when a
         decode-loop one exists) and relaxes to every entry when the
@@ -178,6 +183,14 @@ class TuneDB:
             matched = [e for e in cands if e.torus == torus]
             if matched:
                 cands = matched
+        if loss is not None and cands:
+            matched = [e for e in cands if e.loss == loss]
+            if matched:
+                cands = matched
+            else:
+                nearest_l = min({e.loss for e in cands},
+                                key=lambda l: abs(l - loss))
+                cands = [e for e in cands if e.loss == nearest_l]
         if hops is not None and cands:
             matched = [e for e in cands if e.hops == hops]
             if matched:
@@ -227,21 +240,23 @@ class TuneDB:
     def best(self, collective: str, msg_bytes: int, topo: str | None = None,
              hops: int | None = None, objective: str = "latency",
              torus: str | None = None,
+             loss: float | None = None,
              consumer: str | None = None) -> Optional[TuneEntry]:
         """Fastest entry at exactly ``msg_bytes`` (None if not measured)."""
         exact = [e for e in self.candidates(collective, topo, hops, torus,
-                                            consumer)
+                                            loss, consumer)
                  if e.msg_bytes == msg_bytes]
         return self._rank(exact, objective)
 
     def nearest(self, collective: str, msg_bytes: int, topo: str | None = None,
                 hops: int | None = None, objective: str = "latency",
                 torus: str | None = None,
+                loss: float | None = None,
                 consumer: str | None = None) -> Optional[TuneEntry]:
         """Fastest entry at the measured message size closest (in log space)
         to ``msg_bytes`` — message-size behaviour is scale-free, so log
         distance is the right metric (1 KiB is "nearer" 4 KiB than 64 KiB)."""
-        cands = self.candidates(collective, topo, hops, torus, consumer)
+        cands = self.candidates(collective, topo, hops, torus, loss, consumer)
         if not cands:
             return None
         target = math.log(max(1, msg_bytes))
@@ -289,6 +304,7 @@ def select_config(collective: str, msg_bytes: int, n_ranks: int | None = None,
                   hops: int | None = None,
                   objective: str = "latency",
                   torus: str | None = None,
+                  loss: float | None = None,
                   consumer: str | None = None,
                   fallback: CommConfig = OPTIMIZED_CONFIG) -> CommConfig:
     """The autotuner's answer to "how should I communicate?".
@@ -316,6 +332,12 @@ def select_config(collective: str, msg_bytes: int, n_ranks: int | None = None,
     happens to share a hop count (and relaxes to any entry when that
     placement was never swept).
 
+    ``loss`` prefers entries measured under that injected chunk-loss rate
+    (nearest measured rate when no exact match): on a lossy wire the
+    GUARANTEED small-segment configs that looked slow on the clean sweep
+    are the ones that actually win, and only lossy-wire measurements can
+    say so.
+
     ``consumer`` names the caller's consumer loop ("decode_step",
     "prefill", "row_parallel", ...): entries whose ``e2e_us`` was measured
     inside that loop are preferred, which is how serving's two phases
@@ -332,14 +354,14 @@ def select_config(collective: str, msg_bytes: int, n_ranks: int | None = None,
         topo = topology_key(n_ranks)
     platform = topo.split(":", 1)[0]
     entry = (db.best(collective, msg_bytes, topo, hops, objective, torus,
-                     consumer)
+                     loss, consumer)
              or db.nearest(collective, msg_bytes, topo, hops, objective,
-                           torus, consumer))
+                           torus, loss, consumer))
     if entry is None:
         same_platform = TuneDB([e for e in db.entries
                                 if e.topo.split(":", 1)[0] == platform])
         entry = same_platform.nearest(collective, msg_bytes, None, hops,
-                                      objective, torus, consumer)
+                                      objective, torus, loss, consumer)
     if entry is None:
         return fallback
     return entry.comm_config

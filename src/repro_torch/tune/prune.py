@@ -32,7 +32,7 @@ _CHUNKED_STREAMING = frozenset({"sendrecv", "multi_neighbor"})
 def predicted_latency(cfg: CommConfig, msg_bytes: int,
                       calibration: CalibrationResult,
                       collective: str | None = None,
-                      hops: int = 1) -> float:
+                      hops: int = 1, loss: float = 0.0) -> float:
     """Eq. 1 prediction (seconds) for one candidate on the calibrated
     substrate.
 
@@ -44,7 +44,11 @@ def predicted_latency(cfg: CommConfig, msg_bytes: int,
     a single command regardless of ``chunk_bytes``.  ``hops`` is the edge's
     torus hop distance: the route term re-serializes buffered messages per
     hop and wormholes streaming chunks, which is what reorders candidates
-    between direct links and routed edges.
+    between direct links and routed edges.  ``loss`` is the expected
+    chunk-loss rate of the wire: GUARANTEED candidates are surcharged by
+    :func:`~repro_torch.core.latmodel.expected_retransmit_factor`, which is
+    what lets the pruner rank small segments above jumbo frames on lossy
+    links.
     """
     import dataclasses
     hw = calibration.to_hardware_spec()
@@ -55,13 +59,14 @@ def predicted_latency(cfg: CommConfig, msg_bytes: int,
         and cfg.scheduling == Scheduling.OVERLAPPED)
     if not chunked and cfg.mode == CommMode.STREAMING:
         cfg = dataclasses.replace(cfg, max_chunks=1)
-    return latmodel.pingping_latency(msg_bytes, cfg, hw, hops=hops)
+    return latmodel.pingping_latency(msg_bytes, cfg, hw, hops=hops,
+                                     loss=loss)
 
 
 def predicted_e2e(cfg: CommConfig, msg_bytes: int,
                   calibration: CalibrationResult, compute_s: float,
                   collective: str | None = None,
-                  hops: int = 1) -> float:
+                  hops: int = 1, loss: float = 0.0) -> float:
     """End-to-end consumer-loop prediction (seconds per iteration): the
     overlap-aware Eq. 2 term applied to the consumer, on the calibrated
     substrate.
@@ -90,7 +95,7 @@ def predicted_e2e(cfg: CommConfig, msg_bytes: int,
     if not chunked and cfg.mode == CommMode.STREAMING:
         cfg = dataclasses.replace(cfg, max_chunks=1)
     return latmodel.e2e_consumer_latency(msg_bytes, cfg, compute_s, hw,
-                                         hops=hops)
+                                         hops=hops, loss=loss)
 
 
 def prune_candidates(cands: Sequence[CommConfig], msg_bytes: int,
@@ -99,7 +104,8 @@ def prune_candidates(cands: Sequence[CommConfig], msg_bytes: int,
                      collective: str | None = None,
                      objective: str = "latency",
                      compute_s: float = 0.0,
-                     hops: int = 1
+                     hops: int = 1,
+                     loss: float = 0.0
                      ) -> tuple[list[CommConfig], list[CommConfig]]:
     """Split candidates into (measure, skip) by calibrated model ranking.
 
@@ -110,17 +116,18 @@ def prune_candidates(cands: Sequence[CommConfig], msg_bytes: int,
     ``objective="e2e"`` ranks by :func:`predicted_e2e` (consumer loop with
     ``compute_s`` of hideable compute) instead of bare Eq. 1 latency.
     ``hops`` prices the candidates at the hop distance the sweep is about
-    to measure them at (the per-edge axis of a torus sweep).
+    to measure them at (the per-edge axis of a torus sweep); ``loss``
+    prices them on a wire losing that share of chunk transmissions.
     """
     if not cands:
         return [], []
     if objective == "e2e":
         preds = [predicted_e2e(c, msg_bytes, calibration, compute_s,
-                               collective, hops=hops)
+                               collective, hops=hops, loss=loss)
                  for c in cands]
     else:
         preds = [predicted_latency(c, msg_bytes, calibration, collective,
-                                   hops=hops) for c in cands]
+                                   hops=hops, loss=loss) for c in cands]
     best = min(preds)
     kept, skipped = [], []
     for cfg, pred in zip(cands, preds):

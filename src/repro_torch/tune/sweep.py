@@ -25,15 +25,17 @@ CLI (the card by default; ``--device cpu`` for the plain path)::
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
+from contextlib import nullcontext
 from typing import Callable, Sequence
 
 import torch
 
-from repro_torch.core import collectives
+from repro_torch.core import collectives, reliable
 from repro_torch.core.communicator import Communicator
-from repro_torch.core.config import H100, CommConfig, Scheduling
+from repro_torch.core.config import H100, CommConfig, Reliability, Scheduling
 from repro_torch.core.topology import TorusSpec
 from repro_torch.device import resolve_device
 from repro_torch.obs import metrics as obs_metrics
@@ -310,6 +312,7 @@ def run_sweep(n_ranks: int = 8, collectives: Sequence[str] = SWEEPABLE,
               stats: dict | None = None,
               topology: TorusSpec | None = None,
               hop_distances: Sequence[int] | None = None,
+              loss_rate: float = 0.0,
               timer: Callable | None = None,
               device=None) -> TuneDB:
     """Measure every candidate config on ``n_ranks`` stacked ranks of
@@ -334,6 +337,16 @@ def run_sweep(n_ranks: int = 8, collectives: Sequence[str] = SWEEPABLE,
     hop-patterned collectives are measured once per distance with
     ``TuneEntry.hops`` recording it.
 
+    ``loss_rate`` > 0 sweeps a LOSSY wire: every candidate is forced to
+    ``Reliability.GUARANTEED`` (best-effort delivery cannot survive chunk
+    loss), each measurement runs under the seeded
+    :class:`~repro_torch.core.reliable.WireFaults` chunk-drop schedule at
+    that rate (``inject`` resets the message counter per measurement, so
+    every candidate faces the same drop pattern), and entries record
+    ``TuneEntry.loss`` so selection can prefer configs measured on a
+    matching wire — the sweep half of the paper's "jumbo frames win clean
+    links, small segments win lossy ones".
+
     ``timer`` overrides the measurement function (signature of
     :func:`_time_program`) — deterministic model-driven timers make the
     selection pipeline testable end to end without a clock.  A measurement
@@ -342,6 +355,10 @@ def run_sweep(n_ranks: int = 8, collectives: Sequence[str] = SWEEPABLE,
     if objective not in OBJECTIVES:
         raise ValueError(f"objective must be one of {OBJECTIVES}, "
                          f"got {objective!r}")
+    if not 0.0 <= loss_rate < 1.0:
+        raise ValueError(f"loss_rate must be in [0, 1), got {loss_rate}")
+    wire = (reliable.WireFaults(seed=17, drop=loss_rate)
+            if loss_rate > 0.0 else None)
     device = resolve_device(device)
     if sizes is None:
         sizes = FAST_SIZES if fast else FULL_SIZES
@@ -390,6 +407,17 @@ def run_sweep(n_ranks: int = 8, collectives: Sequence[str] = SWEEPABLE,
     for coll in collectives:
         cands = tune_space.enumerate_configs(coll, fast=fast,
                                              objective=objective)
+        if wire is not None:
+            # Best-effort candidates cannot deliver under chunk loss:
+            # promote everything to GUARANTEED and dedup (promotion can
+            # collide candidates that differed only in reliability).
+            forced = []
+            for c in cands:
+                g = dataclasses.replace(c,
+                                        reliability=Reliability.GUARANTEED)
+                if g not in forced:
+                    forced.append(g)
+            cands = forced
         if max_configs is not None:
             cands = cands[:max_configs]
         if hop_distances is not None and coll in HOP_PATTERNED:
@@ -414,7 +442,7 @@ def run_sweep(n_ranks: int = 8, collectives: Sequence[str] = SWEEPABLE,
                         cands, msg_bytes, calibration, prune_ratio,
                         collective=coll,
                         objective="e2e" if consumers else "latency",
-                        compute_s=compute_s, hops=hops)
+                        compute_s=compute_s, hops=hops, loss=loss_rate)
                     stats["pruned"] += len(skipped)
                     reg.counter("sweep.pruned").inc(len(skipped))
                     if skipped:
@@ -427,7 +455,9 @@ def run_sweep(n_ranks: int = 8, collectives: Sequence[str] = SWEEPABLE,
                     with obs_trace.span("sweep.candidate", cat="sweep",
                                         collective=coll,
                                         msg_bytes=int(msg_bytes),
-                                        hops=hops, cfg=i) as sp:
+                                        hops=hops, cfg=i) as sp, (
+                            reliable.inject(wire) if wire is not None
+                            else nullcontext()):
                         sec = timer(op, n_ranks, msg_bytes, cfg,
                                     device=device, reps=reps, inner=inner,
                                     hops=hops)
@@ -445,10 +475,12 @@ def run_sweep(n_ranks: int = 8, collectives: Sequence[str] = SWEEPABLE,
                         cop, shape = _build_consumer_op(
                             coll, comm, cfg, msg_bytes, hop_distance=hop_d,
                             consumer=consumer)
-                        e2e_sec = timer(cop, n_ranks, msg_bytes, cfg,
-                                        device=device, reps=reps,
-                                        inner=inner, per_dev_shape=shape,
-                                        hops=hops)
+                        with (reliable.inject(wire) if wire is not None
+                              else nullcontext()):
+                            e2e_sec = timer(cop, n_ranks, msg_bytes, cfg,
+                                            device=device, reps=reps,
+                                            inner=inner, per_dev_shape=shape,
+                                            hops=hops)
                         consumer_e2e[consumer] = e2e_sec * 1e6
                         stats["e2e_measured"] += 1
                         reg.histogram("sweep.e2e_us",
@@ -463,7 +495,8 @@ def run_sweep(n_ranks: int = 8, collectives: Sequence[str] = SWEEPABLE,
                             us_per_call=sec * 1e6,
                             gbps=msg_bytes / sec / 1e9,
                             hops=hops, e2e_us=e2e_us, torus=torus,
-                            p95_us=p95_us, consumer=consumer or ""))
+                            p95_us=p95_us, loss=loss_rate,
+                            consumer=consumer or ""))
                 best = db.best(coll, msg_bytes, topo, hops=hops)
                 if best is not None:
                     log(f"  {coll:15s} {msg_bytes:>8d}B h{hops} best "
@@ -554,6 +587,12 @@ def main(argv: Sequence[str] | None = None) -> int:
     ap.add_argument("--hop-distances", default=None,
                     help="comma list of torus hop distances to sweep the "
                     "hop-patterned collectives at (requires --topology)")
+    ap.add_argument("--loss-rate", type=float, default=0.0,
+                    help="sweep a lossy wire: seeded chunk-drop rate in "
+                    "[0, 1); candidates are forced to guaranteed delivery "
+                    "and entries record TuneEntry.loss so "
+                    "select_config(loss=...) can prefer lossy-wire "
+                    "measurements")
     args = ap.parse_args(argv)
 
     if args.sizes in NAMED_SIZES:
@@ -598,7 +637,8 @@ def main(argv: Sequence[str] | None = None) -> int:
                    log=lambda s: print(s, flush=True), prune=args.prune,
                    prune_ratio=args.prune_ratio, objective=args.objective,
                    stats=stats, topology=topology,
-                   hop_distances=hop_distances, device=device)
+                   hop_distances=hop_distances, loss_rate=args.loss_rate,
+                   device=device)
     path = db.save(args.out)
     print(f"wrote {len(db)} entries -> {path}")
     print(sweep_summary(stats))

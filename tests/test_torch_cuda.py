@@ -607,3 +607,98 @@ def test_overlapped_combine_on_the_card(card):
         got = streaming.overlapped_matmul_allreduce(h, w, comm, cfg)
         torch.cuda.synchronize()
         assert torch.equal(got, whole), (got - whole).abs().max().item()
+
+
+# ----------------------------------------------------------------------
+# The reliable wire on the card
+# ----------------------------------------------------------------------
+
+from test_torch_reliable import (MATRIX, MATRIX_N, SWE_FAULTS,  # noqa: E402
+                                 matrix_configs, matrix_faults, matrix_run)
+from repro_torch.core import reliable  # noqa: E402
+from repro_torch.core.config import Reliability  # noqa: E402
+
+
+@pytest.mark.parametrize("path,sched,fname", MATRIX)
+def test_reliable_parity_matrix_on_the_card(card, path, sched, fname):
+    """The 30-cell matrix on CUDA tensors: bitwise equal to the lossless
+    run on the card and to the same cell on the CPU, with the CPU's
+    counter deltas."""
+    x = (torch.arange(4 * MATRIX_N, dtype=torch.float32)
+         .reshape(4, MATRIX_N) * 0.37 + 1.0)
+    base, cfg = matrix_configs(sched)
+    deltas, outs = [], []
+    for dev in ("cpu", card):
+        before = reliable.wire_counters()
+        with reliable.inject(matrix_faults(fname)):
+            outs.append(matrix_run(path, cfg, x.to(dev)).cpu())
+        after = reliable.wire_counters()
+        deltas.append({k: after[k] - before[k] for k in after})
+    clean = matrix_run(path, base, x.to(card)).cpu()
+    assert torch.equal(outs[1], clean)
+    assert torch.equal(outs[1], outs[0])
+    assert deltas[0] == deltas[1]
+
+
+@pytest.mark.parametrize("sched", ["fused", "overlapped", "host"])
+def test_swe_under_faults_on_the_card(card, sched):
+    """GUARANTEED + drop/dup/reorder on the card: the graph-captured
+    (fused, overlapped) and host-scheduled runners draw the CPU's plans
+    once per build and give the lossless BEST_EFFORT state bitwise."""
+    cfg = CommConfig(chunk_bytes=512, scheduling=Scheduling(sched),
+                     reliability=Reliability.GUARANTEED)
+    results = {}
+    for dev in ("cpu", card):
+        sim = driver.build_simulation(16000, 8, cfg, device=dev)
+        lossless = dataclasses.replace(
+            sim, comm_cfg=dataclasses.replace(
+                cfg, reliability=Reliability.BEST_EFFORT))
+        before = reliable.wire_counters()
+        with reliable.inject(reliable.WireFaults(**SWE_FAULTS["mixed"])):
+            state, tape = _run_twice(sim, sched)
+        after = reliable.wire_counters()
+        clean, _ = _run_twice(lossless, sched)
+        assert torch.equal(state, clean)
+        results[str(dev)] = (state.cpu(), tape.entries,
+                             {k: after[k] - before[k] for k in after})
+    (s_cpu, e_cpu, d_cpu), (s_card, e_card, d_card) = results.values()
+    assert e_card == e_cpu and d_card == d_cpu and d_card["retransmits"]
+    assert (s_card - s_cpu).abs().max().item() <= 1e-4
+
+
+def _run_twice(sim, sched):
+    """Two calls of one runner build (10 steps): the state and its tape."""
+    if sched == "host":
+        runner = driver.make_host_scheduled_runner(sim)
+        state, t = runner.run(sim.state, 0.0, 5)
+        state, _ = runner.run(state, t, 5)
+        return state, runner.tape
+    run = driver.make_sim_runner(sim, 5)
+    state = run(run(sim.state, 0.0), 5 * sim.swe.dt)
+    torch.cuda.synchronize()
+    return state, run.tape
+
+
+def test_int8_recovery_rounds_launch_the_quant_kernels(card):
+    """A streamed int8 sendrecv under faults: every slot encodes (one
+    quantize per slot), every delivered chunk decodes (one dequantize per
+    chunk), and the message is bitwise the lossless one."""
+    comm = Communicator(("x",), (8,))
+    cfg = CommConfig(algorithm="ring", compression=Compression.INT8,
+                     chunk_bytes=2048, reliability=Reliability.GUARANTEED)
+    x = torch.from_numpy(np.random.RandomState(2).randn(8, 5000)
+                         .astype(np.float32)).to(card)
+    clean = collectives.sendrecv(x, comm.ring_perm(), comm, cfg)
+    before = dict(quant_ops.launches)
+    tape = reliable.PlanTape()
+    with reliable.inject(reliable.WireFaults(seed=5, drop=0.3, dup=0.2,
+                                             reorder=0.3)), tape.play():
+        got = collectives.sendrecv(x, comm.ring_perm(), comm, cfg)
+    torch.cuda.synchronize()
+    (plan,) = tape.plans
+    assert plan.extra_slots > 0
+    assert quant_ops.launches["quantize"] - before["quantize"] == \
+        len(plan.slots)
+    assert quant_ops.launches["dequantize"] - before["dequantize"] == \
+        plan.n_chunks
+    assert torch.equal(got, clean)

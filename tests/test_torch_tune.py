@@ -539,3 +539,128 @@ def test_build_workload_matches_reference_formula():
         sim.mesh.n_elements, int(pm.n_core[crit]), int(pm.n_send[crit]),
         pm.n_max, int(pm.s_max) * 12)
     assert math.isfinite(latmodel.eq2_throughput(w, CommConfig()))
+
+
+# ----------------------------------------------------------------------
+# The lossy wire: loss-aware selection, pruning and sweeps
+# ----------------------------------------------------------------------
+
+def _loss_db(module, topo):
+    """Jumbo frames measured on a clean wire, small GUARANTEED segments on
+    a lossy one (the JAX package's test_select_config_prefers_matching_loss
+    entries, plus a second lossy rate)."""
+    rows = [({"chunk_bytes": 1 << 20}, 50.0, 0.0),
+            ({"chunk_bytes": 4096, "reliability": "guaranteed"}, 80.0,
+             0.05),
+            ({"chunk_bytes": 1 << 16, "reliability": "guaranteed"}, 70.0,
+             0.2)]
+    return module.TuneDB([module.TuneEntry(
+        topo=topo, collective="all_reduce", msg_bytes=1 << 20,
+        config=module.config_to_dict(module.config_from_dict(cfg)),
+        us_per_call=us, loss=loss) for cfg, us, loss in rows])
+
+
+def test_select_config_prefers_matching_loss():
+    db = _loss_db(tune, "torch-cpu:8")
+    jdb = _loss_db(jax_tune, "cpu:8")
+    clean = tune.select_config("all_reduce", 1 << 20, db=db,
+                               topo="torch-cpu:8")
+    assert clean.chunk_bytes == 1 << 20
+    lossy = tune.select_config("all_reduce", 1 << 20, db=db,
+                               topo="torch-cpu:8", loss=0.05)
+    assert lossy.chunk_bytes == 4096
+    assert lossy.reliability.value == "guaranteed"
+    for loss in (None, 0.0, 0.05, 0.08, 0.15, 0.5):
+        got = tune.select_config("all_reduce", 1 << 20, db=db,
+                                 topo="torch-cpu:8", loss=loss)
+        want = jax_tune.select_config("all_reduce", 1 << 20, db=jdb,
+                                      topo="cpu:8", loss=loss)
+        assert tune.config_to_dict(got) == jax_tune.config_to_dict(want)
+        assert [dataclasses.asdict(e)["us_per_call"] for e in
+                db.candidates("all_reduce", "torch-cpu:8", loss=loss)] == \
+            [e.us_per_call for e in jdb.candidates("all_reduce", "cpu:8",
+                                                   loss=loss)]
+
+
+@pytest.mark.parametrize("loss", (0.05, 0.2))
+def test_prune_candidates_with_loss_matches_reference(loss):
+    from repro.tune.calibrate import fit_latency_model as jax_fit
+    from repro.tune.prune import prune_candidates as jax_prune
+    cal = tune.fit_latency_model(_measurements(lambda c: c, (1, 2)))
+    jcal = jax_fit(_measurements(_to_jax, (1, 2)))
+    cands = [dataclasses.replace(
+        c, reliability=tune.config_from_dict(
+            {"reliability": "guaranteed"}).reliability)
+        for c in tune.enumerate_configs("sendrecv")]
+    jcands = [_to_jax(c) for c in cands]
+    for size in (1024, 1 << 20):
+        kept, skipped = tune.prune_candidates(cands, size, cal, ratio=1.5,
+                                              collective="sendrecv",
+                                              loss=loss)
+        jkept, jskipped = jax_prune(jcands, size, jcal, ratio=1.5,
+                                    collective="sendrecv", loss=loss)
+        assert [tune.config_to_dict(c) for c in kept] == \
+            [jax_tune.config_to_dict(c) for c in jkept]
+        assert len(skipped) == len(jskipped)
+        assert tune.predicted_latency(cands[0], size, cal, "sendrecv",
+                                      loss=loss) > \
+            tune.predicted_latency(cands[0], size, cal, "sendrecv")
+
+
+def test_run_sweep_loss_rate_matches_reference(monkeypatch):
+    """The same loss-priced model timer in both packages' lossy sweeps:
+    equal entries (TuneEntry.loss included), GUARANTEED candidates only."""
+    from repro_torch.tune import calibrate
+    monkeypatch.setattr(calibrate.CalibrationResult, "hop_latency",
+                        V5E.ici_hop_latency)
+    loss = 0.05
+
+    def port(op, n, msg_bytes, cfg, per_dev_shape=None, hops=1, **_):
+        return latmodel.pingping_latency(msg_bytes, cfg, HW, 1, loss=loss)
+
+    def jax(op, mesh, msg_bytes, cfg, per_dev_shape=None, cache_key=None,
+            **_):
+        return jax_latmodel.pingping_latency(msg_bytes, cfg, V5E, 1,
+                                             loss=loss)
+
+    kw = dict(collectives=("sendrecv", "multi_neighbor"),
+              sizes=(1 << 14, 1 << 20), fast=True, prune=True,
+              prune_ratio=1.5, loss_rate=loss)
+    stats, jstats = {}, {}
+    db = tune.run_sweep(8, timer=port, device="cpu", stats=stats, **kw)
+    jdb = jax_sweep.run_sweep(_FakeMesh(8), timer=jax, stats=jstats, **kw)
+    view = lambda e: {k: v for k, v in dataclasses.asdict(e).items()
+                      if k != "topo"}
+    assert [view(e) for e in db.entries] == [view(e) for e in jdb.entries]
+    for k in ("total", "measured", "pruned"):
+        assert stats[k] == jstats[k], k
+    lossy = [e for e in db.entries if e.loss == loss]
+    assert lossy and all(e.config["reliability"] == "guaranteed"
+                         for e in lossy)
+    for coll in kw["collectives"]:
+        for size in kw["sizes"]:
+            got = tune.select_config(coll, size, db=db, topo="torch-cpu:8",
+                                     loss=loss)
+            assert got.reliability.value == "guaranteed"
+
+
+def test_run_sweep_lossy_wire_on_the_cpu():
+    """The real timer under seeded chunk loss on the plain path: every
+    entry records the rate, every candidate is GUARANTEED, and the
+    injected drops really reached the wire (retransmits counted)."""
+    from repro_torch.core import reliable
+    before = reliable.wire_counters()
+    db = tune.run_sweep(8, collectives=("sendrecv",), sizes=(1 << 20,),
+                        fast=True, device="cpu", loss_rate=0.2, reps=1,
+                        inner=2)
+    after = reliable.wire_counters()
+    assert db.entries and {e.loss for e in db.entries} == {0.2}
+    assert all(e.config["reliability"] == "guaranteed" for e in db.entries)
+    assert len(db.entries) == len({json.dumps(e.config, sort_keys=True)
+                                   for e in db.entries})
+    assert after["retransmits"] > before["retransmits"]
+    best = db.best("sendrecv", 1 << 20, "torch-cpu:8")
+    assert best.config["reliability"] == "guaranteed"
+    with pytest.raises(ValueError, match="loss_rate"):
+        tune.run_sweep(8, collectives=("sendrecv",), sizes=(1024,),
+                       device="cpu", loss_rate=1.0)
