@@ -64,11 +64,20 @@ exits non-zero:
    sampled beside the timing; then qwen3-8b at full
    width (36 layers, d_model 4096, vocab 151,936, bf16, tp = 4 stacked,
    random weights from seed 0) serving 8 requests in waves of 4 with
-   1024-token prompts through ``examples/serve_lm_torch.py``, one wave's
-   prefill through the kernel against the same prefill through the plain
-   version, one prefill and one decode step profiled by kernel, the
-   overlapped row-parallel combine against the whole matmul + all-reduce,
-   and the smoke config in f32 on the card against the CPU;
+   1024-token prompts through ``examples/serve_lm_torch.py``, captured as
+   CUDA graphs (the main path) and eager in turn (captured, eager,
+   captured, eager: the same greedy tokens, each run's decode ms/step,
+   tokens/s and peak memory); one wave captured against eager (the
+   prefill's replay and 8 decode replays bitwise equal to the eager steps,
+   each graph's kernel, copy and set nodes equal to the eager call's
+   launch calls, each mode's device busy share); one wave's prefill through the kernel against the same prefill
+   through the plain version; serving under ``comm="auto"`` (a 4-rank e2e
+   sweep of all_reduce's three consumer loops at both phases' message
+   sizes, one config per phase, each auto-built phase bitwise equal to
+   its resolved config); the overlapped row-parallel combine against the
+   whole matmul + all-reduce, and the smoke config in f32 on the card
+   (captured) against the CPU, decode against the prefill of the extended
+   sequence within 1e-4;
 8. the SSM serving path: the SSD chunked-scan kernel against its plain
    version at test_ssd_scan_sweep's shapes (f32) and at the serving shape
    (tp 4 x batch 8 x 6 heads, 2048 tokens, head dim 64, state 128, chunk
@@ -78,10 +87,11 @@ exits non-zero:
    width (24 layers, d_model 768,
    vocab 50,280, bf16, tp = 4 stacked, random weights from seed 0) serving
    16 requests in waves of 8 with 2048-token prompts through
-   ``examples/serve_lm_torch.py``, one wave's logits through the kernel
-   against the plain version and against two faults planted in the plain
-   version, one prefill and one decode step profiled by kernel, and the
-   smoke config in f32 on the card against the CPU;
+   ``examples/serve_lm_torch.py``, captured and eager in turn, one wave
+   captured against eager, as qwen3's; one wave's logits through the
+   kernel against the plain version and against two faults planted in the
+   plain version, and the smoke config in f32 on the card against the
+   CPU;
 9. a ``kernels:`` line, the kernel table as one JSON line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -571,25 +581,60 @@ def phase_grad_sync(dev) -> dict:
     return launches
 
 
-def profile_device_time(tag: str, fn) -> None:
-    """Device time by kernel over one call of ``fn`` (already warm), and
-    the card's busy share of the call's wall time."""
+# The profiler loses device records: most often the first ones of a
+# session, more of them the longer the process has run, now and then many
+# more.  A session therefore opens with LEAD_IN tiny spin kernels (left out
+# of every count) that take the common loss; counts that must be exact
+# come from the host's launch calls or a graph's own topology instead.
+LEAD_IN = 256
+# The host's launch calls, one per kernel, copy or set on the card.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel",
+                "cuLaunchKernel", "cuLaunchCooperativeKernel", "cudaMemcpy",
+                "cudaMemset", "cuMemcpy", "cuMemset")
+
+
+def profiled(fn):
+    """One profiled call of ``fn`` (already warm), after the lead-in:
+    (the profile, the call's wall time in µs)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD_IN):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
-    rows = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.self_device_time_total > 0), reverse=True)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return prof, wall_us
+
+
+def device_rows(prof) -> list:
+    """(device µs, count, name) of each kernel, copy or set the profile
+    recorded, the lead-in left out."""
+    return [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.self_device_time_total > 0 and "spin_kernel" not in e.key]
+
+
+def profile_device_time(tag: str, fn) -> dict:
+    """Device time by kernel over one call of ``fn`` (already warm), and
+    the card's busy share of the call's wall time; returns the host's
+    launch calls (exact), the device records (the profiler may lose some),
+    busy and wall ms."""
+    prof, wall_us = profiled(fn)
+    rows = sorted(device_rows(prof), reverse=True)
+    calls = sum(e.count for e in prof.key_averages()
+                if e.key.startswith(LAUNCH_CALLS)) - LEAD_IN
     busy = sum(r[0] for r in rows)
     log(f"[{tag}] profile: {len(rows)} kernel names, "
-        f"{sum(r[1] for r in rows)} launches, device busy "
-        f"{busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms profiled wall time")
+        f"{sum(r[1] for r in rows)} launches recorded of {calls} launch "
+        f"calls, device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
+        f"profiled wall time")
     for us, count, key in rows[:8]:
         log(f"[{tag}]   {us / 1e3:8.3f} ms  {count:5d} launches  {key[:70]}")
+    return {"launch_calls": calls, "launches": sum(r[1] for r in rows),
+            "busy_ms": busy / 1e3, "wall_ms": wall_us / 1e3}
 
 
 def summarize_sweep(db, topo, collectives, sizes) -> None:
@@ -756,13 +801,7 @@ def faults_name(f) -> str:
 def kernel_counts(fn) -> dict:
     """Kernel launches by name over one profiled call of ``fn`` (graph
     replays included)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.self_device_time_total > 0}
+    return {key: count for _, count, key in device_rows(profiled(fn)[0])}
 
 
 def segment_runner(driver, sim):
@@ -1253,16 +1292,227 @@ def plain_attention(fn, attn=None):
         attention.fa_ops = kernel
 
 
+SERVE_REPLAYS = 8   # captured decode replays held bitwise against eager
+
+
+def serve_buffers(st) -> list:
+    """A serving state's tensors: the caches, last_logits, length."""
+    c = st.caches
+    return ([c.k, c.v] if hasattr(c, "k") else [c.conv, c.h]) + [
+        st.last_logits, st.length]
+
+
+def run_serving(ex, args, sess, counter) -> list:
+    """The example's serving run four times, captured (the main path: the
+    kernel's launch ``counter`` module is zeroed just before and read just
+    after), eager, captured, eager: each run's metrics with its launches.
+    The eager runs must serve the same greedy tokens as the captured."""
+    runs = []
+    for eager in (False, True, False, True):
+        args.eager = eager
+        counter.launches = 0
+        out = ex.run(args, log=log if not runs else (lambda *a: None),
+                     sess=sess)
+        out["launches"] = counter.launches
+        out["mode"] = "eager" if eager else "captured"
+        runs.append(out)
+        check(out["finished"] == runs[0]["finished"],
+              f"{out['mode']} serving run {len(runs)} generated other tokens "
+              f"than the captured run 1")
+    args.eager = False
+    for out in runs:
+        log(f"[serve-modes] {out['mode']:8s}: median decode "
+            f"{out['decode_ms_per_token_median']:.2f} ms/step, "
+            f"{out['tokens_per_s']:.2f} generated tokens/s over "
+            f"{out['wall_s']:.2f} s ({out['decode_tokens_per_s']:.2f} per s "
+            f"of decode time), prefill ms {out['prefill_ms']}, peak memory "
+            f"{out['peak_mem_gb']:.2f} GB, {out['launches']} launches of "
+            f"{counter.__name__.split('.')[-2]}, {out['decode_graphs']} "
+            f"decode graph(s)")
+    log("[serve-modes] every run served the same greedy tokens")
+    return runs
+
+
+def check_captured_wave(tag, sess, args, comm, toks, dev) -> dict:
+    """One wave at the example's shapes, captured against eager on the
+    card: the prefill's replay, handed to a slot state by copy, bitwise
+    equal to the eager prefill; SERVE_REPLAYS + 1 captured decode steps
+    (the warm-up that captures, then the replays) bitwise equal to as many
+    eager steps (tokens and logits at every step, and the final state);
+    each graph holding exactly the launches of the eager call (its kernel,
+    copy and set nodes against the eager call's launch calls).  Returns
+    the profiles."""
+    from repro_torch.core import scheduler
+    from repro_torch.launch import input_specs as isp
+    from repro_torch.models import decode as dec
+    from repro_torch.train import serve as serve_mod
+    cfg, S, B, gen = sess.cfg, args.prompt_len, args.batch, args.gen
+    fns = {}
+    for captured in (False, True):
+        _, pre = serve_mod.build_serve_fn(
+            cfg, args.tp, comm, isp.ShapeSpec("wave", S, B, "prefill"),
+            cache_capacity=S + gen, device=dev, captured=captured)
+        rt, step = serve_mod.build_serve_fn(
+            cfg, args.tp, comm, isp.ShapeSpec("wave", S + gen, B, "decode"),
+            device=dev, captured=captured)
+        fns[captured] = (pre, step)
+    (pre_e, step_e), (pre_c, step_c) = fns[False], fns[True]
+    batch = {"tokens": toks}
+    e = pre_e(sess.params, batch)
+    with scheduler.keeping_topology():
+        pre_c(sess.params, batch)                   # warm-up and capture
+    slot = pre_c(sess.params, batch, out=pre_c.new_state(sess.params))
+    check(pre_c.graph.replays == 1, f"[{tag}] the prefill replayed "
+          f"{pre_c.graph.replays} times, want 1")
+    check(all(torch.equal(a, b) for a, b in zip(serve_buffers(e),
+                                                  serve_buffers(slot))),
+          f"[{tag}] the captured prefill's state differs from the eager one")
+    for i in range(SERVE_REPLAYS + 1):
+        te, tc = dec.greedy_tokens(e, rt), dec.greedy_tokens(slot, rt)
+        check(torch.equal(te, tc), f"[{tag}] decode step {i}: captured "
+              f"tokens {tc.tolist()} differ from eager {te.tolist()}")
+        e = step_e(sess.params, te, e)
+        with scheduler.keeping_topology():
+            slot = step_c(sess.params, tc, slot)
+        check(torch.equal(e.last_logits, slot.last_logits),
+              f"[{tag}] decode step {i}: captured logits differ from eager")
+    check(all(torch.equal(a, b) for a, b in zip(serve_buffers(e),
+                                                  serve_buffers(slot))),
+          f"[{tag}] the captured decode's final state differs from eager")
+    (g,) = step_c.graphs.values()
+    check(g.replays == SERVE_REPLAYS, f"[{tag}] the decode graph replayed "
+          f"{g.replays} times, want {SERVE_REPLAYS}")
+    log(f"[{tag}] captured prefill (a replay, handed to a slot by copy) and "
+        f"{SERVE_REPLAYS + 1} captured decode steps ({SERVE_REPLAYS} "
+        f"replays of one graph) bitwise equal to eager: tokens and logits "
+        f"at every step, caches and length")
+    # the graphs against the same functions run eagerly on the same static
+    # inputs (the copy-in of a call's tokens is not part of a graph)
+    g_pre = pre_c.graph
+    prof = {
+        "prefill eager": profile_device_time(
+            f"{tag} prefill eager", lambda: dec.prefill(
+                sess.params, {"tokens": g_pre.static[0]}, pre_e.rt,
+                pre_e.max_len, out=e)),
+        "prefill captured": profile_device_time(
+            f"{tag} prefill captured", g_pre.replay),
+        "decode eager": profile_device_time(
+            f"{tag} decode eager", lambda: dec.decode_step(
+                sess.params, g.static[0], e, rt)),
+        "decode captured": profile_device_time(
+            f"{tag} decode captured", g.replay)}
+    for phase, graph in (("prefill", g_pre), ("decode", g)):
+        a, b = prof[f"{phase} eager"], prof[f"{phase} captured"]
+        nodes = graph.node_counts()
+        work = nodes["KERNEL"] + nodes["MEMCPY"] + nodes["MEMSET"]
+        check(work == a["launch_calls"],
+              f"[{tag}] the {phase} graph holds {work} kernel, copy and set "
+              f"nodes ({dict(nodes)}), the eager {phase} made "
+              f"{a['launch_calls']} launch calls")
+        log(f"[{tag}] {phase}: {work} launches eager and replayed (launch "
+            f"calls against graph nodes {dict(nodes)}; the profiler "
+            f"recorded {a['launches']} and {b['launches']}); device busy "
+            f"{a['busy_ms']:.3f} ms eager, {b['busy_ms']:.3f} ms replayed")
+    return prof
+
+
+def busy_shares(tag, runs, prof) -> None:
+    """Each mode's device busy share: the profiled device time of one step
+    over the unprofiled step time of the serving runs (the profiler slows
+    the host)."""
+    for mode in ("captured", "eager"):
+        out = next(r for r in runs if r["mode"] == mode)
+        dec_ms = out["decode_ms_per_token_median"]
+        pre_ms = out["prefill_ms"][-1]
+        d, p = prof[f"decode {mode}"], prof[f"prefill {mode}"]
+        log(f"[{tag}] {mode}: device busy {d['busy_ms']:.3f} ms of a "
+            f"{dec_ms:.3f} ms decode step ({100 * d['busy_ms'] / dec_ms:.1f}"
+            f" %), {p['busy_ms']:.3f} ms of a {pre_ms:.3f} ms prefill wave "
+            f"({100 * p['busy_ms'] / pre_ms:.1f} %)")
+
+
+def phase_serve_auto(dev, sess, args, toks) -> None:
+    """Serving under ``comm="auto"``: a 4-rank e2e sweep of all_reduce's
+    three consumer loops at both phases' message sizes, one config
+    resolved per phase, and each auto-built phase's tokens and logits
+    bitwise equal to the builders given its resolved config."""
+    from repro_torch.launch import input_specs as isp
+    from repro_torch.models import decode as dec
+    from repro_torch.train import serve as serve_mod
+    from repro_torch.tune import TuneDB, sweep
+    cfg, S, B, gen = sess.cfg, args.prompt_len, args.batch, args.gen
+    shapes = {"prefill": isp.ShapeSpec("wave", S, B, "prefill"),
+              "decode": isp.ShapeSpec("wave", S + gen, B, "decode")}
+    sizes = sorted(serve_mod.serve_msg_bytes(cfg, shp)
+                   for shp in shapes.values())
+    db_path = Path(__file__).resolve().parent / ".repro_tune" / \
+        "chip_smoke_serve_tunedb.json"
+    t0 = time.perf_counter()
+    stats: dict = {}
+    db = sweep.run_sweep(n_ranks=args.tp, collectives=("all_reduce",),
+                         sizes=sizes, fast=True, objective="e2e",
+                         db=TuneDB(), stats=stats, device=dev)
+    db.save(db_path)
+    check(sweep.CONSUMERS["all_reduce"] == ("row_parallel", "decode_step",
+                                           "prefill"), "all_reduce consumers")
+    tagged = {e.consumer for e in db.entries}
+    check(tagged == set(sweep.CONSUMERS["all_reduce"]),
+          f"consumer-tagged entries {sorted(tagged)}")
+    log(f"[auto-serve] e2e sweep of all_reduce at {sizes} B on {args.tp} "
+        f"ranks: {stats['measured']} candidates, {stats['e2e_measured']} "
+        f"consumer loops, {time.perf_counter() - t0:.1f} s")
+    resolved = {k: serve_mod.resolve_serve_comm(cfg, args.tp, "auto", shp,
+                                                tune_db_path=db_path,
+                                                device=dev)
+                for k, shp in shapes.items()}
+    for k, c in resolved.items():
+        msg = serve_mod.serve_msg_bytes(cfg, shapes[k])
+        best = db.best("all_reduce", msg, db.entries[0].topo,
+                       objective="e2e",
+                       consumer=serve_mod.PHASE_CONSUMERS[k])
+        log(f"[auto-serve] {k}: {msg} B -> {c.mode.value}/"
+            f"{c.scheduling.value}/chunk{c.chunk_bytes}/{c.algorithm} "
+            f"({best.e2e_us:.1f} us per consumer iteration)")
+    runs = {}
+    for label, comms in (("auto", {"prefill": "auto", "decode": "auto"}),
+                         ("resolved", resolved)):
+        _, pre = serve_mod.build_serve_fn(
+            cfg, args.tp, comms["prefill"], shapes["prefill"],
+            cache_capacity=S + gen, device=dev, tune_db_path=db_path)
+        rt, step = serve_mod.build_serve_fn(
+            cfg, args.tp, comms["decode"], shapes["decode"], device=dev,
+            tune_db_path=db_path)
+        check(rt.comm == resolved["decode"], f"{label} decode comm")
+        st = pre(sess.params, {"tokens": toks})
+        toks_out, logits = [], [st.last_logits.clone()]
+        for _ in range(4):
+            nxt = dec.greedy_tokens(st, rt)
+            toks_out.append(nxt.cpu())
+            st = step(sess.params, nxt, st)
+            logits.append(st.last_logits.clone())
+        runs[label] = (torch.stack(toks_out, 1), logits)
+        del pre, step, st
+    (ta, la), (tr, lr) = runs["auto"], runs["resolved"]
+    check(torch.equal(ta, tr) and all(torch.equal(a, b)
+                                      for a, b in zip(la, lr)),
+          "comm='auto' serving differs from its resolved configs")
+    distinct = resolved["prefill"] != resolved["decode"]
+    log(f"[auto-serve] comm='auto' prefill + 4 decode steps bitwise equal to "
+        f"the resolved configs (tokens and logits); the phases chose "
+        f"{'distinct' if distinct else 'the same'} configs")
+
+
 def phase_serve(dev) -> int:
     """qwen3-8b at full width serving 8 requests through the example's
-    continuous-batching loop; then one wave's prefill through the kernel
-    against the plain version, and the overlapped row-parallel combine at
-    the MLP's shape against the whole matmul + all-reduce.  Returns the
-    flash-attention launches of the serving run."""
+    continuous-batching loop, captured (the main path) and eager in turn;
+    one wave captured against eager; one wave's prefill through the
+    kernel against the plain version; serving under comm="auto"; and the
+    overlapped row-parallel combine at the MLP's shape against the whole
+    matmul + all-reduce.  Returns the flash-attention launches of the
+    captured serving run."""
     from repro_torch.core import collectives, streaming
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch import input_specs as isp, setup
-    from repro_torch.models import decode as dec
     from repro_torch.train import serve as serve_mod
     ex = load_example("serve_lm_torch")
     args = ex.parser().parse_args(SERVE_ARGV)
@@ -1276,34 +1526,35 @@ def phase_serve(dev) -> int:
     log(f"[serve] {cfg.name} full width: {n_params / 1e9:.3f} B stacked "
         f"parameters (tp {args.tp}) initialised on the card in "
         f"{time.perf_counter() - t0:.1f} s")
-    fa.launches = 0
-    out = ex.run(args, log=log, sess=sess)
-    launches = fa.launches
+    runs = run_serving(ex, args, sess, fa)
+    out = runs[0]
+    launches = out["launches"]
     waves = len(out["prefill_ms"])
-    check(launches == out["flash_launches"] == cfg.n_layers * waves,
-          f"flash-attention launches {launches}, want {cfg.n_layers} x "
-          f"{waves} waves")
+    for run in runs:
+        check(run["launches"] == run["flash_launches"]
+              == cfg.n_layers * waves,
+              f"{run['mode']}: flash-attention launches {run['launches']}, "
+              f"want {cfg.n_layers} x {waves} waves")
     check(out["all_logits_finite"], "non-finite logits while serving")
-    log(f"[serve] prefill ms per wave {out['prefill_ms']}; median decode "
-        f"{out['decode_ms_per_token_median']:.2f} ms per step; "
+    log(f"[serve] captured: prefill ms per wave {out['prefill_ms']}; median "
+        f"decode {out['decode_ms_per_token_median']:.2f} ms per step; "
         f"{out['tokens_per_s']:.2f} generated tokens/s over the run's "
         f"{out['wall_s']:.2f} s ({out['decode_tokens_per_s']:.2f} per s of "
         f"decode time); peak memory "
         f"{out['peak_mem_gb']:.2f} GB; flash-attention launches {launches} "
-        f"= {cfg.n_layers} layers x {waves} waves")
+        f"= {cfg.n_layers} layers x {waves} waves (one warm-up, one replay)")
 
     rng = np.random.RandomState(1)
     toks = rng.randint(0, cfg.vocab_size, (args.batch, args.prompt_len))
+    busy_shares("serve", runs, check_captured_wave("serve", sess, args,
+                                                   comm, toks, dev))
+
     capacity = args.prompt_len + args.gen
-    _, pre = serve_mod.build_serve_fn(
+    rt, pre = serve_mod.build_serve_fn(
         cfg, args.tp, comm,
         isp.ShapeSpec("wave", args.prompt_len, args.batch, "prefill"),
-        cache_capacity=capacity, device=dev)
-    rt, step = serve_mod.build_serve_fn(
-        cfg, args.tp, comm,
-        isp.ShapeSpec("wave", capacity, args.batch, "decode"), device=dev)
-    st = pre(sess.params, {"tokens": toks})
-    got = st.last_logits
+        cache_capacity=capacity, device=dev, captured=False)
+    got = pre(sess.params, {"tokens": toks}).last_logits
     want = plain_attention(lambda: pre(sess.params, {"tokens": toks})
                            ).last_logits
 
@@ -1323,15 +1574,9 @@ def phase_serve(dev) -> int:
               f"fault '{label}': {rel(bad)} of max|logit|")
         log(f"[serve] the same prefill with the planted fault '{label}': "
             f"max|dlogit| {rel(bad):.3e} of max|logit| vs the plain version")
-    del got, want, bad
+    del got, want, bad, pre
 
-    # where a wave's time goes: one prefill, one decode step
-    profile_device_time("serve prefill", lambda: pre(sess.params,
-                                                     {"tokens": toks}))
-    tok = dec.greedy_tokens(st, rt)
-    st = step(sess.params, tok, st)
-    profile_device_time("serve decode", lambda: step(sess.params, tok, st))
-    del st
+    phase_serve_auto(dev, sess, args, toks)
 
     # the streaming row-parallel combine of the MLP at this wave's shape
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1568,14 +1813,15 @@ def phase_ssd_kernel(dev, flush, bw) -> dict:
 
 def phase_serve_ssm(dev) -> int:
     """mamba2-130m at full width serving 16 requests through the example's
-    continuous-batching loop; then one wave's logits at every position
-    through the served model's first layer(s), through the kernel against
-    the plain version and against two faults planted in the plain version;
-    the full-depth prefill's last-position gap is printed.  Returns the
-    SSD launches of the serving run."""
+    continuous-batching loop, captured (the main path) and eager in turn;
+    one wave captured against eager; then one wave's logits at every
+    position through the served model's first layer(s), through the kernel
+    against the plain version and against two faults planted in the plain
+    version; the full-depth prefill's last-position gap is printed.
+    Returns the SSD launches of the captured serving run."""
     from repro_torch.kernels.ssd_scan import ops as ssd
     from repro_torch.launch import input_specs as isp, setup
-    from repro_torch.models import decode as dec, transformer
+    from repro_torch.models import transformer
     from repro_torch.train import serve as serve_mod
     ex = load_example("serve_lm_torch")
     probe = load_example("ssm_fault_probe_torch")
@@ -1590,31 +1836,33 @@ def phase_serve_ssm(dev) -> int:
     log(f"[ssm] {cfg.name} full width: {n_params / 1e6:.1f} M stacked "
         f"parameters (tp {args.tp}) initialised on the card in "
         f"{time.perf_counter() - t0:.1f} s")
-    ssd.launches = 0
-    out = ex.run(args, log=log, sess=sess)
-    launches = ssd.launches
+    runs = run_serving(ex, args, sess, ssd)
+    out = runs[0]
+    launches = out["launches"]
     waves = len(out["prefill_ms"])
-    check(launches == out["ssd_launches"] == cfg.n_layers * waves,
-          f"SSD scan launches {launches}, want {cfg.n_layers} x {waves} "
-          f"waves")
+    for run in runs:
+        check(run["launches"] == run["ssd_launches"]
+              == cfg.n_layers * waves,
+              f"{run['mode']}: SSD scan launches {run['launches']}, want "
+              f"{cfg.n_layers} x {waves} waves")
     check(out["all_logits_finite"], "non-finite logits while serving")
-    log(f"[ssm] prefill ms per wave {out['prefill_ms']}; median decode "
+    log(f"[ssm] captured: prefill ms per wave {out['prefill_ms']}; median decode "
         f"{out['decode_ms_per_token_median']:.2f} ms per step; "
         f"{out['tokens_per_s']:.2f} generated tokens/s over the run's "
         f"{out['wall_s']:.2f} s ({out['decode_tokens_per_s']:.2f} per s of "
         f"decode time); peak memory {out['peak_mem_gb']:.2f} GB; SSD scan "
-        f"launches {launches} = {cfg.n_layers} layers x {waves} waves")
+        f"launches {launches} = {cfg.n_layers} layers x {waves} waves "
+        f"(one warm-up, one replay)")
 
     rng = np.random.RandomState(1)
     toks = rng.randint(0, cfg.vocab_size, (args.batch, args.prompt_len))
+    busy_shares("ssm", runs, check_captured_wave("ssm", sess, args, comm,
+                                                 toks, dev))
     shape = isp.ShapeSpec("wave", args.prompt_len, args.batch, "prefill")
     _, pre = serve_mod.build_serve_fn(
         cfg, args.tp, comm, shape,
-        cache_capacity=args.prompt_len + args.gen, device=dev)
-    rt, step = serve_mod.build_serve_fn(
-        cfg, args.tp, comm, isp.ShapeSpec("wave", args.prompt_len
-                                          + args.gen, args.batch, "decode"),
-        device=dev)
+        cache_capacity=args.prompt_len + args.gen, device=dev,
+        captured=False)
     batch = {"tokens": torch.as_tensor(toks, device=dev)}
 
     def rel(x, want):
@@ -1651,13 +1899,6 @@ def phase_serve_ssm(dev) -> int:
               f"fault '{label}': {moved} of max|logit|")
         log(f"[ssm] the same cut with the planted fault '{label}': "
             f"max|dlogit| {moved:.3e} of max|logit|")
-
-    # where a wave's time goes: one prefill, one decode step
-    profile_device_time("ssm prefill", lambda: pre(sess.params, batch))
-    st = pre(sess.params, batch)
-    tok = dec.greedy_tokens(st, rt)
-    st = step(sess.params, tok, st)
-    profile_device_time("ssm decode", lambda: step(sess.params, tok, st))
     return launches
 
 

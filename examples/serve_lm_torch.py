@@ -14,10 +14,22 @@ SSD chunked-scan kernel; the row-parallel combines, the vocab-sharded
 embedding and sampling, the K/V all-gather and the decode LSE combine run
 through ACCL-X collectives under ``--comm``.
 
+On the card every prefill wave and every decode step is a captured CUDA
+graph (``--eager`` runs the same steps eagerly).  Each of the
+``--max-active`` wave slots owns one static decode state, and so one
+decode graph; a wave's prefill is handed to its slot by a device copy.
+The greedy token of each step is read on the host, outside the graphs.
+
+``--comm auto`` resolves one CommConfig per phase from the TuneDB
+(``--tune-db``, ranked by ``--objective``): prefill and decode are
+distinct consumers of the sweep, so they may pick different configs.
+
 Run:  PYTHONPATH=src python examples/serve_lm_torch.py            # card
       PYTHONPATH=src python examples/serve_lm_torch.py --arch mamba2-130m \
           --prompt-len 2048 --batch 8
       PYTHONPATH=src python examples/serve_lm_torch.py --smoke --device cpu
+      PYTHONPATH=src python examples/serve_lm_torch.py --smoke --device cpu \
+          --comm auto --tune-db db.json --expect-plan-hits
 
 Without ``--smoke`` the model is the full-width configuration (bf16,
 random weights from ``--seed``).  The ssm family's ``--prompt-len`` must
@@ -26,12 +38,14 @@ smoke config): the SSD scan takes whole chunks, and no padding is done.
 """
 import argparse
 import dataclasses
+import sys
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core import plans
 from repro_torch.core.config import (BASELINE_CONFIG, OVERLAPPED_CONFIG,
                                      CommConfig)
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -41,7 +55,12 @@ from repro_torch.models import decode as dec
 from repro_torch.train import serve as serve_mod
 
 COMMS = {"static": CommConfig(), "baseline": BASELINE_CONFIG,
-         "overlapped": OVERLAPPED_CONFIG}
+         "overlapped": OVERLAPPED_CONFIG, "auto": "auto"}
+
+
+def cfg_str(c: CommConfig) -> str:
+    return (f"{c.mode.value}/{c.scheduling.value}/{c.transport.value}"
+            f"/chunk{c.chunk_bytes}/{c.algorithm}")
 
 
 @dataclasses.dataclass
@@ -57,6 +76,7 @@ class Wave:
     wid: int
     requests: list            # Request per slot (tail slots may repeat)
     valid: list               # bool per slot (False = tail padding)
+    slot: int = 0             # the static state this wave decodes in
     state: object = None
     steps: int = 0
     tokens: list = dataclasses.field(default_factory=list)  # (B,) per step
@@ -82,9 +102,25 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arrival-every", type=int, default=3,
                     help="a new request arrives every N decode steps")
     ap.add_argument("--max-active", type=int, default=2,
-                    help="concurrent waves in flight")
-    ap.add_argument("--comm", default="static", choices=sorted(COMMS))
+                    help="concurrent waves in flight (one static decode "
+                    "state, and one decode graph, per slot)")
+    ap.add_argument("--comm", default="static", choices=sorted(COMMS),
+                    help="a named CommConfig, or 'auto' (per-phase TuneDB "
+                    "selection)")
+    ap.add_argument("--tune-db", default=None,
+                    help="TuneDB path for --comm auto")
+    ap.add_argument("--objective", default="e2e",
+                    choices=("latency", "e2e"))
+    ap.add_argument("--eager", action="store_true",
+                    help="run prefill and decode eagerly on the card "
+                    "instead of as CUDA graphs")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--expect-phase-distinct", action="store_true",
+                    help="exit non-zero unless prefill and decode resolved "
+                    "DIFFERENT CommConfigs (a guard for per-phase auto)")
+    ap.add_argument("--expect-plan-hits", action="store_true",
+                    help="exit non-zero unless the CommPlan cache recorded "
+                    "hits while serving")
     return ap
 
 
@@ -107,21 +143,32 @@ def run(args, log=print, sess=None) -> dict:
                          f"of {cfg.name}'s SSD chunk {cfg.ssm_chunk}")
     comm = COMMS[args.comm]
     if sess is None:
-        sess = setup.build_session(cfg, args.tp, comm, seed=args.seed,
-                                   device=args.device)
+        sess = setup.build_session(
+            cfg, args.tp, CommConfig() if comm == "auto" else comm,
+            seed=args.seed, device=args.device)
     dev = sess.params["final_norm"].device
     sync = (torch.cuda.synchronize if dev.type == "cuda" else lambda: None)
     max_len = args.prompt_len + args.gen
     shape_p = isp.ShapeSpec("serve", args.prompt_len, args.batch, "prefill")
     shape_d = isp.ShapeSpec("serve", max_len, args.batch, "decode")
-    rt, prefill_fn = serve_mod.build_serve_fn(
+    tuned = dict(tune_db_path=args.tune_db, objective=args.objective,
+                 captured=not args.eager)
+    rt_p, prefill_fn = serve_mod.build_serve_fn(
         cfg, args.tp, comm, shape_p,
-        cache_capacity=serve_mod.cache_len(cfg, shape_d), device=dev)
-    _, decode_fn = serve_mod.build_serve_fn(cfg, args.tp, comm, shape_d,
-                                            device=dev)
+        cache_capacity=serve_mod.cache_len(cfg, shape_d), device=dev,
+        **tuned)
+    rt, decode_fn = serve_mod.build_serve_fn(cfg, args.tp, comm, shape_d,
+                                             device=dev, **tuned)
+    graphs = dev.type == "cuda" and not args.eager
     log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"vocab {cfg.vocab_size}, {cfg.dtype}, tp {args.tp} on {dev}; comm "
-        f"{comm.mode.value}/{comm.scheduling.value}/{comm.algorithm}")
+        f"vocab {cfg.vocab_size}, {cfg.dtype}, tp {args.tp} on {dev}, "
+        + ("captured (CUDA graphs)" if graphs else "eager"))
+    log(f"[prefill] comm: {cfg_str(rt_p.comm)}")
+    log(f"[decode]  comm: {cfg_str(rt.comm)}")
+    distinct = rt_p.comm != rt.comm
+    if distinct:
+        log("phase-distinct configs selected")
+    plans.reset_stats()
 
     rng = np.random.RandomState(args.seed)
     reqs = [Request(rid=r, arrival=r * args.arrival_every,
@@ -140,6 +187,8 @@ def run(args, log=print, sess=None) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     launches0 = (fa_ops.launches, ssd_ops.launches)
     finite = torch.ones((), dtype=torch.bool, device=dev)
+    slots = [None] * args.max_active       # the wave in each slot
+    states: list = []                      # each slot's static state
     tick = wid = rr = 0
     t_run = time.perf_counter()
     while pending or waiting or active:
@@ -153,12 +202,17 @@ def run(args, log=print, sess=None) -> dict:
             while len(members) < args.batch:     # tail wave: pad + mask
                 members.append(members[-1])
                 valid.append(False)
-            wave = Wave(wid=wid, requests=members, valid=valid)
+            slot = next(i for i, w in enumerate(slots) if w is None)
+            wave = Wave(wid=wid, requests=members, valid=valid, slot=slot)
             wid += 1
+            if wave.slot >= len(states):
+                states.append(prefill_fn.new_state(sess.params))
+            slots[slot] = wave
             toks = np.stack([r.prompt for r in members])
             sync()
             t0 = time.perf_counter()
-            wave.state = prefill_fn(sess.params, {"tokens": toks})
+            wave.state = prefill_fn(sess.params, {"tokens": toks},
+                                    out=states[slot])
             sync()
             prefill_ms.append((time.perf_counter() - t0) * 1e3)
             finite &= torch.isfinite(wave.state.last_logits).all()
@@ -188,6 +242,7 @@ def run(args, log=print, sess=None) -> dict:
                 if v and r.rid not in finished:
                     finished[r.rid] = gen[i, :r.gen_target].tolist()
             active.remove(wave)
+            slots[wave.slot] = None
             log(f"[decode]  wave {wave.wid}: retired after {wave.steps} "
                 f"steps ({len(active)} wave(s) remain)")
         rr += 1
@@ -207,6 +262,11 @@ def run(args, log=print, sess=None) -> dict:
         "all_logits_finite": bool(finite),
         "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
                         if dev.type == "cuda" else None),
+        "captured": graphs,
+        "decode_graphs": len(decode_fn.graphs),
+        "comm_prefill": rt_p.comm, "comm_decode": rt.comm,
+        "phase_distinct": distinct,
+        "plan_stats": plans.cache_stats(),
         "finished": finished,
     }
     log(f"served {len(finished)}/{args.requests} requests, {gen_tokens} "
@@ -222,6 +282,9 @@ def run(args, log=print, sess=None) -> dict:
         f"{out['ssd_launches']}"
         + (f"; peak memory {out['peak_mem_gb']:.2f} GB"
            if out["peak_mem_gb"] is not None else ""))
+    st = out["plan_stats"]
+    log(f"plans cache: {st['plan_hits']} plan hits / {st['plan_misses']} "
+        f"misses while serving; {out['decode_graphs']} decode graph(s)")
     for rid in sorted(finished)[:2]:
         log(f"  req{rid}: {finished[rid][:12]}")
     if not out["all_logits_finite"]:
@@ -230,7 +293,16 @@ def run(args, log=print, sess=None) -> dict:
 
 
 def main():
-    run(parser().parse_args())
+    args = parser().parse_args()
+    out = run(args)
+    if args.expect_phase_distinct and not out["phase_distinct"]:
+        print("EXPECT-PHASE-DISTINCT FAILED: prefill and decode resolved "
+              "the same CommConfig", file=sys.stderr)
+        return 2
+    if args.expect_plan_hits and out["plan_stats"]["plan_hits"] <= 0:
+        print("EXPECT-PLAN-HITS FAILED: the serving run recorded zero "
+              "CommPlan cache hits", file=sys.stderr)
+        return 3
     return 0
 
 

@@ -191,7 +191,7 @@ def _shifted_ranks(n: int, shift: int, device) -> torch.Tensor:
     CUDA graph capture, by the warm-up call)."""
     return plans._memo("ring_index", (n, shift % n, str(device)),
                        lambda: (torch.arange(n) + shift).remainder(n)
-                       .to(device))
+                       .to(device), pinned=True)
 
 
 def _accumulator(x: torch.Tensor, shape) -> torch.Tensor:

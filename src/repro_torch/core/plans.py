@@ -14,17 +14,31 @@ shape/dtype)`` captures what the comm layer derives on the host —
 
 Everything here is host-side Python holding static schedule data (and the
 small index tensors the wire derives from it), so cached and uncached
-execution are bitwise-identical by construction.  The cache lives in memory
-for the life of the process — a captured CUDA graph reads those index
-tensors by address, so entries are never dropped; keys are full value
+execution are bitwise-identical by construction.  Keys are full value
 tuples, so a change to the config, the communicator, the payload shape or
 dtype, or the pattern produces a different key.
+
+Cache control (the in-memory half of the JAX package's API; the JAX
+package's disk tier has no counterpart yet):
+
+- ``REPRO_PLAN_CACHE=0`` bypasses the cache (every call re-derives);
+- :func:`clear_cache` empties it;
+- :func:`cache_stats` reports the hit/miss counters and the size;
+  :func:`reset_stats` zeroes the counters.
+
+The device index tensors (``pinned=True``: rope tables, permute indices,
+destination masks, ring shifts) are the exception to all three: a captured
+CUDA graph reads them by address, and one built during a capture would be
+a host-to-device copy inside the graph.  They are built once per key, by
+the eager warm-up before any capture, and kept for the life of the
+process.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 import math
+import os
 import threading
 from typing import Any, Callable, Optional, Sequence
 
@@ -32,6 +46,7 @@ from repro_torch.obs import metrics as obs_metrics
 
 _LOCK = threading.RLock()
 _CACHE: dict[tuple, Any] = {}
+_PINNED: dict[tuple, Any] = {}
 # Lookup sentinel: a cached value may legitimately be falsy or None.
 _MISSING = object()
 _STAT_NAMES = ("plan_hits", "plan_misses")
@@ -68,18 +83,51 @@ def _cfg_key(cfg) -> tuple:
     return tuple(out)
 
 
-def _memo(kind: str, key: tuple, build: Callable[[], Any]):
+def cache_enabled() -> bool:
+    """The cache is on unless ``REPRO_PLAN_CACHE=0`` (read per call, so a
+    test can toggle the bypass at run time)."""
+    return os.environ.get("REPRO_PLAN_CACHE", "1") != "0"
+
+
+def clear_cache() -> None:
+    """Drop every cached plan (the pinned device tensors stay)."""
+    with _LOCK:
+        _CACHE.clear()
+
+
+def reset_stats() -> None:
+    for c in _STATS.values():
+        c.reset()
+
+
+def cache_stats() -> dict:
+    """``{plan_hits, plan_misses}`` from the :mod:`repro_torch.obs.metrics`
+    registry, plus ``size`` (cached plans) and ``pinned`` (device
+    tensors)."""
+    with _LOCK:
+        out = {k: int(c.value) for k, c in _STATS.items()}
+        out["size"] = len(_CACHE)
+        out["pinned"] = len(_PINNED)
+        return out
+
+
+def _memo(kind: str, key: tuple, build: Callable[[], Any],
+          pinned: bool = False):
     full = (kind,) + key
+    if not pinned and not cache_enabled():
+        _STATS["plan_misses"].inc()
+        return build()
+    table = _PINNED if pinned else _CACHE
     # Hold the (reentrant) lock across lookup AND build so concurrent
     # same-key callers neither build twice nor double-count the miss.
     with _LOCK:
-        cached = _CACHE.get(full, _MISSING)
+        cached = table.get(full, _MISSING)
         if cached is not _MISSING:
             _STATS["plan_hits"].inc()
             return cached
         value = build()
         _STATS["plan_misses"].inc()
-        _CACHE[full] = value
+        table[full] = value
         return value
 
 

@@ -45,7 +45,8 @@ def _perm_index(edges: tuple, device) -> tuple[torch.Tensor, torch.Tensor]:
         src = torch.tensor([s for s, _ in edges], dtype=torch.long)
         dst = torch.tensor([d for _, d in edges], dtype=torch.long)
         return src.to(device), dst.to(device)
-    return plans._memo("perm_index", (edges, str(device)), build)
+    return plans._memo("perm_index", (edges, str(device)), build,
+                       pinned=True)
 
 
 def _dest_mask(dests: tuple, n: int, device) -> torch.Tensor:
@@ -54,7 +55,8 @@ def _dest_mask(dests: tuple, n: int, device) -> torch.Tensor:
         m = torch.zeros(n, dtype=torch.bool)
         m[list(dests)] = True
         return m.to(device)
-    return plans._memo("dest_mask", (dests, n, str(device)), build)
+    return plans._memo("dest_mask", (dests, n, str(device)), build,
+                       pinned=True)
 
 
 def _permute(t: torch.Tensor, edges) -> torch.Tensor:
@@ -440,6 +442,7 @@ def overlapped_matmul_allreduce(h: torch.Tensor, w: torch.Tensor, comm,
         if side is None:
             side = _side_streams[h.device] = torch.cuda.Stream(h.device)
     parts: list[torch.Tensor] = []
+    partials: list[torch.Tensor] = []
     done: list = []
     for i in range(n_chunks):
         hc = h[:, i * rows:(i + 1) * rows]
@@ -454,12 +457,17 @@ def overlapped_matmul_allreduce(h: torch.Tensor, w: torch.Tensor, comm,
             out = collectives.all_reduce(partial, comm, cfg_native)
             ev = torch.cuda.Event()
             ev.record(side)
-        # the caching allocator must not hand either buffer to the other
-        # stream's next allocation before this stream is done with it
-        partial.record_stream(side)
-        out.record_stream(main)
+        # each partial stays referenced until the join below, so the
+        # caching allocator cannot hand it to another main-stream
+        # allocation while the side stream still reads it; after the join
+        # every buffer is free for reuse on either stream (side-stream work
+        # always starts by waiting on the main stream).  No record_stream:
+        # under a CUDA graph capture it would hold every chunk's buffers
+        # until the capture ends.
+        partials.append(partial)
         parts.append(out)
         done.append(ev)
     if side is not None:
         main.wait_stream(side)
+    del partials
     return torch.cat(parts, dim=1).to(h.dtype)

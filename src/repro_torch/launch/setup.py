@@ -24,17 +24,25 @@ class Session:
 
 
 def build_session(cfg: ModelConfig, tp: int, comm: CommConfig | str,
-                  seed: int = 0, device=None) -> Session:
+                  seed: int = 0, device=None, tune_db_path=None,
+                  objective: str = "latency") -> Session:
     """Initialise ``cfg``'s parameters from ``seed`` on the device (the card
     unless ``device`` names another) as stacked per-rank shards over ``tp``
-    ranks.  ``comm="auto"`` is not ported yet (ROADMAP.md Queue 1 item 8:
-    the sweep has no LM consumer loops)."""
-    if not isinstance(comm, CommConfig):
-        raise NotImplementedError(
-            f"comm={comm!r}: autotuned serving needs the sweep's prefill and "
-            f"decode_step consumers, which the port does not have yet "
-            f"(ROADMAP.md Queue 1 item 8); pass a CommConfig")
+    ranks.
+
+    ``comm="auto"`` asks the autotuner for the fastest measured config for
+    the LM path's dominant collective — the per-layer row-parallel TP
+    combine, a (tokens, d_model) f32 partial sum at a nominal 1K-token
+    microbatch — on ``tp`` ranks of the device's platform, falling back to
+    ``OPTIMIZED_CONFIG`` on a cold TuneDB.  ``objective="e2e"`` ranks by
+    the measured ``row_parallel`` consumer-loop time."""
     dev = resolve_device(device)
+    if not isinstance(comm, CommConfig):
+        from repro_torch.core.collectives import resolve_config
+        comm = resolve_config(comm, "all_reduce", 4 * cfg.d_model * 1024,
+                              n_ranks=tp, db_path=tune_db_path,
+                              objective=objective, consumer="row_parallel",
+                              device=dev)
     params = sharding.shard_params(transformer.init_model(seed, cfg, tp, dev),
                                    cfg, tp)
     rt = Runtime(cfg=cfg, mesh=MeshContext.stacked(tp), comm=comm)

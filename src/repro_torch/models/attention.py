@@ -164,7 +164,8 @@ def attention(params, x: torch.Tensor, positions: torch.Tensor, rt: Runtime,
 class KVCache(NamedTuple):
     k: torch.Tensor       # (P, B, S_shard, KV, hd): row p's slice of time
     v: torch.Tensor
-    length: int           # global tokens already in the cache
+    length: torch.Tensor  # 0-d long on the cache's device: global tokens
+                          # already in the cache
 
     @property
     def seq_shard(self) -> int:
@@ -180,7 +181,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_shards: int,
              cfg.resolved_head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
-                   length=0)
+                   length=torch.zeros((), dtype=torch.long, device=device))
 
 
 def _sp_shards(rt: Runtime, device) -> torch.Tensor:
@@ -191,10 +192,10 @@ def _sp_shards(rt: Runtime, device) -> torch.Tensor:
 
 
 def prefill_into_cache(cache: KVCache, k_full: torch.Tensor,
-                       v_full: torch.Tensor, rt: Runtime) -> KVCache:
+                       v_full: torch.Tensor, rt: Runtime) -> None:
     """Scatter full-sequence K/V (P, B, S, KV, hd), replicated, into the
     sequence-sharded cache, in place: row p keeps positions ``[shard_p·L,
-    shard_p·L + L)`` (zeros past S)."""
+    shard_p·L + L)`` (zeros past S).  The caller sets the length."""
     S = k_full.shape[2]
     L = cache.seq_shard
     pad = rt.sp_size * L - S
@@ -206,25 +207,35 @@ def prefill_into_cache(cache: KVCache, k_full: torch.Tensor,
         if pad > 0:
             full = F.pad(full, (0, 0, 0, 0, 0, pad))
         buf.copy_(layers.rank_slice(full, start, L, dim=1))
-    return KVCache(k=cache.k, v=cache.v, length=S)
 
 
 def append_to_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
                     rt: Runtime) -> KVCache:
     """Write one new (P, B, 1, KV, hd) entry at global position
     ``cache.length``: only the row that owns that position writes (in
-    place), at its local offset."""
+    place), at its local offset.
+
+    Owner and offset are computed on the device from the length tensor, so
+    the write reads nothing on the host and can be captured: every row
+    writes its entry at the offset, and a row that does not own the
+    position writes back the value already there (row ``p`` owns shard
+    ``p``, or every row shard 0 without sequence sharding; no row once the
+    cache is full)."""
     L = cache.seq_shard
-    owner, off = divmod(cache.length, L)
-    # rows that own the position (host-side: row p holds shard p, or every
-    # row shard 0 without sequence sharding); none once the cache is full
+    P = cache.k.shape[0]
+    owner = torch.div(cache.length, L, rounding_mode="floor")
     if rt.sp_size == 1:
-        rows = slice(None) if owner == 0 else None
+        mine = (owner == 0).expand(P)
     else:
-        rows = owner if owner < rt.mesh.tp else None
-    if rows is not None:
-        cache.k[rows, :, off] = k_new[rows, :, 0].to(cache.k.dtype)
-        cache.v[rows, :, off] = v_new[rows, :, 0].to(cache.v.dtype)
+        mine = _sp_shards(rt, cache.k.device) == owner
+    rows = torch.arange(P, device=cache.k.device)
+    offs = torch.remainder(cache.length, L).expand(P)
+    mine = mine.view(P, 1, 1, 1)
+    for new, buf in ((k_new, cache.k), (v_new, cache.v)):
+        # advanced indices on dims 0 and 2: (P, B, KV, hd) at each row's
+        # offset
+        buf[rows, :, offs] = torch.where(mine, new[:, :, 0].to(buf.dtype),
+                                         buf[rows, :, offs])
     return KVCache(k=cache.k, v=cache.v, length=cache.length + 1)
 
 
@@ -263,7 +274,7 @@ def decode_attention(params, x: torch.Tensor, cache: KVCache, rt: Runtime,
         v_new = layers.rank_matmul(x, params["wv"]).reshape(P, B, 1,
                                                             dims.n_kv, hd)
 
-    pos = torch.full((B, 1), cache.length, device=x.device)
+    pos = cache.length.view(1, 1).expand(B, 1)
     if cfg.qk_norm:
         q = layers.rms_norm(q, params["q_norm"], cfg.norm_eps)
         k_new = layers.rms_norm(k_new, params["k_norm"], cfg.norm_eps)

@@ -10,10 +10,14 @@ ssm family's are ``SSMState(conv (L, P, B, W-1, d_inner_local), h (L, P,
 B, local_heads, state, head_dim) f32)``: a fixed size, whatever the
 sequence length, sharded over heads when they divide.
 
-Unlike the JAX package's functional update, :func:`decode_step` writes the
-new token's K/V, or the new SSM state, into the caches it is given (in
-place) and returns a state that shares them: the state passed in is
-consumed.
+Unlike the JAX package's functional update, :func:`prefill` and
+:func:`decode_step` write into a state's buffers (the caches, the last
+logits and the cache position) and return it: the state passed to a
+decode step is consumed.  ``ServeState.length`` (and ``KVCache.length``,
+the same tensor) is a 0-d long tensor on the device, as the JAX package's
+is a traced scalar, and both functions set it on the device: a step reads
+nothing on the host, so it can be captured as one CUDA graph whose static
+state is the one it writes (:mod:`repro_torch.train.serve`).
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ class ServeState(NamedTuple):
     # stacked SSM state (ssm)
     caches: Union[attention.KVCache, ssm.SSMState]
     last_logits: torch.Tensor     # (P, B, V/tp) vocab-sharded, f32
-    length: int
+    length: torch.Tensor          # 0-d long, on the device
 
 
 def layer_cache(caches: attention.KVCache, i: int) -> attention.KVCache:
@@ -64,18 +68,58 @@ def _decode_dense(p, x, cache, rt: Runtime, window=None):
     return x, cache
 
 
-def prefill(params, batch: dict, rt: Runtime, max_len: int) -> ServeState:
+def init_state(params, rt: Runtime, batch: int, max_len: int,
+               device=None) -> ServeState:
+    """A zero state of ``batch`` sequences with caches of ``max_len``
+    positions (dense; the ssm family's state has a fixed size), on
+    ``device`` (the parameters' by default): buffers a prefill's ``out=``
+    writes into."""
+    cfg = rt.cfg
+    dev = params["final_norm"].device if device is None else device
+    if cfg.family == "ssm":
+        caches = ssm.init_ssm_state(cfg, batch, rt.mesh.tp, dev,
+                                    cfg.n_layers)
+    else:
+        caches = attention.init_kv_cache(cfg, batch, max_len, rt.sp_size,
+                                         cfg.dtype, rt.mesh.tp, dev,
+                                         cfg.n_layers)
+    length = torch.zeros((), dtype=torch.long, device=dev)
+    if cfg.family != "ssm":
+        caches = caches._replace(length=length)     # one tensor for both
+    table = params["embed"]["table"]
+    return ServeState(
+        caches=caches,
+        last_logits=torch.zeros((rt.mesh.tp, batch, table.shape[1]),
+                                dtype=torch.float32, device=dev),
+        length=length)
+
+
+def _store(state: ServeState, last: torch.Tensor, length: torch.Tensor
+           ) -> ServeState:
+    state.last_logits.copy_(last)
+    state.length.copy_(length)
+    c = state.caches
+    if isinstance(c, attention.KVCache) and c.length is not state.length:
+        c.length.copy_(length)
+    return state
+
+
+def prefill(params, batch: dict, rt: Runtime, max_len: int,
+            out: ServeState | None = None) -> ServeState:
     """Prefill ``batch["tokens"] (B, S)`` into caches of ``max_len``
     positions (dense; the ssm family's state has a fixed size and ignores
-    ``max_len``); ``last_logits`` are the last position's."""
+    ``max_len``); ``last_logits`` are the last position's.  The result is
+    written into ``out`` (:func:`init_state`'s shapes; a new state when
+    None), which is returned."""
     cfg = rt.cfg
     require_ported_family(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
+    if out is None:
+        out = init_state(params, rt, B, max_len)
+    caches = out.caches
     x = layers.embed(params["embed"], tokens, rt)
     if cfg.family == "ssm":
-        caches = ssm.init_ssm_state(cfg, B, rt.mesh.tp, x.device,
-                                    cfg.n_layers)
         for i in range(cfg.n_layers):
             p = layer_params(params["layers"], i)
             h = layers.rms_norm(x, p["ln"], cfg.norm_eps)
@@ -86,28 +130,25 @@ def prefill(params, batch: dict, rt: Runtime, max_len: int) -> ServeState:
             caches.h[i].copy_(hstate)
     else:
         positions = positions_for(tokens)
-        caches = attention.init_kv_cache(cfg, B, max_len, rt.sp_size,
-                                         cfg.dtype, rt.mesh.tp, x.device,
-                                         cfg.n_layers)
         for i in range(cfg.n_layers):
             x = _prefill_dense(layer_params(params["layers"], i), x,
                                positions, rt, layer_cache(caches, i),
                                cfg.sliding_window)
-        caches = caches._replace(length=S)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     last = layers.logits_shard(params["embed"], x[:, :, -1], rt)
-    return ServeState(caches=caches, last_logits=last, length=S)
+    return _store(out, last, torch.full((), S, dtype=torch.long,
+                                        device=x.device))
 
 
 def decode_step(params, token: torch.Tensor, state: ServeState, rt: Runtime
                 ) -> ServeState:
-    """token: (B,) — append one token (its K/V, or the new SSM state,
-    written into the caches in place), return the updated state."""
+    """token: (B,) — append one token (its K/V, or the new SSM state, into
+    the caches; the logits and the advanced length into ``last_logits`` and
+    ``length``), all in ``state``'s buffers, and return ``state``."""
     cfg = rt.cfg
     require_ported_family(cfg)
     x = layers.embed(params["embed"], token[:, None], rt)
     caches = state.caches
-    length = state.length + 1
     if cfg.family == "ssm":
         for i in range(cfg.n_layers):
             p = layer_params(params["layers"], i)
@@ -123,10 +164,9 @@ def decode_step(params, token: torch.Tensor, state: ServeState, rt: Runtime
             x, _ = _decode_dense(layer_params(params["layers"], i), x,
                                  layer_cache(caches, i), rt,
                                  cfg.sliding_window)
-        caches = caches._replace(length=length)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = layers.logits_shard(params["embed"], x[:, :, -1], rt)
-    return ServeState(caches=caches, last_logits=logits, length=length)
+    return _store(state, logits, state.length + 1)
 
 
 def greedy_tokens(state: ServeState, rt: Runtime) -> torch.Tensor:

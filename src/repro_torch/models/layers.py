@@ -94,7 +94,8 @@ def rope_frequencies(head_dim: int, theta: float, device=None
         base = torch.tensor(theta, dtype=torch.float32)
         return (torch.ones(()) / torch.pow(base, exps)).to(device)
     return plans._memo("rope_frequencies",
-                       (head_dim, float(theta), str(device)), build)
+                       (head_dim, float(theta), str(device)), build,
+                       pinned=True)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float

@@ -13,6 +13,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models import attention, layers, ssm
 from repro_torch.models.common import ModelConfig, Runtime
 
@@ -75,9 +76,10 @@ def init_model(seed: int, cfg: ModelConfig, tp: int = 1, device=None):
     stacked ``(n_layers, ...)``), drawn from ``torch.Generator(seed)`` on
     ``device``.  The JAX package draws other numbers from the same seed:
     to run both on the same weights, take the JAX package's parameters
-    through ``sharding.from_reference``."""
+    through ``sharding.from_reference``.  ``device`` defaults to the card
+    (:func:`repro_torch.device.resolve_device`)."""
     require_ported_family(cfg)
-    device = torch.device(device or "cpu")
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     params: dict[str, Any] = {
         "embed": layers.init_embedding(gen, cfg.vocab_size, cfg.d_model,

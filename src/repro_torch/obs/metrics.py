@@ -230,6 +230,13 @@ class Registry:
                 out[inst.name] = inst.value
         return out
 
+    def counters(self, prefixes: Sequence[str]) -> list[Counter]:
+        """Every counter whose name starts with one of ``prefixes``."""
+        with _LOCK:
+            items = list(self._instruments.values())
+        return [c for c in items if isinstance(c, Counter)
+                and c.name.startswith(tuple(prefixes))]
+
     def find(self, prefix: str) -> dict:
         """Snapshot restricted to names starting with ``prefix``."""
         return {k: v for k, v in self.snapshot().items()

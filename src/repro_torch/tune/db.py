@@ -18,9 +18,8 @@ import os
 from pathlib import Path
 from typing import Optional, Sequence
 
-import torch
-
 from repro_torch.core.config import CommConfig, OPTIMIZED_CONFIG
+from repro_torch.device import resolve_device
 from repro_torch.tune.space import config_from_dict
 
 DB_VERSION = 1
@@ -37,15 +36,15 @@ def default_db_path() -> Path:
 def topology_key(n_ranks: int | None = None, device=None) -> str:
     """Stable key for "the substrate this measurement ran on":
     ``torch-<device type>:<ranks>``, e.g. ``torch-cuda:8`` for 8 stacked
-    ranks on the card.  ``device`` defaults to the card when one is present.
+    ranks on the card.  ``device`` defaults to the card, as every entry
+    point's does (:func:`repro_torch.device.resolve_device`: no card and no
+    device named raises, rather than answering from CPU entries).
 
     The ``torch-`` prefix keeps the two packages apart in a shared TuneDB
     file: the JAX package keys its entries ``cpu:8``/``tpu:8`` and relaxes
     only to entries of the same platform, so neither package is ever
     answered by the other's measurements."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    platform = torch.device(device).type
+    platform = resolve_device(device).type
     return f"torch-{platform}:{n_ranks if n_ranks is not None else 1}"
 
 
@@ -350,6 +349,8 @@ def select_config(collective: str, msg_bytes: int, n_ranks: int | None = None,
                          f"got {objective!r}")
     if db is None:
         db = TuneDB.load(path)
+    if not db.entries:
+        return fallback           # a cold cache, on any substrate
     if topo is None:
         topo = topology_key(n_ranks)
     platform = topo.split(":", 1)[0]

@@ -79,12 +79,12 @@ _DEFAULTS = CommConfig()
 
 # Collectives with an e2e consumer-loop benchmark whose *consumer* reads
 # Scheduling.OVERLAPPED even though the bare collective executes identically
-# to fused (the double-buffered halo fold; see sweep.CONSUMERS).  Under the
-# e2e objective the overlapped variants must stay distinct candidates — the
-# paper's §5 finding is that the microbench cannot rank them but the
-# consumer loop can.  all_reduce's consumers (the tensor-parallel layers and
-# the serving phases) come with the port's LM path.
-CONSUMER_COLLECTIVES = frozenset({"multi_neighbor"})
+# to fused (row_parallel, decode_step and prefill all route their combine
+# through overlapped_matmul_allreduce; the halo fold is double-buffered —
+# see sweep.CONSUMERS).  Under the e2e objective the overlapped variants
+# must stay distinct candidates — the paper's §5 finding is that the
+# microbench cannot rank them but the consumer loop can.
+CONSUMER_COLLECTIVES = frozenset({"all_reduce", "multi_neighbor"})
 
 
 def _canonicalize(cfg: CommConfig, collective: str | None,

@@ -31,11 +31,13 @@ import time
 from contextlib import nullcontext
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
-from repro_torch.core import collectives, reliable
+from repro_torch.core import collectives, reliable, streaming
 from repro_torch.core.communicator import Communicator
-from repro_torch.core.config import H100, CommConfig, Reliability, Scheduling
+from repro_torch.core.config import (H100, CommConfig, CommMode, Reliability,
+                                     Scheduling)
 from repro_torch.core.topology import TorusSpec
 from repro_torch.device import resolve_device
 from repro_torch.obs import metrics as obs_metrics
@@ -56,14 +58,34 @@ SWEEPABLE = ("sendrecv", "all_reduce", "all_gather", "reduce_scatter",
              "multi_neighbor", "all_to_all")
 
 # Collectives with end-to-end consumer-loop benchmarks (the hideable-compute
-# consumers of the paper's §5 argument).  Under ``--objective e2e`` each
-# consumer is measured and recorded as its own TuneEntry (tagged
-# ``TuneEntry.consumer``).  all_reduce's and all_to_all's consumers (the
-# tensor-parallel layers, the serving phases, the MoE loop) come with the
-# port's LM path.
+# consumers of the paper's §5 argument), one tuple per collective.
+# all_reduce serves three phases with opposite cost structures: the
+# training row-parallel matmul+reduce layer, the serving decode step (tiny
+# latency-bound per-token combines with almost no hideable compute), and
+# prefill (throughput-bound bulk reduces behind a large hideable matmul).
+# Under ``--objective e2e`` each consumer is measured separately and
+# recorded as its own TuneEntry (tagged ``TuneEntry.consumer``) so
+# ``select_config(consumer=...)`` can answer per phase.  The first consumer
+# in each tuple is the primary one — the one the pruning model predicts
+# with.  all_to_all's consumer (the MoE loop) comes with the MoE family.
 CONSUMERS: dict[str, tuple[str, ...]] = {
+    "all_reduce": ("row_parallel", "decode_step", "prefill"),
     "multi_neighbor": ("halo_fold",),
 }
+
+# row_parallel consumer geometry: the reduced output is (tokens, _ROWPAR_D)
+# with tokens*_ROWPAR_D*4 = msg_bytes; the hideable per-rank matmul
+# contracts over _ROWPAR_FF features.
+_ROWPAR_D = 64
+_ROWPAR_FF = 128
+# decode_step consumer geometry: a (batch, _DEC_D) per-token activation with
+# batch*_DEC_D*4 = msg_bytes; the per-step matmul contracts over _DEC_D —
+# almost nothing to hide the combines behind.
+_DEC_D = 16
+# prefill consumer geometry: (tokens, _PRE_FF) activations with
+# tokens*_PRE_FF*4 = msg_bytes and a _PRE_FF-wide contraction — a large
+# hideable matmul per combine.
+_PRE_FF = 256
 
 # Collectives whose benchmark pattern is parameterized by a torus hop
 # distance (the --hop-distances axis): the perm is a translation of the
@@ -73,9 +95,22 @@ HOP_PATTERNED = ("sendrecv", "multi_neighbor")
 OBJECTIVES = ("latency", "e2e")
 
 
-def consumer_flops(collective: str, msg_bytes: int) -> float:
+def consumer_flops(collective: str, msg_bytes: int,
+                   consumer: str | None = None) -> float:
     """Hideable per-iteration compute (FLOPs) of a collective's consumer
-    loop — feeds the e2e prediction (compute_s = flops / peak)."""
+    loop — feeds the e2e prediction (compute_s = flops / peak).  With
+    ``consumer`` omitted, the collective's primary consumer is assumed."""
+    if consumer is None:
+        consumer = (CONSUMERS.get(collective) or ("",))[0]
+    if collective == "all_reduce":
+        if consumer == "decode_step":
+            # tiny per-token matmul + the LSE max/sum pair: ~4 flops/elem
+            return 4.0 * (msg_bytes / 4.0)
+        if consumer == "prefill":
+            # bulk matmul: 2 * tokens * ff^2 with tokens*ff = msg_bytes/4
+            return 2.0 * _PRE_FF * (msg_bytes / 4.0)
+        # matmul: 2 * tokens * ff * d with tokens*d = msg_bytes/4 elements
+        return 2.0 * _ROWPAR_FF * (msg_bytes / 4.0)
     if collective == "multi_neighbor":
         # elementwise interior update over the state (~12 flops/element)
         return 12.0 * (msg_bytes / 4.0)
@@ -171,22 +206,93 @@ def _build_op(collective: str, comm, cfg: CommConfig,
     return op
 
 
+def _rank_weight(seed: int, shape: tuple, n: int, device) -> torch.Tensor:
+    """The reference's ``RandomState(seed).randn(*shape) * 0.05`` f32
+    weight, the same on each of ``n`` stacked ranks."""
+    w = np.random.RandomState(seed).randn(*shape) * 0.05
+    return torch.from_numpy(w.astype(np.float32)).to(device).expand(
+        n, *shape)
+
+
+def _tp_combine(h: torch.Tensor, w: torch.Tensor, comm,
+                cfg: CommConfig) -> torch.Tensor:
+    """``models.layers.row_parallel``'s combine: streaming mode or
+    overlapped scheduling routes the chunked, double-buffered
+    overlapped_matmul_allreduce; buffered fused/host configs issue one
+    all-reduce after the whole matmul."""
+    if (cfg.mode == CommMode.STREAMING
+            or cfg.scheduling == Scheduling.OVERLAPPED):
+        return streaming.overlapped_matmul_allreduce(h, w, comm, cfg)
+    return collectives.all_reduce(streaming.matmul_f32(h, w), comm, cfg)
+
+
 def _build_consumer_op(collective: str, comm, cfg: CommConfig,
                        msg_bytes: int, hop_distance: int | None = None,
-                       consumer: str | None = None
+                       consumer: str | None = None, device=None
                        ) -> tuple[Callable, tuple]:
     """One iteration of the collective's consumer loop: ``(op,
-    per_rank_shape)``.  The halo fold: a 4-neighbor exchange, a fold of the
-    received halos, and an interior update the overlapped schedule can issue
-    while the exchange is in flight."""
+    per_rank_shape)``.
+
+    ``op`` maps a stacked ``(n, *per_rank_shape)`` payload to a same-shaped
+    payload so iterations chain; the body is compute the schedule could
+    hide the collective behind.  ``consumer`` picks one of the collective's
+    loops from :data:`CONSUMERS` (default: the primary one); the
+    all_reduce loops' weights are made on ``device`` (the card unless
+    another is named), outside any capture."""
     if consumer is None:
         consumer = (CONSUMERS.get(collective) or ("",))[0]
+    n = comm.size
+
+    if collective == "all_reduce" and consumer == "decode_step":
+        # Serving decode step: a tiny (batch, d) per-token activation, the
+        # LSE-combine pair (max reduce + sum reduce, as in
+        # models.attention.decode_attention) and a row-parallel output
+        # combine with a near-trivial matmul.  Almost no hideable compute:
+        # the config's fixed per-op cost dominates.
+        b = max(4, msg_bytes // 4 // _DEC_D)
+        w = _rank_weight(2, (_DEC_D, _DEC_D), n, resolve_device(device))
+
+        def op(h):
+            m = collectives.all_reduce(h, comm, cfg, op="max")
+            y = _tp_combine(h, w, comm, cfg)
+            return torch.tanh(h + 1e-3 * (y - 1e-3 * m))
+
+        return op, (b, _DEC_D)
+
+    if collective == "all_reduce" and consumer == "prefill":
+        # Serving prefill: bulk (tokens, ff) activations with a wide
+        # hideable matmul per combine — throughput-bound.
+        tokens = max(8, msg_bytes // 4 // _PRE_FF)
+        w = _rank_weight(3, (_PRE_FF, _PRE_FF), n, resolve_device(device))
+
+        def op(h):
+            return torch.tanh(h + 1e-3 * _tp_combine(h, w, comm, cfg))
+
+        return op, (tokens, _PRE_FF)
+
+    if collective == "all_reduce" and consumer == "row_parallel":
+        # Row-parallel TP layer: per-rank matmul + combine of the partial
+        # sum, the reduced output fed back into the activation's shape so
+        # the next iteration depends on this one.
+        tokens = max(8, msg_bytes // 4 // _ROWPAR_D)
+        w = _rank_weight(0, (_ROWPAR_FF, _ROWPAR_D), n,
+                         resolve_device(device))
+
+        def op(h):
+            y = _tp_combine(h, w, comm, cfg)
+            return torch.tanh(h + 1e-3 * y.sum(-1, keepdim=True))
+
+        return op, (tokens, _ROWPAR_FF)
+
     if collective != "multi_neighbor" or consumer != "halo_fold":
         raise ValueError(f"no consumer-loop benchmark {consumer!r} for "
                          f"{collective!r} (consumers: {CONSUMERS})")
+    # Halo-fold step: a 4-neighbor exchange, a fold of the received halos,
+    # and an interior update the overlapped schedule can issue while the
+    # exchange is in flight.
     rounds = (_hop_rounds(comm, hop_distance) if hop_distance is not None
               else _multi_neighbor_rounds(comm))
-    elems = _payload_elems(msg_bytes, comm.size)
+    elems = _payload_elems(msg_bytes, n)
 
     def op(x):
         payloads = [x] * len(rounds)
@@ -474,7 +580,7 @@ def run_sweep(n_ranks: int = 8, collectives: Sequence[str] = SWEEPABLE,
                     for consumer in consumers:
                         cop, shape = _build_consumer_op(
                             coll, comm, cfg, msg_bytes, hop_distance=hop_d,
-                            consumer=consumer)
+                            consumer=consumer, device=device)
                         with (reliable.inject(wire) if wire is not None
                               else nullcontext()):
                             e2e_sec = timer(cop, n_ranks, msg_bytes, cfg,

@@ -702,3 +702,240 @@ def test_int8_recovery_rounds_launch_the_quant_kernels(card):
     assert quant_ops.launches["dequantize"] - before["dequantize"] == \
         plan.n_chunks
     assert torch.equal(got, clean)
+
+
+# ----------------------------------------------------------------------
+# Captured programs: core/scheduler.py and serving as CUDA graphs
+# ----------------------------------------------------------------------
+
+def test_fused_runner_replays_one_graph_on_the_card(card):
+    """Host-scheduled and fused runners on the card: bitwise equal over
+    four steps, the fused one a warm-up and capture, then three replays of
+    one graph; the all-reduce counter counts every step, replays too."""
+    from repro_torch.core import scheduler
+    from repro_torch.obs import metrics as obs_metrics
+    comm = Communicator(("x",), (4,))
+    phases = [scheduler.Phase("a", lambda c: torch.tanh(c) * 2.0),
+              scheduler.Phase("comm", lambda c: collectives.all_reduce(
+                  c, comm, CommConfig()), is_comm=True),
+              scheduler.Phase("b", lambda c: c * c + 1.0)]
+    host = scheduler.HostScheduledRunner(phases)
+    fused = scheduler.FusedRunner(phases)
+    ctr = obs_metrics.registry().counter("comm.collectives",
+                                         kind="all_reduce", op="sum")
+    x = torch.randn(4, 256, device=card)
+    for i in range(4):
+        before = ctr.value
+        got = fused.run_step(x + i)
+        assert ctr.value == before + 1
+        assert torch.equal(got, host.run_step(x + i))
+    assert fused._graph.replays == 3 and fused.dispatch_count == 4
+    assert host.dispatch_count == 12
+    assert scheduler.measure_dispatch_overhead(50) > 0.0
+
+
+def test_captured_graph_node_counts_are_what_a_replay_launches(card):
+    """Under keeping_topology() a capture keeps its graph: node_counts
+    reads two kernels and one copy (what the eager call launched), the
+    lazily instantiated replay computes the eager answer, and a graph
+    captured outside the block refuses to count."""
+    from repro_torch.core import scheduler
+    x = torch.randn(1024, device=card)
+    y = torch.empty_like(x)
+
+    def fn(v):
+        y.copy_(v + 1.0)
+        return y * 2.0
+
+    with scheduler.keeping_topology():
+        g = scheduler.CapturedGraph(fn, static=(x.clone(),))
+    assert g.node_counts() == {"KERNEL": 2, "MEMCPY": 1}
+    g.static[0].copy_(x * 3.0)
+    assert torch.equal(g.replay(), fn(x * 3.0))
+    plain = scheduler.CapturedGraph(fn, static=(x.clone(),))
+    with pytest.raises(RuntimeError, match="keeping_topology"):
+        plain.node_counts()
+
+
+def test_masked_append_captured_across_the_full_edge(card):
+    """The cache write captured once and replayed past the last position:
+    bitwise the CPU's eager writes, the length advancing on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import input_specs as isp
+    from repro_torch.models import attention
+    from repro_torch.train import serve
+    cfg = get_smoke_config("qwen3-8b")
+    rt = serve.serve_runtime(cfg, 4, CommConfig(),
+                             isp.ShapeSpec("s", 8, 2, "decode"))
+    gen = torch.Generator().manual_seed(0)
+    shape = (4, 2, 2, cfg.n_kv_heads, cfg.resolved_head_dim)
+    news = torch.randn((12, 4, 2, 1) + shape[3:], generator=gen)
+    caches = {}
+    for dev in ("cpu", card):
+        c = attention.KVCache(k=torch.zeros(shape, device=dev),
+                              v=torch.zeros(shape, device=dev),
+                              length=torch.full((), 3, dtype=torch.long,
+                                                device=dev))
+        new = torch.zeros_like(news[0], device=dev)
+
+        def step():
+            out = attention.append_to_cache(c, new, -new, rt)
+            c.length.copy_(out.length)
+        if dev == "cpu":
+            for i in range(len(news)):
+                new.copy_(news[i])
+                step()
+        else:
+            new.copy_(news[0])
+            step()                                       # warm-up
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                step()
+            for i in range(1, len(news)):
+                new.copy_(news[i])
+                graph.replay()
+        caches[str(dev)] = c
+    a, b = caches["cpu"], caches[str(card)]
+    assert int(b.length) == 3 + len(news) > 8
+    assert torch.equal(a.k, b.k.cpu()) and torch.equal(a.v, b.v.cpu())
+
+
+@pytest.mark.parametrize("arch,S", [("qwen3-8b", 24), ("mamba2-130m", 32)])
+def test_captured_smoke_serving_is_bitwise_eager(card, arch, S):
+    """The smoke config in float32 at tp = 4: the captured prefill's replay
+    and 5 captured decode steps (a warm-up, then four replays of one graph)
+    bitwise equal to the eager builders; the kernel's launches counted from
+    the replays (one per layer per prefill run); each replay one
+    ``captured=True`` span."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import input_specs as isp
+    from repro_torch.models import decode as dec, sharding, transformer
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.train import serve
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    kernel = ssd_ops if cfg.family == "ssm" else fa_ops
+    tp, B, GEN = 4, 4, 5
+    params = sharding.shard_params(transformer.init_model(0, cfg, tp, card),
+                                   cfg, tp)
+    toks = np.random.RandomState(0).randint(0, cfg.vocab_size, (B, S))
+    runs = {}
+    obs_trace.configure("1")
+    try:
+        for captured in (False, True):
+            _, pre = serve.build_serve_fn(
+                cfg, tp, CommConfig(), isp.ShapeSpec("s", S, B, "prefill"),
+                cache_capacity=S + GEN, device=card, captured=captured)
+            rt, step = serve.build_serve_fn(
+                cfg, tp, CommConfig(), isp.ShapeSpec("s", S + GEN, B,
+                                                     "decode"),
+                device=card, captured=captured)
+            before = kernel.launches
+            st = pre(params, {"tokens": toks})
+            if captured:
+                st = pre(params, {"tokens": toks})       # the replay
+                assert pre.graph.replays == 1
+            launched = kernel.launches - before
+            first = [t.clone() for t in (st.last_logits, st.length)]
+            out = []
+            for _ in range(GEN):
+                nxt = dec.greedy_tokens(st, rt)
+                st = step(params, nxt, st)
+                out += [nxt, st.last_logits.clone()]
+            runs[captured] = (first, out, launched, step)
+        spans = [e for e in obs_trace.events()
+                 if e.get("name") in ("serve.prefill", "serve.decode")]
+    finally:
+        obs_trace.configure("0")
+    (fe, oe, le, _), (fc, oc, lc, step_c) = runs[False], runs[True]
+    assert le == cfg.n_layers and lc == 2 * cfg.n_layers
+    assert all(torch.equal(a, b) for a, b in zip(fe + oe, fc + oc))
+    (g,) = step_c.graphs.values()
+    assert g.replays == GEN - 1
+    assert len(spans) == 1 + GEN - 1
+    assert all(e["args"].get("captured") is True for e in spans)
+
+
+def test_auto_serving_on_the_card(card, tmp_path):
+    """comm="auto" from a TuneDB of the card's key picks per phase and is
+    bitwise the captured serving with the resolved configs."""
+    from repro_torch import tune
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import input_specs as isp
+    from repro_torch.models import decode as dec, sharding, transformer
+    from repro_torch.train import serve
+    cfg = dataclasses.replace(get_smoke_config("qwen3-8b"),
+                              dtype=torch.float32)
+    tp, B, S, GEN = 4, 4, 16, 3
+    shapes = {"prefill": isp.ShapeSpec("s", S, B, "prefill"),
+              "decode": isp.ShapeSpec("s", S + GEN, B, "decode")}
+    wins = {"prefill": {"scheduling": "overlapped", "chunk_bytes": 1 << 16},
+            "decode_step": {"mode": "buffered"}}
+    rows = []
+    for shp in shapes.values():
+        msg = serve.serve_msg_bytes(cfg, shp)
+        for consumer, win in wins.items():
+            for i, c in enumerate((win, {"scheduling": "host"})):
+                rows.append(tune.TuneEntry(
+                    topo=tune.topology_key(tp, card),
+                    collective="all_reduce", msg_bytes=msg,
+                    config=tune.config_to_dict(tune.config_from_dict(c)),
+                    us_per_call=10.0, e2e_us=10.0 + i, consumer=consumer))
+    path = tmp_path / "db.json"
+    tune.TuneDB(rows).save(path)
+    params = sharding.shard_params(transformer.init_model(0, cfg, tp, card),
+                                   cfg, tp)
+    toks = np.random.RandomState(1).randint(0, cfg.vocab_size, (B, S))
+    resolved = {k: serve.resolve_serve_comm(cfg, tp, "auto", shp,
+                                            tune_db_path=path)
+                for k, shp in shapes.items()}
+    assert resolved["prefill"] != resolved["decode"]
+    runs = []
+    for comms in ({k: "auto" for k in shapes}, resolved):
+        _, pre = serve.build_serve_fn(cfg, tp, comms["prefill"],
+                                      shapes["prefill"],
+                                      cache_capacity=S + GEN,
+                                      tune_db_path=path)
+        rt, step = serve.build_serve_fn(cfg, tp, comms["decode"],
+                                        shapes["decode"], tune_db_path=path)
+        st = pre(params, {"tokens": toks})
+        out = [st.last_logits.clone()]
+        for _ in range(GEN):
+            nxt = dec.greedy_tokens(st, rt)
+            st = step(params, nxt, st)
+            out += [nxt, st.last_logits.clone()]
+        runs.append(out)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_plan_cache_bypass_captures_on_the_card(card, monkeypatch):
+    """Under REPRO_PLAN_CACHE=0 a decode step still captures (the device
+    index tensors are pinned, built by the warm-up) and replays bitwise
+    the cached build's steps."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import input_specs as isp
+    from repro_torch.models import decode as dec, sharding, transformer
+    from repro_torch.train import serve
+    cfg = dataclasses.replace(get_smoke_config("qwen3-8b"),
+                              dtype=torch.float32)
+    comm = CommConfig(algorithm="ring", chunk_bytes=1024)
+    params = sharding.shard_params(transformer.init_model(2, cfg, 4, card),
+                                   cfg, 4)
+    toks = np.random.RandomState(2).randint(0, cfg.vocab_size, (2, 8))
+
+    def serve_once():
+        _, pre = serve.build_serve_fn(cfg, 4, comm,
+                                      isp.ShapeSpec("s", 8, 2, "prefill"),
+                                      cache_capacity=12)
+        rt, step = serve.build_serve_fn(cfg, 4, comm,
+                                        isp.ShapeSpec("s", 12, 2, "decode"))
+        st = pre(params, {"tokens": toks})
+        out = []
+        for _ in range(3):
+            st = step(params, dec.greedy_tokens(st, rt), st)
+            out.append(st.last_logits.clone())
+        return out
+
+    cached = serve_once()
+    monkeypatch.setenv("REPRO_PLAN_CACHE", "0")
+    bypassed = serve_once()
+    assert all(torch.equal(a, b) for a, b in zip(cached, bypassed))

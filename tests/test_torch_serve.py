@@ -35,7 +35,8 @@ from helpers import run_multidevice
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import collectives, streaming
 from repro_torch.core.communicator import Communicator
-from repro_torch.core.config import BASELINE_CONFIG, CommConfig, Transport
+from repro_torch.core.config import (BASELINE_CONFIG, OPTIMIZED_CONFIG,
+                                     CommConfig, Transport)
 from repro_torch.launch import input_specs as isp
 from repro_torch.models import attention, decode as dec, layers, sharding
 from repro_torch.models import transformer
@@ -247,8 +248,8 @@ def test_decode_equals_prefill_of_the_extended_sequence(tp):
     """Greedy-decoding 4 tokens == prefilling the extended sequence: the
     same next token, logits and caches (tests/test_serving.py's check)."""
     comm = CommConfig()
-    params = sharding.shard_params(transformer.init_model(0, CFG, tp), CFG,
-                                   tp)
+    params = sharding.shard_params(
+        transformer.init_model(0, CFG, tp, "cpu"), CFG, tp)
     tokens = _tokens()
     _, toks, st = _serve(params, tp, comm, tokens)
     seq = np.concatenate([tokens, toks], axis=1)
@@ -307,8 +308,8 @@ def test_lse_combine_is_two_all_reduces_per_layer(tp):
     """One decode step under the buffered baseline: per layer, the LSE
     combine's max and sum plus the two row-parallel combines; one more sum
     for the vocab-sharded embedding."""
-    params = sharding.shard_params(transformer.init_model(0, CFG, tp), CFG,
-                                   tp)
+    params = sharding.shard_params(
+        transformer.init_model(0, CFG, tp, "cpu"), CFG, tp)
     _, pre = serve.build_serve_fn(CFG, tp, BASELINE_CONFIG,
                                   isp.ShapeSpec("s", S, B, "prefill"),
                                   cache_capacity=S + 1, device="cpu")
@@ -356,7 +357,7 @@ def test_both_gqa_layouts_are_reached():
     assert full.kv_sharded and full.local_heads == 8 and full.local_kv == 2
 
 
-def test_builders_check_their_arguments():
+def test_builders_check_their_arguments(tmp_path):
     prompt = isp.ShapeSpec("s", S, B, "prefill")
     gen = isp.ShapeSpec("s", S + GEN, B, "decode")
     with pytest.raises(ValueError):
@@ -365,9 +366,12 @@ def test_builders_check_their_arguments():
     with pytest.raises(ValueError):
         serve.build_serve_fn(CFG, 2, CommConfig(), gen, cache_capacity=S,
                              device="cpu")
-    with pytest.raises(NotImplementedError):
-        serve.build_serve_fn(CFG, 2, "auto", prompt, device="cpu")
-    params = sharding.shard_params(transformer.init_model(0, CFG, 2), CFG, 2)
+    # "auto" on a cold TuneDB falls back to the paper's optimized config
+    rt, _ = serve.build_serve_fn(CFG, 2, "auto", prompt, device="cpu",
+                                 tune_db_path=tmp_path / "cold.json")
+    assert rt.comm == OPTIMIZED_CONFIG
+    params = sharding.shard_params(
+        transformer.init_model(0, CFG, 2, "cpu"), CFG, 2)
     _, pre = serve.build_serve_fn(CFG, 2, CommConfig(), prompt,
                                   device="cpu")
     with pytest.raises(ValueError):

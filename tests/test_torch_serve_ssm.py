@@ -246,8 +246,8 @@ def test_decode_equals_prefill_of_the_extended_sequence(tp):
     """16 prompt tokens and 16 greedy decode steps == prefilling the 32
     tokens at once: the same next token, logits and states."""
     cfg, comm, n = SMOKE, CommConfig(), 16
-    params = sharding.shard_params(transformer.init_model(0, cfg, tp), cfg,
-                                   tp)
+    params = sharding.shard_params(
+        transformer.init_model(0, cfg, tp, "cpu"), cfg, tp)
     tokens = _tokens(n, seed=1)
     _, toks, st = _serve(params, cfg, tp, comm, tokens, gen=n)
     rt, pre, _ = _builders(cfg, tp, comm, 2 * n, 0)
@@ -284,8 +284,8 @@ def test_from_reference_keeps_each_leafs_float_type(tp):
 def test_decode_builder_checks_the_state():
     """The decode builder holds the SSM state to its fixed shape, whatever
     the sequence length; the prefill builder ignores the KV capacity."""
-    params = sharding.shard_params(transformer.init_model(0, SMOKE, 2),
-                                   SMOKE, 2)
+    params = sharding.shard_params(
+        transformer.init_model(0, SMOKE, 2, "cpu"), SMOKE, 2)
     rt, pre, decf = _builders(SMOKE, 2, CommConfig(), S, GEN)
     st = pre(params, {"tokens": _tokens()})
     want = isp.ssm_state_abstract(SMOKE, B, 2, SMOKE.n_layers)
@@ -307,8 +307,8 @@ def test_decode_builder_checks_the_state():
 def test_forward_logits_end_with_the_prefills(tp):
     """``transformer.forward``'s ssm branch runs the prefill's layers: its
     last position's logits are the prefill's, bitwise."""
-    params = sharding.shard_params(transformer.init_model(0, SMOKE, tp),
-                                   SMOKE, tp)
+    params = sharding.shard_params(
+        transformer.init_model(0, SMOKE, tp, "cpu"), SMOKE, tp)
     rt, pre, _ = _builders(SMOKE, tp, CommConfig(), S, GEN)
     tokens = _tokens()
     full = transformer.forward(params, {"tokens": torch.as_tensor(tokens)},

@@ -354,6 +354,9 @@ SWEEP_CASES = {
                    sizes=(1 << 14, 1 << 20), prune=True, prune_ratio=1.5),
     "e2e": dict(collectives=("multi_neighbor",), sizes=(1104, 1 << 17),
                 objective="e2e"),
+    # the serving phases' consumers: qwen3-8b's decode and prefill combines
+    "e2e-serving": dict(collectives=("all_reduce",), fast=True,
+                        sizes=(1 << 16, 1 << 26), objective="e2e"),
     "torus-hops": dict(collectives=("sendrecv", "multi_neighbor"),
                        sizes=(1 << 20,), fast=True, hop_distances=(1, 2, 3)),
 }
@@ -419,11 +422,14 @@ def test_sweep_times_ops_on_the_cpu_and_records_tails(tmp_path):
                         objective="e2e", reps=2, inner=2)
     assert stats["measured"] == len(tune.enumerate_configs(
         "sendrecv", fast=True)) + len(tune.enumerate_configs(
-            "all_reduce", fast=True)) + len(tune.enumerate_configs(
-                "multi_neighbor", fast=True, objective="e2e"))
+            "all_reduce", fast=True, objective="e2e")) + len(
+                tune.enumerate_configs("multi_neighbor", fast=True,
+                                       objective="e2e"))
     assert all(e.us_per_call > 0 and e.p95_us > 0 for e in db.entries)
     assert all(e.e2e_us > 0 for e in db.entries
-               if e.collective == "multi_neighbor")
+               if e.collective in sweep.CONSUMERS)
+    assert {e.consumer for e in db.entries if e.collective == "all_reduce"} \
+        == set(sweep.CONSUMERS["all_reduce"])
     assert "sweep wall clock" in sweep.sweep_summary(stats)
 
 
