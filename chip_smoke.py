@@ -92,7 +92,25 @@ exits non-zero:
    kernel against the plain version and against two faults planted in the
    plain version, and the smoke config in f32 on the card against the
    CPU;
-9. a ``kernels:`` line, the kernel table as one JSON line, and as the
+9. training: the flash backward kernel (fp32 FMA, deterministic) against
+   the plain backward (autograd through the plain version) on a grid
+   (window, softcap, ragged, f32, d 256) and at the training shape (bf16,
+   N = 32, S = T = 1024, 8 q heads over 2 kv heads, d 128, causal), two
+   runs bitwise equal, timed beside the plain backward, the backward of
+   ``scaled_dot_product_attention`` and its bound (before phase 3, beside
+   the other kernels); then qwen3-8b at full width and 4 layers (bf16,
+   random weights from seed 0, ``(data=2, model=4)`` stacked, ZeRO-1,
+   8 x 1024 tokens a step) trained 8 steps through
+   ``examples/train_lm_torch.py`` (the loss falls; ms/step, tokens/s and
+   peak memory; the flash forward and backward launches per step exact),
+   again with the int8 gradient wire (the quant kernels' launches per step
+   exact); the first step's loss and gradients through the kernels against
+   the plain attention; ``preempt@4`` drained and resumed by a fresh
+   process, bitwise equal to the uninterrupted run; ``rank_lost@3=r7``
+   re-formed onto ``(data=1, model=4)`` by ``elastic_restore``, re-selected
+   from phase 5's TuneDB with no sweep, twice, bitwise equal; and the
+   smoke config (f32) trained on the card against the CPU;
+10. a ``kernels:`` line, the kernel table as one JSON line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and exits non-zero without one, or when the repository
@@ -103,14 +121,19 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# cuBLAS reads this when CUDA starts: the training phase runs under
+# deterministic algorithms, which need it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ATOL_KERNEL = 1e-5      # tests/test_kernels.py::test_swe_step_sweep
 ATOL_PLAIN_RUN = 1e-4   # tests/test_swe.py partition/mode parity bound
@@ -1902,6 +1925,372 @@ def phase_serve_ssm(dev) -> int:
     return launches
 
 
+# ----------------------------------------------------------------------
+# Training: the flash backward kernel and qwen3-8b at full width
+# ----------------------------------------------------------------------
+
+# the forward's bound form, tol + tol |plain|; the backward sums more
+# products than the forward's output, so f32 is held to 1e-4
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the training shape: 8 stacked ranks x 4 sequences, 8 q heads over 2 kv
+# heads per rank (qwen3-8b at tp 4), 1024 tokens, d 128, causal, bf16
+FLASH_TRAIN = (32, 1024, 1024, 8, 2, 128, True, None, None)
+FLASH_BWD_GRID = [
+    (2, 100, 100, 4, 2, 64, True, None, None),
+    (1, 130, 200, 8, 2, 64, True, 37, None),
+    (3, 65, 129, 4, 1, 128, False, None, 5.0),
+    (1, 150, 70, 2, 2, 16, True, 20, None),
+    (2, 96, 96, 4, 2, 256, True, None, None),
+]
+# qwen3-8b at full width, 4 layers (1.39 B parameters; PERF.md section 4),
+# bf16, random weights from seed 0, (data=2, model=4) stacked, ZeRO-1,
+# global batch 8 x 1024 tokens of the synthetic corpus
+TRAIN_STEPS = 8
+TRAIN_ARGV = ["--full-size", "--layers", "4", "--dp", "2", "--tp", "4",
+              "--seq", "1024", "--batch", "8", "--steps", str(TRAIN_STEPS),
+              "--lr", "3e-4", "--seed", "0"]
+# tests/test_distributed_parity.py's bounds (smoke config, f32)
+TRAIN_GRAD_TOL, TRAIN_LOSS_TOL, TRAIN_PARAM_REL = 1e-4, 5e-4, 8e-3
+
+
+def flash_bwd_work(case) -> tuple[int, int]:
+    """(FLOPs, bytes) of the backward on these inputs: five products (S, dP,
+    dV, dQ, dK) of 2·d per visible (query, key) pair for every (n, head),
+    2.5x the forward's two; q, k, v, o, dO and the f32 log-sum-exp read
+    once, dq, dk, dv written once."""
+    from repro_torch.kernels.flash_attention import ref
+    N, S, T, H, KV, d, causal, window, _ = case
+    pairs = int(ref.visible(S, T, causal, window, "cpu").sum())
+    rows, kv = N * S * H * d, N * T * KV * d
+    return (10 * d * pairs * N * H,
+            2 * (3 * rows + 2 * kv) + 4 * N * H * S + 2 * (rows + 2 * kv))
+
+
+def phase_flash_bwd_kernel(dev, flush, bw) -> dict:
+    """The flash backward kernel against the plain backward (autograd
+    through the plain version) on the grid and at the training shape, two
+    runs bitwise equal; timed beside the plain backward and
+    scaled_dot_product_attention's backward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa, ref
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst = {}
+    for case in FLASH_BWD_GRID + [FLASH_TRAIN]:
+        kw = dict(zip(("causal", "window", "softcap"), case[6:]))
+        for dt in (torch.float32, torch.bfloat16):
+            if case is FLASH_TRAIN and dt == torch.float32:
+                continue
+            q, k, v = flash_inputs(case, dt, gen, dev)
+            dout = torch.randn(q.shape, generator=gen, device=dev).to(dt)
+            out, lse = fa.flash_attention_lse(q, k, v, **kw)
+            got = fa.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+            again = fa.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+            want = ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
+            tol = FLASH_BWD_TOL[dt]
+            for name, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
+                diff = (a.float() - b.float()).abs()
+                err = diff.max().item()
+                check(bool((diff <= tol + tol * b.float().abs()).all()),
+                      f"flash_attention_bwd {case} {dt} {name}: max|kernel "
+                      f"- plain| {err} over {tol} + {tol} |plain|")
+                check(torch.equal(a, c), f"flash_attention_bwd {case} {dt} "
+                      f"{name}: two runs differ")
+                worst[dt] = max(worst.get(dt, 0.0), err)
+            del got, again, want
+    log(f"[flash-bwd] kernel vs plain backward on {len(FLASH_BWD_GRID)} grid "
+        f"shapes and the training shape: max|err| f32 "
+        f"{worst[torch.float32]:.3e} (tol 1e-4 + 1e-4 |plain|), bf16 "
+        f"{worst[torch.bfloat16]:.3e} (tol 2e-2 + 2e-2 |plain|); every "
+        f"case bitwise equal over two runs")
+    q, k, v = flash_inputs(FLASH_TRAIN, torch.bfloat16, gen, dev)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    out, lse = fa.flash_attention_lse(q, k, v)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    dot = dout.transpose(1, 2).contiguous()
+    flops, nbytes = flash_bwd_work(FLASH_TRAIN)
+    ops_ms, bytes_ms = flops / BF16_FLOP_PER_S * 1e3, nbytes / bw * 1e3
+    smi_sample("flash-bwd")
+    k_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse),
+                   flush)
+    p_ms = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, dout), flush)
+    l_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                               retain_graph=True), flush)
+    smi_sample("flash-bwd")
+    res = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+               bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               max_abs_err=max(worst.values()))
+    log(f"[flash-bwd] training shape {FLASH_TRAIN[:6]} bf16 causal (fp32 "
+        f"FMA kernel): kernel {k_ms * 1e3:.2f} us, plain backward "
+        f"{p_ms * 1e3:.2f} us, scaled_dot_product_attention's backward "
+        f"{l_ms * 1e3:.2f} us, bound {res['bound_ms'] * 1e3:.2f} us "
+        f"({flops / 1e9:.2f} GFLOP at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s, "
+        f"{nbytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s: {res['bound_by']}); "
+        f"kernel at {100 * res['bound_ms'] / k_ms:.2f} % of its bound")
+    return res
+
+
+def _release():
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _leaf_gap(a_tree, b_tree) -> float:
+    """The largest leaf's max|a - b| / max|b|."""
+    from repro_torch.optim import adamw
+    gap = 0.0
+    for (_, a), (_, b) in zip(adamw.leaves_with_names(a_tree),
+                              adamw.leaves_with_names(b_tree)):
+        a, b = a.float(), b.float().to(a.device)
+        gap = max(gap, ((a - b).abs().max() / (b.abs().max() + 1e-12)).item())
+    return gap
+
+
+def phase_train(dev, db_path) -> dict:
+    """qwen3-8b training at full width through ``examples/train_lm_torch.py``
+    (the main path: the flash kernels' counts are zeroed just before it and
+    read just after), the int8 gradient wire, kernel vs plain attention on
+    the first step, preemption with a fresh-process resume, rank loss with
+    an elastic re-selection, and the smoke config against the CPU."""
+    import tempfile
+    from repro_torch.core.config import CommConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.quant import ops as qops
+    from repro_torch.launch import mesh as mesh_mod, setup
+    from repro_torch.models import sharding
+    from repro_torch.obs import metrics as obs_metrics, trace as obs_trace
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import fault_tolerance as ft
+    from repro_torch.runtime.faults import (FaultInjector, FaultSchedule,
+                                            RankLostError)
+    from repro_torch.train import loop as loop_mod, train_step as ts
+
+    ex = load_example("train_lm_torch")
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    quiet = lambda *_: None  # noqa: E731
+    args = ex.parser().parse_args(TRAIN_ARGV)
+    cfg = ex.model_config(args)
+    L = cfg.n_layers
+    tokens = args.batch * args.seq
+
+    def step_ms():
+        durs = [e["dur"] for e in obs_trace.events()
+                if e.get("name") == "train.step"]
+        return statistics.median(durs[1:]) / 1e3, len(durs)
+
+    # -- the main path, then the int8 gradient wire -----------------------
+    out = {}
+    for wire in ("same", "int8"):
+        # one async checkpoint, at the end of the main run: the card's
+        # disk takes ~45 GiB of writes a call, and a full-width drain of
+        # params and Adam moments below is 17 GB
+        a = ex.parser().parse_args(
+            TRAIN_ARGV + ["--grad-comm", wire, "--ckpt-dir", str(root / wire),
+                          "--ckpt-every", str(TRAIN_STEPS if wire == "same"
+                                              else 1000)])
+        obs_trace.configure("1")
+        fa.launches = fa.bwd_launches = 0
+        for kname in qops.launches:
+            qops.launches[kname] = 0
+        res = ex.run(a, log=log)
+        counts = dict(fwd=fa.launches, bwd=fa.bwd_launches,
+                      **{k: v for k, v in qops.launches.items()})
+        ms, n_spans = step_ms()
+        obs_trace.configure("0")
+        hist = res["history"]
+        del res["session"]
+        _release()
+        check(len(hist) == TRAIN_STEPS and n_spans == TRAIN_STEPS,
+              f"training ({wire}): {len(hist)} steps, {n_spans} spans")
+        check(all(math.isfinite(x) for x in hist) and hist[-1] < hist[0],
+              f"training ({wire}): loss {hist}")
+        check(counts["fwd"] == TRAIN_STEPS * L * 2
+              and counts["bwd"] == TRAIN_STEPS * L,
+              f"training ({wire}): flash launches {counts}, want "
+              f"{TRAIN_STEPS * L * 2} forward (remat recomputes each block) "
+              f"and {TRAIN_STEPS * L} backward")
+        # the int8 ring: one hop each way per data group (dp 2): tp groups
+        # x (reduce-scatter + all-gather) quantize and dequantize per step
+        want_q = 0 if wire == "same" else TRAIN_STEPS * args.tp * 2
+        check(counts["quantize"] == want_q and counts["dequantize"] == want_q,
+              f"training ({wire}): quant launches {counts}, want {want_q}")
+        out[wire] = dict(history=hist, ms=ms, counts=counts,
+                         peak=res["peak_bytes"], seconds=res["seconds"])
+        log(f"[train] qwen3-8b {L} layers, (data=2, model=4), ZeRO-1, grad "
+            f"wire {wire}: loss {hist[0]:.4f} -> {hist[-1]:.4f} over "
+            f"{len(hist)} steps; {ms:.1f} ms/step (median of steps 2-"
+            f"{TRAIN_STEPS}), {tokens / ms * 1e3:.0f} tokens/s; peak "
+            f"{res['peak_bytes'] / 1e9:.2f} GB; {res['seconds']:.1f} s in "
+            f"all; launches per step: flash forward "
+            f"{counts['fwd'] // TRAIN_STEPS}, backward "
+            f"{counts['bwd'] // TRAIN_STEPS}, quantize "
+            f"{counts['quantize'] // TRAIN_STEPS}, dequantize "
+            f"{counts['dequantize'] // TRAIN_STEPS}")
+    check(out["same"]["peak"] < 60e9, f"peak {out['same']['peak']} over 60 GB")
+    log(f"[train] loss gap int8 vs exact wire after {TRAIN_STEPS} steps: "
+        f"{abs(out['int8']['history'][-1] - out['same']['history'][-1]):.3e}")
+
+    # -- the first step through the kernel and through the plain version --
+    oc = adamw.OptConfig(lr=args.lr, warmup_steps=20, total_steps=args.steps,
+                         zero1=True)
+    mesh = mesh_mod.make_test_mesh(args.dp, args.tp)
+    from repro_torch.data.pipeline import SyntheticLM
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                      global_batch=args.batch)
+    sess = setup.build_session(cfg, mesh, CommConfig(), oc=oc, seed=0,
+                               device=dev)
+    # where a step's device time goes: one profiled step after a warm one
+    step = setup.make_sharded_train_step(sess)
+    src = SyntheticLM(data)
+    p, o, _ = step(sess.params, sess.opt_state, src.batch_at(0))
+    prof = profile_device_time("train", lambda: step(p, o, src.batch_at(1)))
+    log(f"[train] one profiled step: the card busy "
+        f"{100 * prof['busy_ms'] / prof['wall_ms']:.1f} % of its wall time")
+    del p, o, step
+    sess.opt_state = None
+    _release()
+    stacked = setup.shard_batch(sess, src.batch_at(0))
+    lg = ts.make_loss_and_grad(sess.rt)
+    from repro_torch.device import deterministic
+    with deterministic():
+        loss_k, _, g_k = lg(sess.params, stacked)
+        loss_p, _, g_p = plain_attention(lambda: lg(sess.params, stacked))
+    gap_loss = (loss_k - loss_p).abs().max().item()
+    gap_grad = _leaf_gap(g_k, g_p)
+    log(f"[train] first step through the kernels vs the plain attention: "
+        f"loss {loss_k[0].item():.6f} vs {loss_p[0].item():.6f} (gap "
+        f"{gap_loss:.3e}); gradients: largest leaf gap {gap_grad:.3e} of "
+        f"its max|grad|")
+    check(gap_loss < 1e-2 * abs(loss_p[0].item()),
+          f"first-step loss through the kernels {loss_k} vs plain {loss_p}")
+    del sess, g_k, g_p, lg, stacked
+    _release()
+
+    # -- preemption: drain at step 4, a fresh process resumes -------------
+    pre = root / "preempt"
+    argv = TRAIN_ARGV + ["--ckpt-dir", str(pre), "--ckpt-every", "1000"]
+    t0 = time.perf_counter()
+    res = ex.run(ex.parser().parse_args(argv), log=quiet,
+                 faults=FaultInjector(FaultSchedule.parse("preempt@4")))
+    part1 = res["history"]
+    del res
+    _release()
+    drain_s = time.perf_counter() - t0
+    check(len(part1) == 4, f"preempt@4 drained after {len(part1)} steps")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve().parent / "examples"
+                             / "train_lm_torch.py"), *argv, "--resume",
+         "--json", str(root / "resumed.json")], capture_output=True,
+        text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                            / "src")))
+    resume_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the resumed process failed:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    part2 = json.loads((root / "resumed.json").read_text())["history"]
+    check(part1 + part2 == out["same"]["history"],
+          f"drain + resume {part1 + part2} differs from the uninterrupted "
+          f"run {out['same']['history']}")
+    log(f"[train] preempt@4: drained after 4 steps ({drain_s:.1f} s with the "
+        f"emergency save of params and Adam moments); a fresh process "
+        f"resumed and trained 4 more ({resume_s:.1f} s); the joined stream "
+        f"is bitwise equal to the uninterrupted run")
+
+    # -- rank loss: elastic re-selection onto (data=1, model=4) -----------
+    reg = obs_metrics.registry()
+    sweeps0 = reg.counter("sweep.runs").value
+    resel0 = reg.counter("tune.model_reselects", collective="all_reduce").value
+    comm = CommConfig()
+    streams = []
+    for run in (1, 2):
+        ck = root / f"rank_lost_{run}"
+        sess = setup.build_session(cfg, mesh, comm, oc=oc, seed=0, device=dev)
+        t0 = time.perf_counter()
+        try:
+            loop_mod.train(sess, data, loop_mod.LoopConfig(
+                n_steps=TRAIN_STEPS, ckpt_every=1000, ckpt_dir=str(ck),
+                log_every=1000), log=quiet,
+                faults=FaultInjector(FaultSchedule.parse("rank_lost@3=r7")))
+            check(False, "rank_lost@3=r7 never fired")
+        except RankLostError as e:
+            check(e.rank == 7 and e.step == 3, f"rank loss {e}")
+        del sess
+        _release()
+        t1 = time.perf_counter()
+        sess2, start = ft.elastic_restore(
+            ck, cfg, mesh_mod.make_test_mesh(1, args.tp), comm, oc,
+            reselect=True, tune_db_path=db_path, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(start == 3, f"elastic restore at step {start}")
+        hist = loop_mod.train(sess2, data, loop_mod.LoopConfig(
+            n_steps=3, ckpt_every=1000, log_every=1000), log=quiet)
+        c = sess2.rt.comm
+        streams.append((c, hist))
+        log(f"[train] rank_lost@3=r7 (run {run}): 3 steps + emergency save "
+            f"of the params "
+            f"{t1 - t0:.1f} s, elastic restore onto (data=1, model="
+            f"{args.tp}) {t2 - t1:.1f} s, re-selected "
+            f"{c.mode.value}/{c.scheduling.value}/{c.chunk_bytes} B chunks; "
+            f"losses after {hist}")
+        del sess2
+        _release()
+    check(streams[0] == streams[1], f"two same-seed faulted runs differ: "
+          f"{streams}")
+    check(reg.counter("sweep.runs").value == sweeps0,
+          "a sweep ran during the elastic restore")
+    check(reg.counter("tune.model_reselects", collective="all_reduce").value
+          >= resel0 + 2, "the elastic restore did not re-select")
+    log("[train] rank loss: both faulted runs bitwise equal; no sweep; "
+        "tune.model_reselects moved")
+
+    # -- the smoke config (f32) on the card against the CPU ----------------
+    from repro_torch.configs import get_smoke_config
+    scfg = dataclasses.replace(get_smoke_config("qwen3-8b"),
+                               dtype=torch.float32)
+    rng = np.random.RandomState(0)
+    batch = {"tokens": rng.randint(0, scfg.vocab_size, (4, 32)),
+             "labels": rng.randint(0, scfg.vocab_size, (4, 32))}
+    soc = adamw.OptConfig(lr=1e-2, warmup_steps=1, total_steps=100,
+                          zero1=True)
+    runs, full = {}, None
+    for where in ("cpu", dev):
+        s = setup.build_session(scfg, mesh_mod.make_test_mesh(2, 2),
+                                CommConfig(), oc=soc, device=where)
+        full = setup.global_params(s) if full is None else full
+        s.params = setup.stacked_params(s, full)
+        _, _, g = ts.make_loss_and_grad(s.rt)(s.params,
+                                              setup.shard_batch(s, batch))
+        step = setup.make_sharded_train_step(s)
+        p, o, losses = s.params, s.opt_state, []
+        for _ in range(3):
+            p, o, m = step(p, o, batch)
+            losses.append(float(m["loss"]))
+        runs[str(where)] = (losses, sharding.unshard_params(g, scfg, 2),
+                            setup.global_params(s, p))
+    (lc, gc_, pc), (lk, gk, pk) = runs["cpu"], runs[str(dev)]
+    gap_g, gap_p = _leaf_gap(gk, gc_), _leaf_gap(pk, pc)
+    gap_l = max(abs(a - b) for a, b in zip(lk, lc))
+    check(gap_g < TRAIN_GRAD_TOL and gap_l < TRAIN_LOSS_TOL
+          and gap_p < TRAIN_PARAM_REL,
+          f"smoke training on the card vs the CPU: grad {gap_g}, loss "
+          f"{gap_l}, params {gap_p}")
+    log(f"[train] smoke config (f32, (2, 2), ZeRO-1) on the card vs the CPU: "
+        f"first-step gradients {gap_g:.3e} of max|grad| (tol "
+        f"{TRAIN_GRAD_TOL}), losses {gap_l:.3e} (tol {TRAIN_LOSS_TOL}), "
+        f"params after 3 steps {gap_p:.3e} (tol {TRAIN_PARAM_REL})")
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a card",
@@ -1932,8 +2321,9 @@ def main() -> int:
     t0 = time.perf_counter()
     build_all({"swe_step": swe_ops.LIBRARY, "quant": quant_ops.LIBRARY,
                "flash_attention": flash_ops.LIBRARY,
+               "flash_attention_bwd": flash_ops.BWD_LIBRARY,
                "ssd_scan": ssd_ops.LIBRARY})
-    log(f"[build] the four libraries built and loaded in "
+    log(f"[build] the five libraries built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     bw = card_bandwidth(name)
     swe_ptxas = ptxas_summary(swe_ops.LIBRARY.log)
@@ -2021,6 +2411,7 @@ def main() -> int:
     quant_timings = phase_quant_kernels(dev, flush, bw)
     flash_timing = phase_flash_kernel(dev, flush, bw)
     ssd_timing = phase_ssd_kernel(dev, flush, bw)
+    flash_bwd_timing = phase_flash_bwd_kernel(dev, flush, bw)
 
     # -- 3. main path at full size -------------------------------------
     modes = (("fused", CommConfig(), 1 + N_INNER),
@@ -2108,7 +2499,11 @@ def main() -> int:
     ssd_launches = phase_serve_ssm(dev)
     phase_serve_smoke(dev, "mamba2-130m", 16, 16)
 
-    # -- 9. summary ----------------------------------------------------
+    # -- 9. training ---------------------------------------------------
+    train = phase_train(dev, db_path)
+    train_counts = train["same"]["counts"]
+
+    # -- 10. summary ---------------------------------------------------
     log(f"kernels: swe_step launches={main_launches} "
         + " ".join(f"{k}={v}" for k, v in launches_by_mode.items())
         + f"; swe_step launches={elastic_launches} (elastic runs)"
@@ -2116,7 +2511,11 @@ def main() -> int:
                    f"{reliable_quant[k]} (reliable int8 sendrecv)"
                    for k, v in quant_launches.items())
         + f"; flash_attention launches={flash_launches} (serving)"
-        + f"; ssd_scan launches={ssd_launches} (serving)")
+        + f"; ssd_scan launches={ssd_launches} (serving)"
+        + f"; flash_attention launches={train_counts['fwd']} (training), "
+        f"flash_attention_bwd launches={train_counts['bwd']} (training)"
+        + "".join(f"; {k} launches={train['int8']['counts'][k]} (training, "
+                  f"int8 gradient wire)" for k in ("quantize", "dequantize")))
     full, boundary = timings["full pass"], timings["boundary rows"]
     rows = [{
         "name": "swe_step", "route": "cuda",
@@ -2146,12 +2545,21 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
-        "launches": flash_launches, **flash_timing})
+        "launches": flash_launches,
+        "training_launches": train_counts["fwd"], **flash_timing})
     rows.append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:74",
         "launches": ssd_launches, **ssd_timing})
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78"
+                    " (its gradient; the JAX package differentiates its jnp "
+                    "reference, having no backward kernel)",
+        "launches": train_counts["bwd"], **flash_bwd_timing})
     log(json.dumps({"kernels": rows}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

@@ -301,14 +301,31 @@ def _all_reduce_sum(x: torch.Tensor, comm: Communicator,
     return _native_sum(x)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum all-reduce with *replicated-output* gradient semantics: its
+    output is replicated, so every rank's cotangent already equals the
+    logical one and the backward is the identity (the JAX package's
+    ``custom_vjp``).  Autograd's own transpose of the stacked sum would sum
+    the cotangent again and compound a ``tp``-fold factor per combine."""
+
+    @staticmethod
+    def forward(ctx, x, comm, cfg):
+        return comm.groups(x, lambda v, c: _all_reduce_sum(v, c, cfg))
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None, None
+
+
 def all_reduce(x: torch.Tensor, comm: Communicator, cfg: CommConfig,
                op: str = "sum") -> torch.Tensor:
-    """All-reduce over the rank dimension.
+    """All-reduce over the rank dimension (over each group's rows when
+    ``comm`` is one group of a stacked mesh).
 
-    The JAX package wraps the sum in a ``custom_vjp`` whose backward is the
-    identity (replicated-output gradient semantics for tensor-parallel
-    layers); that waits for the port's training slice, which is the first
-    caller to differentiate through a collective.
+    The sum is differentiable with an identity backward
+    (:class:`_AllReduceSum`), whatever algorithm, wire or schedule its
+    forward takes; ``max`` and ``min`` are not differentiated (the
+    cross-entropy stops the gradient before its max).
 
     Every call counts once in ``comm.collectives{kind=all_reduce,op=...}``
     (the per-layer collective count of the LM path reads it)."""
@@ -323,14 +340,21 @@ def all_reduce(x: torch.Tensor, comm: Communicator, cfg: CommConfig,
                         if cfg.algorithm == "ring" and comm.single_axis
                         else 1):
         if op == "sum":
-            return _all_reduce_sum(x, comm, cfg)
-        if cfg.algorithm == "ring" and comm.single_axis:
-            return ring_all_reduce(x, comm, cfg, op)
-        if op == "max":
-            return x.amax(0, keepdim=True).expand_as(x).contiguous()
-        if op == "min":
-            return x.amin(0, keepdim=True).expand_as(x).contiguous()
-        raise ValueError(f"native all_reduce does not support op={op}")
+            if torch.is_grad_enabled() and x.requires_grad:
+                return _AllReduceSum.apply(x, comm, cfg)
+            return comm.groups(x, lambda v, c: _all_reduce_sum(v, c, cfg))
+        return comm.groups(x, lambda v, c: _all_reduce_other(v, c, cfg, op))
+
+
+def _all_reduce_other(x: torch.Tensor, comm: Communicator, cfg: CommConfig,
+                      op: str) -> torch.Tensor:
+    if cfg.algorithm == "ring" and comm.single_axis:
+        return ring_all_reduce(x, comm, cfg, op)
+    if op == "max":
+        return x.amax(0, keepdim=True).expand_as(x).contiguous()
+    if op == "min":
+        return x.amin(0, keepdim=True).expand_as(x).contiguous()
+    raise ValueError(f"native all_reduce does not support op={op}")
 
 
 def all_gather(x: torch.Tensor, comm: Communicator, cfg: CommConfig,
@@ -338,21 +362,27 @@ def all_gather(x: torch.Tensor, comm: Communicator, cfg: CommConfig,
     """All-gather of every rank's ``x[p]``: concatenated along ``axis`` of
     the message (``tiled``) or stacked (the ring path stacks on a new
     leading axis, the native one at ``axis``, as in the JAX package)."""
-    n = comm.size
     with obs_trace.span("all_gather", cat="collective", nbytes=_nbytes(x),
                         algorithm=cfg.algorithm, mode=cfg.mode,
                         transport=cfg.transport, scheduling=cfg.scheduling,
                         reliability=cfg.reliability):
-        if cfg.algorithm == "ring" and comm.single_axis:
-            stacked = ring_all_gather(x, comm, cfg)
-            if not tiled:
-                return stacked
-            return torch.cat(stacked.unbind(1), dim=1 + axis)
-        if tiled:
-            one = torch.cat(x.unbind(0), dim=axis)
-        else:
-            one = torch.stack(x.unbind(0), dim=axis)
-        return one.unsqueeze(0).expand((n,) + tuple(one.shape)).contiguous()
+        return comm.groups(x, lambda v, c: _all_gather(v, c, cfg, axis,
+                                                       tiled))
+
+
+def _all_gather(x: torch.Tensor, comm: Communicator, cfg: CommConfig,
+                axis: int, tiled: bool) -> torch.Tensor:
+    n = comm.size
+    if cfg.algorithm == "ring" and comm.single_axis:
+        stacked = ring_all_gather(x, comm, cfg)
+        if not tiled:
+            return stacked
+        return torch.cat(stacked.unbind(1), dim=1 + axis)
+    if tiled:
+        one = torch.cat(x.unbind(0), dim=axis)
+    else:
+        one = torch.stack(x.unbind(0), dim=axis)
+    return one.unsqueeze(0).expand((n,) + tuple(one.shape)).contiguous()
 
 
 def reduce_scatter(x: torch.Tensor, comm: Communicator, cfg: CommConfig,
@@ -363,15 +393,18 @@ def reduce_scatter(x: torch.Tensor, comm: Communicator, cfg: CommConfig,
                         mode=cfg.mode, transport=cfg.transport,
                         scheduling=cfg.scheduling,
                         reliability=cfg.reliability):
-        if cfg.algorithm == "ring" and comm.single_axis:
-            return ring_reduce_scatter(x, comm, cfg, op)
-        if op != "sum":
-            raise ValueError(f"native reduce_scatter does not support "
-                             f"op={op}")
-        n = comm.size
-        total = x.sum(0)
-        return total.reshape((n, total.shape[0] // n)
-                             + tuple(total.shape[1:]))
+        return comm.groups(x, lambda v, c: _reduce_scatter(v, c, cfg, op))
+
+
+def _reduce_scatter(x: torch.Tensor, comm: Communicator, cfg: CommConfig,
+                    op: str) -> torch.Tensor:
+    if cfg.algorithm == "ring" and comm.single_axis:
+        return ring_reduce_scatter(x, comm, cfg, op)
+    if op != "sum":
+        raise ValueError(f"native reduce_scatter does not support op={op}")
+    n = comm.size
+    total = x.sum(0)
+    return total.reshape((n, total.shape[0] // n) + tuple(total.shape[1:]))
 
 
 def all_to_all(x: torch.Tensor, comm: Communicator, cfg: CommConfig,
@@ -386,10 +419,10 @@ def all_to_all(x: torch.Tensor, comm: Communicator, cfg: CommConfig,
                         reliability=cfg.reliability):
         if (cfg.scheduling == Scheduling.OVERLAPPED
                 and cfg.mode == CommMode.STREAMING):
-            return streaming.chunked_all_to_all(x, comm, cfg, split_axis,
-                                                concat_axis)
-        return streaming.all_to_all_blocks(x, comm.size, cfg, split_axis,
-                                           concat_axis)
+            return comm.groups(x, lambda v, c: streaming.chunked_all_to_all(
+                v, c, cfg, split_axis, concat_axis))
+        return comm.groups(x, lambda v, c: streaming.all_to_all_blocks(
+            v, c.size, cfg, split_axis, concat_axis))
 
 
 def broadcast(x: torch.Tensor, root: int, comm: Communicator,

@@ -5,6 +5,13 @@ ranks of the group in one process, as the leading dimension of every tensor
 the collectives take (the *stacked-rank* backend): rank ``p``'s data is
 ``x[p]``.  ``rank()`` is therefore the whole rank axis at once.
 
+A communicator may be one group of a larger stacked mesh: ``split`` of a
+``(data, model)`` communicator gives the groups of one axis.  The stacked
+rank dimension then holds every rank of the mesh, in row-major order over
+``mesh_sizes`` (as ``jax.make_mesh`` lays out devices): a ``model`` group
+is ``tp`` contiguous rows, a ``data`` group rows strided by ``tp``.  The
+collectives run on each group separately (:meth:`Communicator.groups`).
+
 The topology helpers mirror the paper's setups:
 
 - ``ring_perm``      — the b_eff virtual ring (paper §3.3).
@@ -38,6 +45,10 @@ class Communicator:
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
     topo: Optional["TorusSpec"] = None
+    # the stacked mesh this group is cut from (major to minor); empty when
+    # the group spans the whole rank dimension
+    mesh_axes: Tuple[str, ...] = ()
+    mesh_sizes: Tuple[int, ...] = ()
 
     def __post_init__(self):
         if self.topo is not None and self.topo.n_ranks != self.size:
@@ -45,9 +56,68 @@ class Communicator:
                 f"torus spec {self.topo.name} places {self.topo.n_ranks} "
                 f"ranks but the communicator has {self.size}")
 
+    @classmethod
+    def from_mesh(cls, mesh, axis_names: Sequence[str] | str,
+                  topo: Optional["TorusSpec"] = None) -> "Communicator":
+        """The group over ``axis_names`` of ``mesh`` (anything with
+        ``axis_names`` and a ``shape`` mapping, such as
+        :class:`~repro_torch.models.common.MeshContext`).  Axes left out
+        make it one group of several on the stacked rank dimension."""
+        if isinstance(axis_names, str):
+            axis_names = (axis_names,)
+        axis_names = tuple(axis_names)
+        sizes = tuple(mesh.shape[a] for a in axis_names)
+        all_axes = tuple(mesh.axis_names)
+        if tuple(a for a in all_axes if mesh.shape[a] > 1) == tuple(
+                a for a in axis_names if mesh.shape[a] > 1):
+            return cls(axis_names, sizes, topo=topo)
+        return cls(axis_names, sizes, topo=topo, mesh_axes=all_axes,
+                   mesh_sizes=tuple(mesh.shape[a] for a in all_axes))
+
     @property
     def size(self) -> int:
         return math.prod(self.axis_sizes)
+
+    @property
+    def stacked_size(self) -> int:
+        """Rows of the stacked rank dimension: every rank of the mesh."""
+        return math.prod(self.mesh_sizes) if self.mesh_axes else self.size
+
+    @property
+    def n_groups(self) -> int:
+        return self.stacked_size // self.size
+
+    def local(self) -> "Communicator":
+        """This group on its own (a tensor holding only its rows)."""
+        if not self.mesh_axes:
+            return self
+        return Communicator(self.axis_names, self.axis_sizes, topo=self.topo)
+
+    def _layout(self) -> tuple[int, int, int]:
+        """``(outer, size, inner)``: the stacked rows viewed so that a group
+        is ``[o, :, i]`` (the group's axes must be adjacent in the mesh)."""
+        if not self.mesh_axes:
+            return 1, self.size, 1
+        idx = [self.mesh_axes.index(a) for a in self.axis_names]
+        if idx != list(range(idx[0], idx[0] + len(idx))):
+            raise ValueError(f"axes {self.axis_names} are not adjacent in "
+                             f"the mesh {self.mesh_axes}")
+        return (math.prod(self.mesh_sizes[:idx[0]]), self.size,
+                math.prod(self.mesh_sizes[idx[-1] + 1:]))
+
+    def groups(self, x: torch.Tensor, fn) -> torch.Tensor:
+        """Apply ``fn(rows, comm)`` to each group's rows of the stacked
+        ``x`` (``(size, ...)``, in rank order, with the group's own
+        communicator) and put the results back on the stacked rows."""
+        if self.n_groups == 1:
+            return fn(x, self.local())
+        outer, n, inner = self._layout()
+        xv = x.reshape((outer, n, inner) + tuple(x.shape[1:]))
+        comm = self.local()
+        rows = [torch.stack([fn(xv[o, :, i], comm) for i in range(inner)],
+                            dim=1) for o in range(outer)]
+        out = torch.stack(rows, dim=0)
+        return out.reshape((outer * n * inner,) + tuple(out.shape[3:]))
 
     @property
     def single_axis(self) -> bool:
@@ -60,8 +130,27 @@ class Communicator:
         return self.axis_names[0]
 
     def rank(self, device=None) -> torch.Tensor:
-        """Rank of every row of the stacked rank dimension: ``arange(size)``."""
-        return torch.arange(self.size, device=device)
+        """Rank within its group of every row of the stacked rank dimension:
+        ``arange(size)`` for a group spanning it."""
+        if self.n_groups == 1:
+            return torch.arange(self.size, device=device)
+        outer, n, inner = self._layout()
+        r = torch.arange(n).view(1, n, 1).expand(outer, n, inner)
+        return r.reshape(-1).to(device)
+
+    def split(self, axis_name: str) -> "Communicator":
+        """The groups over one axis (``MPI_Comm_split``): each group of the
+        returned communicator holds the ranks that differ only along
+        ``axis_name``."""
+        if axis_name not in self.axis_names:
+            raise ValueError(f"{axis_name} not in {self.axis_names}")
+        axes = self.mesh_axes or self.axis_names
+        sizes = self.mesh_sizes or self.axis_sizes
+        i = axes.index(axis_name)
+        if math.prod(sizes) == sizes[i]:
+            return Communicator((axis_name,), (sizes[i],))
+        return Communicator((axis_name,), (sizes[i],), mesh_axes=axes,
+                            mesh_sizes=sizes)
 
     def auto_config(self, collective: str, msg_bytes: int, db_path=None,
                     hops: int | None = None, objective: str = "latency",

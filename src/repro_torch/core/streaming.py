@@ -379,6 +379,27 @@ def rank_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(x.shape[:-1] + (w.shape[-1],))
 
 
+class _BmmF32(torch.autograd.Function):
+    """``bmm(x, w, out_dtype=float32)`` of low-precision inputs on the card,
+    differentiable: the cotangent is rounded to the inputs' dtype and each
+    gradient is one batched matmul in that dtype."""
+
+    @staticmethod
+    def forward(ctx, x3, w):
+        ctx.save_for_backward(x3, w)
+        return torch.bmm(x3, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x3, w = ctx.saved_tensors
+        ct = ct.to(x3.dtype)
+        dx = torch.bmm(ct, w.transpose(1, 2)) if ctx.needs_input_grad[0] \
+            else None
+        dw = torch.bmm(x3.transpose(1, 2), ct) if ctx.needs_input_grad[1] \
+            else None
+        return dx, dw
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """:func:`rank_matmul` with an fp32 result (the JAX package's
     ``jnp.dot(..., preferred_element_type=float32)``): a bf16 product is
@@ -388,7 +409,10 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32:
         out = torch.bmm(x3, w)
     elif x.is_cuda:
-        out = torch.bmm(x3, w, out_dtype=torch.float32)
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            out = _BmmF32.apply(x3, w)
+        else:
+            out = torch.bmm(x3, w, out_dtype=torch.float32)
     else:
         out = torch.bmm(x3.float(), w.float())
     return out.reshape(x.shape[:-1] + (w.shape[-1],))

@@ -107,6 +107,7 @@ struct Args {
   float scale;
   int causal, has_window, window;
   float softcap;
+  float* lse;  // (N, H, S) row log-sum-exp, or null (serving)
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -268,6 +269,8 @@ flash_attention_kernel(const Args a) {
     const int qr = q0 + ty * 4 + i;
     if (qr >= a.S) continue;
     const float denom = max_nan(l[i], 1e-30f);
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(n * gridDim.y + h) * a.S + qr] = m[i] + logf(denom);
     T* O = static_cast<T*>(a.o) + n * a.os0 + qr * a.os1 + h * a.os2;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) store(O + tx + 16 * c, acc[i][c] / denom);
@@ -642,6 +645,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
       // one IEEE reciprocal per row: o * (1 / l) is within an f32 ulp of
       // o / l, far under the bf16 rounding that follows
       const float inv = 1.f / max_nan(l[e], 1e-30f);
+      // m and the exponents are in log2 units: L = (m + log2 l) ln 2
+      if (a.lse != nullptr && c == 0)
+        a.lse[(static_cast<long long>(it.n) * H + it.h) * a.S + qr] =
+            (m[e] + log2f(max_nan(l[e], 1e-30f))) * 0.6931471805599453f;
       __nv_bfloat16* O = static_cast<__nv_bfloat16*>(a.o) + it.n * a.os0 +
                          qr * a.os1 + it.h * a.os2;
 #pragma unroll
@@ -780,7 +787,8 @@ cudaError_t launch_d(const Args& a, int d, int N, int H,
 // 128 runs the wgmma + TMA kernel; f32 at any d and bf16 at d = 256 the
 // fp32-FMA kernel; anything else is refused.  Strides in elements; the
 // inner stride of every tensor is 1.  window < 0 means no window, softcap 0
-// no softcap.  The wgmma kernel needs every row of q, k, v and out to start
+// no softcap.  A non-null lse receives every row's log-sum-exp of its
+// scores, (N, H, S) f32 contiguous (training; the backward reads it).  The wgmma kernel needs every row of q, k, v and out to start
 // 16-byte aligned and, for TMA, every stride of an extent over 1 to be a
 // positive multiple of 16 bytes (ops.py::_rows_aligned copies a view that
 // is not).  Returns the CUDA error of the launch (0 on success).
@@ -790,12 +798,12 @@ extern "C" int flash_attention_launch(
     long long qs2, long long ks0, long long ks1, long long ks2,
     long long vs0, long long vs1, long long vs2, long long os0,
     long long os1, long long os2, float scale, int causal, int window,
-    float softcap, void* stream) {
+    float softcap, float* lse, void* stream) {
   if (N <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || T < 0)
     return cudaErrorInvalidValue;
   Args a{q,   k,   v,   o,   qs0, qs1, qs2, ks0, ks1, ks2,   vs0,
          vs1, vs2, os0, os1, os2, S,   T,   H / KV, scale, causal,
-         window >= 0 ? 1 : 0, window, softcap};
+         window >= 0 ? 1 : 0, window, softcap, lse};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_d<float>(a, d, N, H, st);
   if (dtype == 1 && d == 64) return launch_wgmma<64>(a, N, H, KV, st);

@@ -1,4 +1,5 @@
-"""Wrapper, build and launch counter for the CUDA flash-attention kernel.
+"""Wrappers, builds and launch counters for the CUDA flash-attention
+kernels: the forward, and the backward of ``csrc/flash_attention_bwd.cu``.
 
 ``flash_attention(q, k, v, ...)`` takes the model layout: ``q (N, S, H,
 d)``, ``k``/``v (N, T, KV, d)`` with ``H % KV == 0``.  On CPU tensors it
@@ -13,6 +14,12 @@ which the wrapper first zero-pads up to one of the kernels' instantiations
 serving path; a 128-byte swizzled row holds 64 bf16, so bf16 head dims
 below 64 pad to 64), and f32 inputs, which are held to 3e-5 (no bf16 or
 TF32 tensor cores), and bf16 at d 256 run the fp32-FMA kernel.
+
+``flash_attention`` is differentiable.  On the card its forward, when a
+gradient is wanted, also writes every row's log-sum-exp (serving never asks
+for it, so its launches and outputs are unchanged), and its backward is the
+backward kernel (:func:`flash_attention_bwd`): deterministic, with no
+atomics.  On the CPU autograd differentiates the plain version.
 """
 from __future__ import annotations
 
@@ -28,9 +35,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 
-# Kernel launches issued by `flash_attention`.
+# Kernel launches issued by `flash_attention` (forward) and by
+# `flash_attention_bwd` (one per call: its three kernels in one launch).
 launches = 0
+bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels' instantiated head dims, by dtype
@@ -44,11 +54,21 @@ def _bind(lib: ctypes.CDLL) -> None:
     vp, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_float)
     fn = lib.flash_attention_launch
-    fn.argtypes = [vp] * 4 + [i] * 7 + [ll] * 12 + [f, i, i, f, vp]
+    fn.argtypes = [vp] * 4 + [i] * 7 + [ll] * 12 + [f, i, i, f, vp, vp]
+    fn.restype = i
+
+
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.flash_attention_bwd_launch
+    fn.argtypes = [vp] * 10 + [i] * 7 + [f, i, i, f, vp]
     fn.restype = i
 
 
 LIBRARY = _build.Library(SOURCE, _bind)
+BWD_LIBRARY = _build.Library(BWD_SOURCE, _bind_bwd)
+# the backward kernel's instantiated head dims (both dtypes)
+BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def load_library() -> ctypes.CDLL:
@@ -92,23 +112,10 @@ def _check(q, k, v, window, softcap) -> None:
                          f"{softcap}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
-    """Attention of ``q (N, S, H, d)`` over ``k``/``v (N, T, KV, d)`` ->
-    ``(N, S, H, d)`` in q's dtype (f32 or bf16 on the card), fp32 inside.
-
-    Options as in the JAX package's kernel: ``causal`` (``k_pos <= q_pos``),
-    a sliding ``window`` (``k_pos > q_pos - window``) and a tanh
-    ``softcap``."""
+def _forward(q, k, v, causal, window, softcap, want_lse: bool):
+    """The forward kernel on CUDA tensors -> ``(out, lse or None)``; ``lse``
+    is ``(N, H, S)`` f32."""
     global launches
-    _check(q, k, v, window, softcap)
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
-                         f"{q.device}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k and v must share a device")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -122,10 +129,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} over the "
                          f"kernel's grid")
     out_shape = tuple(q.shape)
+    lse = (torch.empty((N, H, S), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     if N * S * H == 0:
-        return q.new_empty(out_shape)
+        return q.new_empty(out_shape), lse
     if T == 0:   # no key is visible: every row is 0 (and TMA needs keys)
-        return q.new_zeros(out_shape)
+        if lse is not None:
+            lse.fill_(ref.NEG_INF)
+        return q.new_zeros(out_shape), lse
     dp = padded_head_dim(q.dtype, d)
     if dp != d:
         # zero columns change no product and give zero output columns
@@ -144,9 +155,119 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             *out.stride()[:3], 1.0 / math.sqrt(d), int(causal),
             -1 if window is None else int(window),
             float(softcap) if softcap else 0.0,
+            None if lse is None else lse.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
-    return out if dp == d else out[..., :d]
+    return (out if dp == d else out[..., :d]), lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        out, lse = _forward(q, k, v, causal, window, softcap, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = (causal, window, softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, softcap = ctx.opts
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse,
+                                         causal=causal, window=window,
+                                         softcap=softcap)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """Attention of ``q (N, S, H, d)`` over ``k``/``v (N, T, KV, d)`` ->
+    ``(N, S, H, d)`` in q's dtype (f32 or bf16 on the card), fp32 inside.
+
+    Options as in the JAX package's kernel: ``causal`` (``k_pos <= q_pos``),
+    a sliding ``window`` (``k_pos > q_pos - window``) and a tanh
+    ``softcap``.  Differentiable: on the card the backward kernel runs."""
+    _check(q, k, v, window, softcap)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
+                         f"{q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, softcap)
+    return _forward(q, k, v, causal, window, softcap, False)[0]
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None):
+    """The forward with every row's log-sum-exp: ``(out, lse (N, H, S)
+    f32)``, the kernel on the card and the plain version on the CPU."""
+    _check(q, k, v, window, softcap)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap, return_lse=True)
+    return _forward(q, k, v, causal, window, softcap, True)
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None):
+    """Gradients ``(dq, dk, dv)`` of attention at ``q``, ``k``, ``v`` for the
+    output cotangent ``dout``, given the forward's output and row
+    log-sum-exp.  On CUDA tensors the backward kernel runs (or raises); on
+    CPU tensors autograd differentiates the plain version (which needs
+    neither ``out`` nor ``lse``)."""
+    global bwd_launches
+    _check(q, k, v, window, softcap)
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, dout, causal=causal,
+                                           window=window, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on CUDA or CPU tensors, "
+                         f"got {q.device}")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype
+                                     for t in (k, v, out, dout)):
+        raise ValueError(f"flash_attention_bwd takes float32 or bfloat16 "
+                         f"tensors of one dtype, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}, {out.dtype}, {dout.dtype}")
+    N, S, H, d = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if d > _D_MAX or H > _GRID_MAX or N > _GRID_MAX:
+        raise ValueError(f"flash_attention_bwd: shape {tuple(q.shape)} over "
+                         f"the kernel's limits")
+    if N * S * H == 0 or T == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dp = next(h for h in BWD_HEAD_DIMS if h >= d)
+
+    def prep(t):
+        if dp != d:
+            t = F.pad(t, (0, dp - d))
+        return t.contiguous()
+    q, k, v, out, dout = (prep(t) for t in (q, k, v, out, dout))
+    lse = lse.float().contiguous()
+    delta = torch.empty((N, H, S), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lib = BWD_LIBRARY.load()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype],
+            dp, N, S, T, H, KV, 1.0 / math.sqrt(d), int(causal),
+            -1 if window is None else int(window),
+            float(softcap) if softcap else 0.0,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    bwd_launches += 1
+    if dp != d:
+        dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
+    return dq, dk, dv

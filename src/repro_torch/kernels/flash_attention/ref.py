@@ -35,9 +35,13 @@ def visible(S: int, T: int, causal: bool, window: Optional[int],
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,
-                        softcap: Optional[float] = None) -> torch.Tensor:
+                        softcap: Optional[float] = None,
+                        return_lse: bool = False):
     """``q (N, S, H, d)``, ``k``/``v (N, T, KV, d)`` -> ``(N, S, H, d)`` in
-    q's dtype, computed in fp32."""
+    q's dtype, computed in fp32.  With
+    ``return_lse`` also every row's log-sum-exp of its visible scores,
+    ``(N, H, S)`` (``max + log(max(sum, 1e-30))``, as the kernel writes
+    it)."""
     N, S, H, d = q.shape
     T, KV = k.shape[1], k.shape[2]
     rep = H // KV
@@ -50,8 +54,24 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = c * torch.tanh(s / c)
     ok = visible(S, T, causal, window, q.device)
     s = torch.where(ok, s, s.new_full((), NEG_INF))
-    p = torch.where(ok, torch.exp(s - s.amax(-1, keepdim=True)),
-                    s.new_zeros(()))
+    smax = s.amax(-1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - smax), s.new_zeros(()))
     denom = torch.clamp_min(p.sum(-1, keepdim=True), 1e-30)
-    out = torch.matmul(p, vf) / denom
-    return out.transpose(1, 2).to(q.dtype)
+    out = (torch.matmul(p, vf) / denom).transpose(1, 2).to(q.dtype)
+    if return_lse:
+        return out, (smax + torch.log(denom))[..., 0].float()
+    return out
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, dout: torch.Tensor, *,
+                            causal: bool = True,
+                            window: Optional[int] = None,
+                            softcap: Optional[float] = None):
+    """The plain backward: autograd through :func:`flash_attention_ref` ->
+    ``(dq, dk, dv)`` in the inputs' dtypes."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_ref(*leaves, causal=causal, window=window,
+                                  softcap=softcap)
+        return torch.autograd.grad(out, leaves, dout)

@@ -72,13 +72,38 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """The SSD scan of ``x`` over chunks of ``chunk`` rows: ``y (R, Bt, S,
     H, P)`` and ``h_final (R, Bt, H, N, P)``, both float32.  x, B and C are
     float32 or bfloat16 of one dtype on the card; dt and A float32."""
-    global launches
     ref._check(x, dt, A, B, C, chunk)
     if x.device.type == "cpu":
         return ref.ssd_chunked_ref(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunked runs on CUDA or CPU tensors, got "
                          f"{x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, A, B, C)):
+        return _SSDScan.apply(x, dt, A, B, C, chunk)
+    return _forward(x, dt, A, B, C, chunk)
+
+
+class _SSDScan(torch.autograd.Function):
+    """The kernel's forward under autograd.  Its backward has no kernel
+    yet: on the card it raises rather than differentiate the plain
+    version."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        return _forward(x, dt, A, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        raise NotImplementedError(
+            "the SSD scan's backward kernel is not written yet (mamba2 "
+            "training on the card); see ROADMAP.md Queue 1, the SSD scan's "
+            "backward kernel")
+
+
+def _forward(x, dt, A, B, C, chunk):
+    """The kernel on CUDA tensors."""
+    global launches
     if any(t.device != x.device for t in (dt, A, B, C)):
         raise ValueError("ssd_chunked: x, dt, A, B and C must share a device")
     if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:

@@ -1,1 +1,2 @@
-"""Launcher glue of the LM path: serving shapes and sessions."""
+"""Launcher glue of the LM path: serving shapes, stacked meshes and
+sessions (serving and training)."""

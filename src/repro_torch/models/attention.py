@@ -114,7 +114,7 @@ def attention(params, x: torch.Tensor, positions: torch.Tensor, rt: Runtime,
     P, B, S, _ = x.shape
     hd = dims.head_dim
 
-    x = layers.tp_grad_sum(x)
+    x = layers.tp_grad_sum(x, rt, dims.q_sharded)
     q = layers.col_parallel(x, params["wq"]).reshape(P, B, S, -1, hd)
     k = layers.col_parallel(x, params["wk"]).reshape(P, B, S, -1, hd)
     v = layers.col_parallel(x, params["wv"]).reshape(P, B, S, -1, hd)

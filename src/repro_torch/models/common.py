@@ -2,8 +2,9 @@
 (PyTorch port).
 
 The model substrate is manual SPMD on the stacked-rank backend: every
-tensor carries the tensor-parallel ranks of the ``model`` axis as its
-leading dimension (``x[p]`` is rank ``p``'s value), and every cross-rank
+tensor carries the ranks of the ``(data, model)`` mesh as its leading
+dimension, row-major (``x[p]`` is rank ``p``'s value: data rank
+``p // tp``, model rank ``p % tp``), and every cross-rank
 transfer is an explicit ACCL-X collective (:mod:`repro_torch.core`) — the
 row-parallel combines, the vocab-sharded embedding and sampling, the K/V
 all-gather of prefill and the log-sum-exp combine of sequence-parallel
@@ -168,8 +169,9 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshContext:
-    """Static view of the (data, model) mesh.  On one card the model axis
-    is the stacked rank dimension and the data axis has size 1."""
+    """Static view of the stacked ``(data, model)`` mesh: ``dp · tp`` ranks
+    on the leading dimension of every tensor, row-major over
+    ``(*data_axes, axis_model)``."""
     axis_model: str = "model"
     data_axes: Tuple[str, ...] = ("data",)
     model_size: int = 1
@@ -179,10 +181,41 @@ class MeshContext:
     def tp(self) -> int:
         return self.model_size
 
+    @property
+    def dp(self) -> int:
+        out = 1
+        for s in self.data_sizes:
+            out *= s
+        return out
+
+    @property
+    def n_ranks(self) -> int:
+        """Rows of the stacked rank dimension."""
+        return self.dp * self.tp
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(self.data_axes) + (self.axis_model,)
+
+    @property
+    def shape(self) -> dict:
+        """Axis sizes by name, as ``jax.sharding.Mesh.shape`` gives them."""
+        return dict(zip(self.axis_names,
+                        tuple(self.data_sizes) + (self.model_size,)))
+
     @classmethod
-    def stacked(cls, tp: int) -> "MeshContext":
-        """The ``(data=1, model=tp)`` mesh of the stacked-rank backend."""
-        return cls(model_size=tp)
+    def stacked(cls, tp: int, dp: int = 1) -> "MeshContext":
+        """The ``(data=dp, model=tp)`` mesh of the stacked-rank backend."""
+        return cls(model_size=tp, data_sizes=(dp,))
+
+    @classmethod
+    def from_mesh(cls, mesh, axis_model: str = "model") -> "MeshContext":
+        """From anything with ``axis_names`` and a ``shape`` mapping (a
+        ``MeshContext`` itself, or the JAX package's ``Mesh``)."""
+        data_axes = tuple(a for a in mesh.axis_names if a != axis_model)
+        return cls(axis_model=axis_model, data_axes=data_axes,
+                   model_size=mesh.shape[axis_model],
+                   data_sizes=tuple(mesh.shape[a] for a in data_axes))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,25 +224,29 @@ class Runtime:
 
     The JAX package's ``use_pallas`` has no counterpart: the attention
     kernel is chosen by the tensors' device (the CUDA kernel on the card,
-    its plain version on the CPU)."""
+    its plain version on the CPU).  ``fsdp_plan`` is always ``None``: the
+    port materialises every parameter per its tensor-parallel spec."""
     cfg: ModelConfig
     mesh: MeshContext
     comm: CommConfig
     # Decode KV-timeline shard axes: the model axis (the data axis is 1).
     seq_axes: tuple = ("model",)
+    fsdp_plan: Any = None
+
+    def _axis_comm(self, axes) -> Communicator:
+        return Communicator.from_mesh(self.mesh, tuple(axes))
 
     def sp_comm(self) -> Communicator:
-        sizes = []
-        for a in self.seq_axes:
-            if a == self.mesh.axis_model:
-                sizes.append(self.mesh.model_size)
-            else:
-                sizes.append(self.mesh.data_sizes[self.mesh.data_axes.index(a)])
-        return Communicator(tuple(self.seq_axes), tuple(sizes))
+        return self._axis_comm(self.seq_axes)
 
     @property
     def sp_size(self) -> int:
         return self.sp_comm().size
 
     def tp_comm(self) -> Communicator:
-        return Communicator((self.mesh.axis_model,), (self.mesh.model_size,))
+        """The model-axis groups: ``tp`` contiguous rows each."""
+        return self._axis_comm((self.mesh.axis_model,))
+
+    def dp_comm(self) -> Communicator:
+        """The data-axis groups: rows strided by ``tp``."""
+        return self._axis_comm(self.mesh.data_axes)

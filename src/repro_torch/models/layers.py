@@ -1,8 +1,16 @@
-"""Core layers of the dense LM path on stacked tensor-parallel ranks.
+"""Core layers of the dense LM path on stacked ranks.
 
-Every activation and every weight carries the ranks of the ``model`` axis
-as its leading dimension: rank ``p``'s value is ``x[p]``.  A replicated
-weight (a norm's scale) is the same row on every rank.
+Every activation and every weight carries the ranks of the ``(data,
+model)`` mesh as its leading dimension: rank ``p``'s value is ``x[p]``.  A
+replicated weight (a norm's scale) is the same row on every rank.
+
+Autograd of the stacked program is the per-rank autograd of the JAX
+package: every row-local op differentiates row by row, and the two ops that
+couple rows carry the JAX package's custom gradients — the sum all-reduce
+(identity backward, :func:`repro_torch.core.collectives.all_reduce`) and
+the *f* operator :func:`tp_grad_sum` (all-reduce backward).  So the
+gradient of the sum of every row's loss is, row by row, what each device
+of the JAX package computes for its own loss.
 
 Tensor-parallel convention, as in the JAX package: activations enter
 replicated across the ``model`` axis; column-parallel matmuls produce
@@ -16,6 +24,8 @@ Where the JAX package reads ``lax.axis_index``, these functions take the
 rank from ``comm.rank()``: one value per row of the rank dimension.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -115,10 +125,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # Tensor-parallel matmuls
 # ----------------------------------------------------------------------
 
-def tp_grad_sum(x: torch.Tensor) -> torch.Tensor:
-    """Megatron's *f* operator: identity forward.  Its backward (an
-    all-reduce of the cotangent) comes with the training slice; serving
-    runs only the forward."""
+class _GradSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rt):
+        ctx.rt = rt
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        rt = ctx.rt
+        return collectives.all_reduce(ct, rt.tp_comm(), rt.comm), None
+
+
+def tp_grad_sum(x: torch.Tensor, rt: Runtime, enable: bool = True
+                ) -> torch.Tensor:
+    """Megatron's *f* operator: identity forward, all-reduce backward.
+
+    Placed where a replicated activation enters a model-sharded branch —
+    each TP rank back-propagates only its shard's partial cotangent, so the
+    backward pass must sum them over the model axis."""
+    if not enable or rt.mesh.tp == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GradSum.apply(x, rt)
     return x
 
 
@@ -167,7 +196,8 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, mlp_type: str,
 
 def mlp(params, x: torch.Tensor, rt: Runtime, mlp_type: str
         ) -> torch.Tensor:
-    x = tp_grad_sum(x)
+    sharded = bool(rt.cfg.d_ff) and rt.cfg.d_ff % rt.mesh.tp == 0
+    x = tp_grad_sum(x, rt, sharded)
     up = col_parallel(x, params["w_up"])
     if mlp_type == "swiglu":
         gate = col_parallel(x, params["w_gate"])
@@ -188,18 +218,32 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int, dtype,
     return {"table": emb.to(dtype)}
 
 
+def _row_tokens(token_ids: torch.Tensor, P: int) -> torch.Tensor:
+    """``(B, S)`` ids shared by every row, or ``(P, B, S)`` per row ->
+    ``(P, B, S)``."""
+    if token_ids.dim() == 2:
+        return token_ids.unsqueeze(0).expand((P,) + tuple(token_ids.shape))
+    return token_ids
+
+
 def embed(params, token_ids: torch.Tensor, rt: Runtime) -> torch.Tensor:
-    """Vocab-sharded lookup of ``token_ids (B, S)`` (the same on every
-    rank): local gather + all-reduce of masked rows -> ``(P, B, S, D)``."""
+    """Vocab-sharded lookup of ``token_ids``, ``(B, S)`` the same on every
+    row or ``(P, B, S)`` per row (a training batch cut over the data
+    ranks): local gather + all-reduce of masked rows -> ``(P, B, S, D)``."""
     table = params["table"]            # (P, vocab/tp, D) local shards
-    tp = rt.mesh.tp
-    if tp == 1 or table.shape[1] >= rt.cfg.vocab_size:
-        return table[:, token_ids]
-    shard = rank_index(rt, table.device).view((tp,) + (1,) * token_ids.dim())
+    P = table.shape[0]
+    if rt.mesh.tp == 1 or table.shape[1] >= rt.cfg.vocab_size:
+        if token_ids.dim() == 2:
+            return table[:, token_ids]
+        rows = torch.arange(P, device=table.device).view(P, 1, 1)
+        return table[rows, token_ids]
+    tokens = _row_tokens(token_ids, P)
+    shard = rank_index(rt, table.device).view(P, 1, 1)
     vshard = table.shape[1]
-    local = token_ids.unsqueeze(0) - shard * vshard     # (P, B, S)
+    local = tokens - shard * vshard                    # (P, B, S)
     valid = (local >= 0) & (local < vshard)
-    rows = table[shard, local.clamp(0, vshard - 1)]     # (P, B, S, D)
+    prow = torch.arange(P, device=table.device).view(P, 1, 1)
+    rows = table[prow, local.clamp(0, vshard - 1)]     # (P, B, S, D)
     rows = torch.where(valid[..., None], rows, torch.zeros_like(rows))
     return collectives.all_reduce(rows, rt.tp_comm(), rt.comm
                                   ).to(table.dtype)
@@ -207,11 +251,59 @@ def embed(params, token_ids: torch.Tensor, rt: Runtime) -> torch.Tensor:
 
 def logits_shard(params, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
     """x (P, …, D) -> vocab-sharded f32 logits (P, …, vocab/tp); no
-    combine (sampling handles the sharded vocab with two small
-    reductions)."""
+    combine (the cross-entropy and sampling handle the sharded vocab with
+    two small reductions)."""
     table = params["table"]
-    x = tp_grad_sum(x)
+    # f operator only when the vocab is genuinely sharded
+    x = tp_grad_sum(x, rt, rt.mesh.tp > 1
+                    and table.shape[1] < rt.cfg.vocab_size)
     return matmul_f32(x, table.transpose(1, 2).to(x.dtype))
+
+
+def cross_entropy_vocab_sharded(logits: torch.Tensor, labels: torch.Tensor,
+                                rt: Runtime,
+                                mask: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """Stable cross-entropy over vocab-sharded logits ``(P, B, S, V/tp)``
+    with ``labels`` ``(B, S)`` or ``(P, B, S)``: a max and a sum
+    all-reduce over the model axis -> every row's mean loss ``(P,)``.
+
+    The shift is detached before its max all-reduce (math-neutral; the max
+    has no gradient), and the picked logit is summed over the model axis
+    raw so that every rank forms the same loss: the consumers of a sum
+    all-reduce must be replicated computations (its backward is the
+    identity)."""
+    tp = rt.mesh.tp
+    if logits.shape[-1] >= rt.cfg.vocab_size:
+        tp = 1   # vocab replicated on every model rank: no collectives
+    z = logits.float()
+    zmax = z.detach().amax(dim=-1, keepdim=True)
+    if tp > 1:
+        zmax = collectives.all_reduce(zmax, rt.tp_comm(), rt.comm, op="max")
+    ez = torch.exp(z - zmax)
+    denom = ez.sum(dim=-1, keepdim=True)
+    if tp > 1:
+        denom = collectives.all_reduce(denom, rt.tp_comm(), rt.comm)
+    vshard = logits.shape[-1]
+    P = logits.shape[0]
+    labels = _row_tokens(labels, P)
+    if tp > 1:
+        shard = rank_index(rt, logits.device).view(P, 1, 1)
+        local = labels - shard * vshard
+        valid = (local >= 0) & (local < vshard)
+        picked = torch.gather(z, -1, local.clamp(0, vshard - 1)[..., None]
+                              )[..., 0]
+        picked = torch.where(valid, picked, torch.zeros_like(picked))
+        picked = collectives.all_reduce(picked, rt.tp_comm(), rt.comm)
+    else:
+        picked = torch.gather(z, -1, labels[..., None].long())[..., 0]
+    nll = -(picked - zmax[..., 0] - torch.log(denom[..., 0]))
+    if mask is not None:
+        mask = _row_tokens(mask, P).to(nll.dtype)
+        nll = nll * mask
+        return nll.flatten(1).sum(1) / torch.clamp_min(
+            mask.flatten(1).sum(1), 1.0)
+    return nll.flatten(1).mean(1)
 
 
 def greedy_sample_vocab_sharded(logits: torch.Tensor, rt: Runtime
@@ -227,7 +319,7 @@ def greedy_sample_vocab_sharded(logits: torch.Tensor, rt: Runtime
     if tp == 1 or vshard >= rt.cfg.vocab_size:
         return local_arg
     shard = rank_index(rt, logits.device).to(torch.int32).view(
-        (tp,) + (1,) * (local_arg.dim() - 1))
+        (-1,) + (1,) * (local_arg.dim() - 1))
     global_arg = local_arg + shard * vshard
     gmax = collectives.all_reduce(local_max, rt.tp_comm(), rt.comm, op="max")
     cand = torch.where(local_max >= gmax, global_arg,

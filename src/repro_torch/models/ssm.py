@@ -114,7 +114,7 @@ def ssm_forward(params, x: torch.Tensor, rt: Runtime,
     P, B, S, _ = x.shape
     p_dim = cfg.ssm_head_dim
 
-    x = layers.tp_grad_sum(x)
+    x = layers.tp_grad_sum(x, rt, sharded)
     # column-parallel when heads shard; else the same per-rank product
     # with full weights
     z = layers.col_parallel(x, params["w_z"])

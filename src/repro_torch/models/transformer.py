@@ -1,6 +1,6 @@
 """Model assembly for the dense (qwen3) and ssm (mamba2) families:
-initialisation and the full forward pass (prefill logits), on stacked
-tensor-parallel ranks.
+initialisation, the full forward pass (training and prefill logits) and the
+training loss, on stacked ranks.
 
 The JAX package scans its stacked layers with ``lax.scan``; here the
 per-layer loop is a Python loop over views of the stacked weights.
@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, layers, ssm
@@ -123,18 +124,50 @@ def positions_for(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, device=tokens.device)[None, :].expand(B, S)
 
 
-def forward(params, batch: dict, rt: Runtime) -> ForwardOut:
-    """Logits of every position of ``batch["tokens"] (B, S)``."""
+def _maybe_remat(fn, rt: Runtime, train: bool):
+    """``cfg.remat`` in training: the block's activations are recomputed in
+    the backward pass (``torch.utils.checkpoint``, the JAX package's
+    ``jax.checkpoint`` with the "full" policy)."""
+    if not (rt.cfg.remat and train):
+        return fn
+    if rt.cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy {rt.cfg.remat_policy!r}: the port recomputes "
+            f"whole blocks only (policy 'full')")
+
+    def remat(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return remat
+
+
+def forward(params, batch: dict, rt: Runtime, train: bool = False
+            ) -> ForwardOut:
+    """Logits of every position of ``batch["tokens"]``: ``(B, S)`` the same
+    on every row, or ``(P, B, S)`` per row (a batch cut over the data
+    ranks).  ``train=True`` recomputes each block in the backward pass
+    when ``cfg.remat`` is set."""
     cfg = rt.cfg
     require_ported_family(cfg)
     tokens = batch["tokens"]
     x = layers.embed(params["embed"], tokens, rt)
-    positions = positions_for(tokens)
+    positions = positions_for(tokens[0] if tokens.dim() == 3 else tokens)
+    if cfg.family == "ssm":
+        blk = _maybe_remat(lambda p, h: ssm_block(p, h, rt), rt, train)
+    else:
+        blk = _maybe_remat(lambda p, h: dense_block(
+            p, h, positions, rt, window=cfg.sliding_window), rt, train)
     for i in range(cfg.n_layers):
-        p = layer_params(params["layers"], i)
-        if cfg.family == "ssm":
-            x = ssm_block(p, x, rt)
-        else:
-            x = dense_block(p, x, positions, rt, window=cfg.sliding_window)
+        x = blk(layer_params(params["layers"], i), x)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return ForwardOut(logits=layers.logits_shard(params["embed"], x, rt))
+
+
+def loss_fn(params, batch: dict, rt: Runtime):
+    """Every row's training loss ``(P,)`` (the mean cross-entropy of its
+    data rank's batch; equal across a model group) and its parts."""
+    out = forward(params, batch, rt, train=True)
+    ce = layers.cross_entropy_vocab_sharded(out.logits, batch["labels"], rt,
+                                            batch.get("loss_mask"))
+    aux = torch.zeros_like(ce)
+    return ce, {"ce": ce, "aux": aux}

@@ -10,20 +10,21 @@ handler, and the survivors' torus for elastic re-forming.
   context).
 - **Elastic re-forming** — :func:`survivor_topology` is the sub-torus the
   survivors of a rank loss re-form on
-  (:func:`repro_torch.runtime.elastic.run_swe_elastic` uses it).
-
-The JAX package's ``elastic_restore`` and ``resume_session`` rebuild an LM
-training session from a checkpoint; they come with the port's checkpointer
-and training slice.
+  (:func:`repro_torch.runtime.elastic.run_swe_elastic` uses it);
+  :func:`elastic_restore` rebuilds an LM training session on a new mesh
+  from a checkpoint, and :func:`resume_session` resumes one on the same
+  mesh after a preemption drain.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import signal
 import statistics
 import threading
 import time
 from collections import deque
+from pathlib import Path
 from typing import Optional
 
 from repro_torch.obs import metrics as obs_metrics
@@ -184,3 +185,92 @@ def survivor_topology(topology, n_survivors: int):
         return None
     n = int(n_survivors)
     return topology if n == topology.n_ranks else topology.shrink(n)
+
+
+def _ring_hops(spec) -> int:
+    """Worst-case hop distance of the rank ring on ``spec`` (the LM TP
+    combine's wire pattern) — what the re-selection prices the new fabric
+    at."""
+    if spec is None:
+        return 1
+    n = spec.n_ranks
+    return max((spec.hops(i, (i + 1) % n) for i in range(n)), default=1)
+
+
+def elastic_restore(ckpt_dir, cfg, new_mesh, comm, oc,
+                    step: Optional[int] = None, fsdp: bool = False,
+                    reselect: bool = False, tune_db_path=None, topology=None,
+                    objective: str = "latency", device=None):
+    """Rebuild a training session on a NEW mesh from a checkpoint ->
+    ``(session, step)``.
+
+    The checkpoint holds full arrays; the session on the survivors' mesh
+    re-shards them onto its stacked layout.  The ZeRO optimizer slices are
+    not restored (their layout belongs to the dead mesh): they are rebuilt
+    from zeros, which costs one step of Adam history; params and the step
+    counter carry over exactly.
+
+    ``reselect=True`` re-selects the session's CommConfig for the
+    survivors: the dead mesh's ``topology`` (a TorusSpec, optional) is
+    shrunk onto them (:func:`survivor_topology`) and the calibrated Eq. 1
+    model is extrapolated over the TuneDB
+    (:func:`repro_torch.tune.elastic.model_reselect`) at the new ring's hop
+    distance.  No sweep runs on this path; a cold DB falls back to the
+    nearest measurement (or keeps ``comm``)."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.launch import setup
+    from repro_torch.device import resolve_device
+
+    ck = Checkpointer(ckpt_dir)
+    step = ck.latest_step() if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    n_new = math.prod(new_mesh.shape.values())
+    if reselect:
+        from repro_torch.core.config import CommConfig
+        from repro_torch.tune.db import TuneDB, topology_key
+        from repro_torch.tune.elastic import model_reselect
+        new_topo = survivor_topology(topology, n_new)
+        db = TuneDB.load(tune_db_path)
+        fallback_kw = {}
+        if isinstance(comm, CommConfig):
+            fallback_kw["fallback"] = comm   # keep the old config on a cold DB
+        comm = model_reselect(
+            "all_reduce", 4 * cfg.d_model * 1024, db=db,
+            hops=_ring_hops(new_topo), objective=objective,
+            topo=topology_key(n_new, resolve_device(device)), **fallback_kw)
+    sess = setup.build_session(cfg, new_mesh, comm, oc=oc, fsdp=fsdp,
+                               device=device)
+    sess.params = ck.restore(step, setup.global_params(sess),
+                             reshard=lambda t: setup.stacked_params(sess, t))
+    sess.opt_state = setup.init_opt_state(sess)
+    sess.opt_state["step"].fill_(step)
+    return sess, step
+
+
+def resume_session(ckpt_dir, sess, step: Optional[int] = None):
+    """Same-mesh resume after a preemption drain -> ``(session, step)``.
+
+    Restores the params of the newest committed step and, when the drain
+    also saved the optimizer state (``emergency_save(..., opt_state=...)``
+    writes it under ``<ckpt_dir>/opt``), the exact Adam moments too, so the
+    resumed loss stream is bitwise equal to the uninterrupted run.
+    Without a drained optimizer state it is rebuilt from zeros."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.launch import setup
+
+    ck = Checkpointer(ckpt_dir)
+    step = ck.latest_step() if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    sess.params = ck.restore(step, setup.global_params(sess),
+                             reshard=lambda t: setup.stacked_params(sess, t))
+    opt_ck = Checkpointer(Path(ckpt_dir) / "opt")
+    if opt_ck.latest_step() == step:
+        sess.opt_state = opt_ck.restore(
+            step, setup.global_opt_state(sess),
+            reshard=lambda t: setup.stacked_opt_state(sess, t))
+    else:
+        sess.opt_state = setup.init_opt_state(sess)
+    sess.opt_state["step"].fill_(step)
+    return sess, step

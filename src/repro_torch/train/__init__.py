@@ -1,1 +1,2 @@
-"""Entry points of the LM path: the serving builders."""
+"""Entry points of the LM path: serving, the training step and the
+training loop."""

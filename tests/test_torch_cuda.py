@@ -939,3 +939,133 @@ def test_plan_cache_bypass_captures_on_the_card(card, monkeypatch):
     monkeypatch.setenv("REPRO_PLAN_CACHE", "0")
     bypassed = serve_once()
     assert all(torch.equal(a, b) for a, b in zip(cached, bypassed))
+
+
+# ----------------------------------------------------------------------
+# Training: the flash backward kernel and a train step on the card
+# ----------------------------------------------------------------------
+
+# (N, S, T, H, KV, d, causal, window, softcap): GQA, ragged and cross
+# lengths, window, softcap, every head dim of the backward kernel
+FLASH_BWD_CASES = [(2, 100, 100, 4, 2, 64, True, None, None),
+                   (2, 64, 64, 4, 4, 128, True, None, None),
+                   (1, 70, 90, 4, 2, 32, False, None, None),
+                   (1, 150, 70, 4, 1, 16, True, None, None),
+                   (2, 128, 128, 4, 2, 64, True, 16, None),
+                   (2, 96, 96, 2, 1, 64, True, None, 30.0),
+                   (1, 64, 64, 2, 1, 256, True, None, None),
+                   (1, 130, 130, 8, 2, 128, True, 37, 5.0)]
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_backward_kernel_matches_plain(card, case, dtype):
+    """dq, dk, dv of the backward kernel against the plain backward
+    (autograd through the plain version) within tol + tol |plain|, and two
+    runs bitwise equal (no atomics)."""
+    N, S, T, H, KV, d = case[:6]
+    kw = dict(zip(("causal", "window", "softcap"), case[6:]))
+    g = torch.Generator(device=card).manual_seed(sum(case[:6]))
+    q = torch.randn((N, S, H, d), generator=g, device=card).to(dtype)
+    k, v = (torch.randn((N, T, KV, d), generator=g, device=card).to(dtype)
+            for _ in range(2))
+    dout = torch.randn((N, S, H, d), generator=g, device=card).to(dtype)
+    out, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
+    _, want_lse = fa_ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    got = fa_ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    again = fa_ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
+    tol = FLASH_BWD_TOL[dtype]
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        diff = (a.float() - b.float()).abs()
+        assert bool((diff <= tol + tol * b.float().abs()).all()), (
+            name, diff.max().item())
+        assert torch.equal(a, c), name
+
+
+def test_flash_autograd_launches_the_backward_kernel(card):
+    """Autograd through ``flash_attention`` on the card: the forward (with
+    its log-sum-exp) and the backward kernel launch once each; a forward
+    without a gradient writes no log-sum-exp and gives the same output."""
+    g = torch.Generator(device=card).manual_seed(5)
+    q = torch.randn((2, 64, 4, 64), generator=g, device=card,
+                    dtype=torch.bfloat16, requires_grad=True)
+    k, v = (torch.randn((2, 64, 2, 64), generator=g, device=card,
+                        dtype=torch.bfloat16, requires_grad=True)
+            for _ in range(2))
+    f0, b0 = fa_ops.launches, fa_ops.bwd_launches
+    out = fa_ops.flash_attention(q, k, v)
+    out.float().square().sum().backward()
+    assert (fa_ops.launches - f0, fa_ops.bwd_launches - b0) == (1, 1)
+    with torch.no_grad():
+        plain = fa_ops.flash_attention(q, k, v)
+    assert torch.equal(plain, out.detach())
+    want = fa_ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                          2 * out.detach())
+    for a, b in zip((q.grad, k.grad, v.grad), want):
+        assert bool(((a.float() - b.float()).abs()
+                     <= 2e-2 + 2e-2 * b.float().abs()).all())
+
+
+def test_ssd_backward_raises_on_the_card(card):
+    """The SSD scan has no backward kernel: differentiating it on the card
+    raises, and never falls back to the plain version."""
+    g = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn((1, 1, 16, 2, 8), generator=g, device=card,
+                    requires_grad=True)
+    dt = torch.rand((1, 1, 16, 2), generator=g, device=card)
+    A = -torch.rand((1, 2), generator=g, device=card)
+    B = torch.randn((1, 1, 16, 1, 8), generator=g, device=card)
+    y, _ = ssd_ops.ssd_chunked(x, dt, A, B, B.clone(), 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        y.sum().backward()
+
+
+def test_train_steps_on_the_card_match_the_cpu(card):
+    """Three AdamW steps of the smoke config (f32) on a (2, 2) stack, ZeRO-1,
+    on the card against the CPU port: losses within 5e-4, the first step's
+    gradients within 1e-4 of each leaf's max|grad|, parameters within 8e-3
+    (``tests/test_torch_train.py``'s bounds); two card runs bitwise equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import mesh as mesh_mod, setup
+    from repro_torch.models import sharding
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as ts
+    cfg = dataclasses.replace(get_smoke_config("qwen3-8b"),
+                              dtype=torch.float32)
+    rng = np.random.RandomState(0)
+    batch = {"tokens": rng.randint(0, cfg.vocab_size, (4, 32)),
+             "labels": rng.randint(0, cfg.vocab_size, (4, 32))}
+    oc = adamw.OptConfig(lr=1e-2, warmup_steps=1, total_steps=100,
+                         zero1=True)
+    full = None
+    runs = {}
+    for name, dev in (("cpu", "cpu"), ("card", card), ("card2", card)):
+        sess = setup.build_session(cfg, mesh_mod.make_test_mesh(2, 2),
+                                   CommConfig(), oc=oc, device=dev)
+        if full is None:
+            full = setup.global_params(sess)
+        sess.params = setup.stacked_params(sess, full)
+        stacked = setup.shard_batch(sess, batch)
+        _, _, grads = ts.make_loss_and_grad(sess.rt)(sess.params, stacked)
+        grads = sharding.unshard_params(grads, cfg, 2)
+        step = setup.make_sharded_train_step(sess)
+        p, o, losses = sess.params, sess.opt_state, []
+        for _ in range(3):
+            p, o, m = step(p, o, batch)
+            losses.append(float(m["loss"]))
+        runs[name] = (losses, grads, setup.global_params(sess, p))
+    np.testing.assert_allclose(runs["card"][0], runs["cpu"][0], atol=5e-4,
+                               rtol=0)
+    for (n, a), (_, b) in zip(adamw.leaves_with_names(runs["card"][1]),
+                              adamw.leaves_with_names(runs["cpu"][1])):
+        err = float((a.cpu() - b).abs().max() / (b.abs().max() + 1e-12))
+        assert err < 1e-4, (n, err)
+    for (n, a), (_, b) in zip(adamw.leaves_with_names(runs["card"][2]),
+                              adamw.leaves_with_names(runs["cpu"][2])):
+        err = float((a.cpu() - b).abs().max() / (b.abs().max() + 1e-9))
+        assert err < 8e-3, (n, err)
+    assert runs["card"][0] == runs["card2"][0]

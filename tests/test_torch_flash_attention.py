@@ -163,3 +163,60 @@ def test_library_build_name_covers_sources(tmp_path):
     second = lib.digest()
     (csrc / "more.cuh").write_text("\n")
     assert lib.digest() != second
+
+
+# the backward is held to 1e-4 in float32 (a gradient sums more products
+# than the forward's output; both sides differentiate fp32 attention)
+GRAD_TOL = 1e-4
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_backward_matches_jax_grad(case):
+    """The plain backward (autograd through the plain version, which the
+    CPU trains through) against ``jax.grad`` of the JAX package's
+    ``flash_attention_reference``, float32, on the forward tests' grid:
+    dq, dk and dv each within 1e-4 + 1e-4 |jax|."""
+    import jax
+    q, k, v = _inputs(case)
+    kw = _kwargs(case)
+    rng = np.random.RandomState(7)
+    dout = rng.randn(*q.shape).astype(np.float32)
+    got = ops.flash_attention_bwd(
+        *(torch.from_numpy(a) for a in (q, k, v)), None,
+        torch.from_numpy(dout), None, **kw)
+
+    def f(jq, jk, jv):
+        out = jax_ops.flash_attention_reference(jq, jk, jv, **kw)
+        return jnp.sum(out * jnp.asarray(dout))
+    want = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = np.asarray(w)
+        assert tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w, atol=GRAD_TOL,
+                                   rtol=GRAD_TOL, err_msg=name)
+
+
+def test_autograd_through_the_cpu_wrapper_is_the_plain_backward():
+    """``flash_attention`` on CPU tensors differentiates like the plain
+    version, and ``flash_attention_lse`` gives the plain log-sum-exp; no
+    kernel launch is counted."""
+    q, k, v = (torch.from_numpy(a).requires_grad_(True)
+               for a in _inputs("window_rep4"))
+    before = (ops.launches, ops.bwd_launches)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(1))
+    ops.flash_attention(q, k, v, causal=True, window=37).backward(dout)
+    want = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                       dout, causal=True, window=37)
+    for g, w in zip((q.grad, k.grad, v.grad), want):
+        assert torch.equal(g, w)
+    with torch.no_grad():
+        out, lse = ops.flash_attention_lse(q, k, v, causal=True, window=37)
+    B, S, H = q.shape[:3]
+    assert tuple(lse.shape) == (B, H, S) and lse.dtype == torch.float32
+    # the log-sum-exp normalises the visible probabilities to 1
+    s = torch.einsum("bshd,bthd->bhst", q.detach(),
+                     k.detach().repeat_interleave(4, 2)) / 32 ** 0.5
+    ok = ref.visible(S, k.shape[1], True, 37, "cpu")
+    p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+    torch.testing.assert_close(p.sum(-1), torch.ones(B, H, S))
+    assert (ops.launches, ops.bwd_launches) == before
