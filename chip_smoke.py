@@ -11,8 +11,9 @@ exits non-zero:
 1. the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, the build of every kernel from this checkout's sources (each
    kernel's ``-Xptxas -v`` registers and spills), and ``cuobjdump -sass``
-   of the flash library, which must hold HGMMA (wgmma) and UTMALDG (TMA)
-   instructions;
+   of the flash forward and backward libraries, which must hold HGMMA
+   (wgmma) and UTMALDG (TMA) instructions; the backward's wgmma kernels
+   must spill nothing and draw no ptxas note of serialised wgmmas;
 2. every kernel held against its plain PyTorch version on the card, at the
    test shapes and at the main paths' full-size shapes (``swe_step`` with
    and without the boundary row list; ``quantize``/``dequantize`` at blocks
@@ -92,17 +93,22 @@ exits non-zero:
    kernel against the plain version and against two faults planted in the
    plain version, and the smoke config in f32 on the card against the
    CPU;
-9. training: the flash backward kernel (fp32 FMA, deterministic) against
-   the plain backward (autograd through the plain version) on a grid
-   (window, softcap, ragged, f32, d 256) and at the training shape (bf16,
-   N = 32, S = T = 1024, 8 q heads over 2 kv heads, d 128, causal), two
-   runs bitwise equal, timed beside the plain backward, the backward of
-   ``scaled_dot_product_attention`` and its bound (before phase 3, beside
-   the other kernels); then qwen3-8b at full width and 4 layers (bf16,
+9. training: the flash backward kernel (deterministic; bf16 at d <= 128
+   on wgmma fed by TMA, f32 and bf16 d 256 on fp32 FMA) against the plain
+   backward (autograd through the plain version) on a grid (window,
+   softcap, ragged and cross lengths, GQA rep 1 to 4, f32, d 256) and at
+   the training shape (bf16, N = 32, S = T = 1024, 8 q heads over 2 kv
+   heads, d 128, causal), two runs bitwise equal, timed beside the
+   fp32-FMA route on the same inputs, the plain backward, the backward of
+   ``scaled_dot_product_attention`` and its bound, its three kernels
+   profiled (before phase 3, beside the other kernels); then qwen3-8b at
+   full width and 4 layers (bf16,
    random weights from seed 0, ``(data=2, model=4)`` stacked, ZeRO-1,
    8 x 1024 tokens a step) trained 8 steps through
    ``examples/train_lm_torch.py`` (the loss falls; ms/step, tokens/s and
-   peak memory; the flash forward and backward launches per step exact),
+   peak memory; the flash forward and backward launches per step exact,
+   every backward on the wgmma route; the backward's share of one
+   profiled step),
    again with the int8 gradient wire (the quant kernels' launches per step
    exact); the first step's loss and gradients through the kernels against
    the plain attention; ``preempt@4`` drained and resumed by a fresh
@@ -363,23 +369,61 @@ def ptxas_summary(build_log: str) -> dict:
 
 
 def _kernel_name(mangled: str) -> str:
-    """The kernel's name and template arguments out of its mangled name
-    (enough to tell the instantiations apart in the build log)."""
+    """The kernel's name and template arguments out of its mangled name:
+    the last identifier of its nested name (namespaces dropped), then its
+    template arguments as mangled (enough to tell instantiations apart)."""
     import re
-    m = re.search(r"\d+([a-z][a-z_]*_kernel)(I[^E]*E)?", mangled)
-    return (m.group(1) + (m.group(2) or "")) if m else mangled
+    rest = re.sub(r"^_ZN?", "", mangled)
+    name = mangled
+    while (m := re.match(r"\d+", rest)):
+        n, rest = int(m.group(0)), rest[len(m.group(0)):]
+        name, rest = rest[:n], rest[n:]
+    targs = re.match(r"I[^E]*E", rest)
+    return name + (targs.group(0) if targs else "")
 
 
 def sass_counts(library, opcodes) -> dict:
     """How many of each opcode ``cuobjdump -sass`` finds in the built
     library: proof of which instructions the kernels run."""
     from repro_torch.kernels import _build
-    so = library.build_dir / f"lib{library.source.stem}-{library.digest()}.so"
     tool = Path(_build.nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+    sass = subprocess.run([str(tool), "-sass", str(library.path())],
+                          capture_output=True,
                           text=True, check=True).stdout
     return {op: sum(op in line for line in sass.splitlines())
             for op in opcodes}
+
+
+# ptxas' notes that it serialised wgmmas (C7512: too few registers; C7515:
+# another instruction wrote a wgmma's registers; C7517: a wait it had to
+# insert) or ignored a register hand-over (C7508)
+PTXAS_WGMMA_NOTES = ("C7508", "C7512", "C7515", "C7517")
+
+
+def check_wgmma_build(name: str, library, n_wgmma: int) -> None:
+    """A flash library's registers and spills by kernel (from its build log,
+    which lies beside the library when an earlier process built it) and the
+    HGMMA (wgmma), UTMALDG (TMA tensor load) and UBLKCP (bulk copy) counts
+    of its SASS; fails unless the SASS holds HGMMA and UTMALDG and its
+    ``n_wgmma`` wgmma kernels are there, spill nothing and drew no note of
+    serialised wgmmas from ptxas."""
+    check(bool(library.log), f"the {name} library has no build log")
+    regs = ptxas_summary(library.log)
+    log(f"[build] {name} registers and spills: {regs}")
+    sass = sass_counts(library, ("HGMMA", "UTMALDG", "UBLKCP", "HMMA"))
+    log(f"[build] cuobjdump -sass of the {name} library: {sass}")
+    check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
+          f"the {name} library holds no wgmma (HGMMA) or TMA (UTMALDG) "
+          f"instruction")
+    wgmma = {k: v for k, v in regs.items() if "wgmma" in k}
+    check(len(wgmma) == n_wgmma and all(
+        v.get("spill_stores", 1) == 0 and v.get("spill_loads", 1) == 0
+        for v in wgmma.values()),
+        f"the {name} library's wgmma kernels ({n_wgmma} wanted) spill or are "
+        f"missing: {wgmma}")
+    notes = [line.strip() for line in library.log.splitlines()
+             if any(code in line for code in PTXAS_WGMMA_NOTES)]
+    check(not notes, f"ptxas serialised the {name} library's wgmmas: {notes}")
 
 
 def quant_bytes(P: int, n: int, block: int, itemsize: int,
@@ -657,7 +701,7 @@ def profile_device_time(tag: str, fn) -> dict:
     for us, count, key in rows[:8]:
         log(f"[{tag}]   {us / 1e3:8.3f} ms  {count:5d} launches  {key[:70]}")
     return {"launch_calls": calls, "launches": sum(r[1] for r in rows),
-            "busy_ms": busy / 1e3, "wall_ms": wall_us / 1e3}
+            "busy_ms": busy / 1e3, "wall_ms": wall_us / 1e3, "rows": rows}
 
 
 def summarize_sweep(db, topo, collectives, sizes) -> None:
@@ -1941,6 +1985,8 @@ FLASH_BWD_GRID = [
     (3, 65, 129, 4, 1, 128, False, None, 5.0),
     (1, 150, 70, 2, 2, 16, True, 20, None),
     (2, 96, 96, 4, 2, 256, True, None, None),
+    (2, 200, 200, 8, 8, 128, True, None, None),
+    (1, 333, 129, 8, 4, 128, True, None, None),
 ]
 # qwen3-8b at full width, 4 layers (1.39 B parameters; PERF.md section 4),
 # bf16, random weights from seed 0, (data=2, model=4) stacked, ZeRO-1,
@@ -1969,8 +2015,10 @@ def flash_bwd_work(case) -> tuple[int, int]:
 def phase_flash_bwd_kernel(dev, flush, bw) -> dict:
     """The flash backward kernel against the plain backward (autograd
     through the plain version) on the grid and at the training shape, two
-    runs bitwise equal; timed beside the plain backward and
-    scaled_dot_product_attention's backward."""
+    runs bitwise equal; timed at the training shape on its route (bf16 d
+    128: wgmma + TMA) beside the fp32-FMA route on the same inputs, the
+    plain backward and scaled_dot_product_attention's backward, and its
+    three kernels' device times from one profiled call."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa, ref
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -1987,21 +2035,26 @@ def phase_flash_bwd_kernel(dev, flush, bw) -> dict:
             again = fa.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
             want = ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
             tol = FLASH_BWD_TOL[dt]
+            route = fa.bwd_route(dt, case[5])[0]
             for name, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
                 diff = (a.float() - b.float()).abs()
                 err = diff.max().item()
                 check(bool((diff <= tol + tol * b.float().abs()).all()),
-                      f"flash_attention_bwd {case} {dt} {name}: max|kernel "
-                      f"- plain| {err} over {tol} + {tol} |plain|")
+                      f"flash_attention_bwd {case} {dt} ({route} route) "
+                      f"{name}: max|kernel - plain| {err} over {tol} + "
+                      f"{tol} |plain|")
                 check(torch.equal(a, c), f"flash_attention_bwd {case} {dt} "
-                      f"{name}: two runs differ")
-                worst[dt] = max(worst.get(dt, 0.0), err)
+                      f"({route} route) {name}: two runs differ")
+                key = (route, dt)
+                worst[key] = max(worst.get(key, 0.0), err)
             del got, again, want
     log(f"[flash-bwd] kernel vs plain backward on {len(FLASH_BWD_GRID)} grid "
-        f"shapes and the training shape: max|err| f32 "
-        f"{worst[torch.float32]:.3e} (tol 1e-4 + 1e-4 |plain|), bf16 "
-        f"{worst[torch.bfloat16]:.3e} (tol 2e-2 + 2e-2 |plain|); every "
-        f"case bitwise equal over two runs")
+        f"shapes and the training shape: max|err| wgmma route (bf16, d <= "
+        f"128) {worst[('wgmma', torch.bfloat16)]:.3e} (tol 2e-2 + 2e-2 "
+        f"|plain|), fp32-FMA route f32 {worst[('fma', torch.float32)]:.3e} "
+        f"(tol 1e-4 + 1e-4 |plain|) and bf16 d 256 "
+        f"{worst[('fma', torch.bfloat16)]:.3e}; every case bitwise equal over "
+        f"two runs")
     q, k, v = flash_inputs(FLASH_TRAIN, torch.bfloat16, gen, dev)
     dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
     out, lse = fa.flash_attention_lse(q, k, v)
@@ -2012,9 +2065,13 @@ def phase_flash_bwd_kernel(dev, flush, bw) -> dict:
     dot = dout.transpose(1, 2).contiguous()
     flops, nbytes = flash_bwd_work(FLASH_TRAIN)
     ops_ms, bytes_ms = flops / BF16_FLOP_PER_S * 1e3, nbytes / bw * 1e3
+    route = fa.bwd_route(torch.bfloat16, FLASH_TRAIN[5])[0]
     smi_sample("flash-bwd")
     k_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse),
                    flush)
+    fma_ms = time_ms(lambda: fa._backward(q, k, v, out, dout, lse,
+                                          ("fma", FLASH_TRAIN[5]), True, None,
+                                          None), flush)
     p_ms = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, dout), flush)
     l_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
                                                retain_graph=True), flush)
@@ -2022,14 +2079,18 @@ def phase_flash_bwd_kernel(dev, flush, bw) -> dict:
     res = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                bound_ms=max(ops_ms, bytes_ms),
                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-               max_abs_err=max(worst.values()))
-    log(f"[flash-bwd] training shape {FLASH_TRAIN[:6]} bf16 causal (fp32 "
-        f"FMA kernel): kernel {k_ms * 1e3:.2f} us, plain backward "
+               max_abs_err=max(worst.values()), fma_ms=fma_ms)
+    log(f"[flash-bwd] training shape {FLASH_TRAIN[:6]} bf16 causal ({route} "
+        f"route: wgmma + TMA): kernel {k_ms * 1e3:.2f} us, the fp32-FMA "
+        f"route on the same inputs {fma_ms * 1e3:.2f} us, plain backward "
         f"{p_ms * 1e3:.2f} us, scaled_dot_product_attention's backward "
         f"{l_ms * 1e3:.2f} us, bound {res['bound_ms'] * 1e3:.2f} us "
         f"({flops / 1e9:.2f} GFLOP at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s, "
         f"{nbytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s: {res['bound_by']}); "
-        f"kernel at {100 * res['bound_ms'] / k_ms:.2f} % of its bound")
+        f"kernel at {100 * res['bound_ms'] / k_ms:.2f} % of its bound, "
+        f"{l_ms / k_ms:.2f}x SDPA's speed")
+    profile_device_time("flash-bwd", lambda: fa.flash_attention_bwd(
+        q, k, v, out, dout, lse))
     return res
 
 
@@ -2079,14 +2140,23 @@ def phase_train(dev, db_path) -> dict:
     L = cfg.n_layers
     tokens = args.batch * args.seq
 
-    def step_ms():
-        durs = [e["dur"] for e in obs_trace.events()
-                if e.get("name") == "train.step"]
-        return statistics.median(durs[1:]) / 1e3, len(durs)
+    step_ms = load_example("train_ab_torch").step_ms
 
     # -- the main path, then the int8 gradient wire -----------------------
+    # a full-width step gathers 10 GB tensors: each run starts from an
+    # empty cache, as a fresh process does, so that what fits does not
+    # depend on the phases before it
+    gib = 2.0**30
+    held = torch.cuda.memory_reserved(dev) / gib
     out = {}
     for wire in ("same", "int8"):
+        _release()
+        if wire == "same":
+            log(f"[train] this process held {held:.2f} GiB reserved before "
+                f"its cache was emptied, "
+                f"{torch.cuda.memory_reserved(dev) / gib:.2f} GiB after "
+                f"({torch.cuda.memory_allocated(dev) / gib:.2f} GiB "
+                f"allocated)")
         # one async checkpoint, at the end of the main run: the card's
         # disk takes ~45 GiB of writes a call, and a full-width drain of
         # params and Adam moments below is 17 GB
@@ -2096,12 +2166,15 @@ def phase_train(dev, db_path) -> dict:
                                               else 1000)])
         obs_trace.configure("1")
         fa.launches = fa.bwd_launches = 0
+        for kname in fa.bwd_route_launches:
+            fa.bwd_route_launches[kname] = 0
         for kname in qops.launches:
             qops.launches[kname] = 0
         res = ex.run(a, log=log)
         counts = dict(fwd=fa.launches, bwd=fa.bwd_launches,
+                      bwd_wgmma=fa.bwd_route_launches["wgmma"],
                       **{k: v for k, v in qops.launches.items()})
-        ms, n_spans = step_ms()
+        ms, n_spans = step_ms(obs_trace.events())
         obs_trace.configure("0")
         hist = res["history"]
         del res["session"]
@@ -2111,10 +2184,10 @@ def phase_train(dev, db_path) -> dict:
         check(all(math.isfinite(x) for x in hist) and hist[-1] < hist[0],
               f"training ({wire}): loss {hist}")
         check(counts["fwd"] == TRAIN_STEPS * L * 2
-              and counts["bwd"] == TRAIN_STEPS * L,
+              and counts["bwd"] == counts["bwd_wgmma"] == TRAIN_STEPS * L,
               f"training ({wire}): flash launches {counts}, want "
               f"{TRAIN_STEPS * L * 2} forward (remat recomputes each block) "
-              f"and {TRAIN_STEPS * L} backward")
+              f"and {TRAIN_STEPS * L} backward, all on the wgmma route")
         # the int8 ring: one hop each way per data group (dp 2): tp groups
         # x (reduce-scatter + all-gather) quantize and dequantize per step
         want_q = 0 if wire == "same" else TRAIN_STEPS * args.tp * 2
@@ -2129,7 +2202,8 @@ def phase_train(dev, db_path) -> dict:
             f"{res['peak_bytes'] / 1e9:.2f} GB; {res['seconds']:.1f} s in "
             f"all; launches per step: flash forward "
             f"{counts['fwd'] // TRAIN_STEPS}, backward "
-            f"{counts['bwd'] // TRAIN_STEPS}, quantize "
+            f"{counts['bwd'] // TRAIN_STEPS} (wgmma route "
+            f"{counts['bwd_wgmma'] // TRAIN_STEPS}), quantize "
             f"{counts['quantize'] // TRAIN_STEPS}, dequantize "
             f"{counts['dequantize'] // TRAIN_STEPS}")
     check(out["same"]["peak"] < 60e9, f"peak {out['same']['peak']} over 60 GB")
@@ -2150,8 +2224,23 @@ def phase_train(dev, db_path) -> dict:
     src = SyntheticLM(data)
     p, o, _ = step(sess.params, sess.opt_state, src.batch_at(0))
     prof = profile_device_time("train", lambda: step(p, o, src.batch_at(1)))
+    bwd_ms = sum(us for us, _, key in prof["rows"]
+                 if "flash_bwd" in key) / 1e3
     log(f"[train] one profiled step: the card busy "
-        f"{100 * prof['busy_ms'] / prof['wall_ms']:.1f} % of its wall time")
+        f"{100 * prof['busy_ms'] / prof['wall_ms']:.1f} % of its wall time; "
+        f"the flash backward's kernels {bwd_ms:.3f} ms of it "
+        f"({100 * bwd_ms / prof['busy_ms']:.1f} % of the busy time)")
+    # whether the host or the card sets the step: the host's time to
+    # enqueue one unprofiled step, and how long the card runs on after it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(p, o, src.batch_at(2))
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(f"[train] one unprofiled step: the host enqueued it in "
+        f"{(t1 - t0) * 1e3:.1f} ms and the card finished "
+        f"{(t2 - t1) * 1e3:.1f} ms later")
     del p, o, step
     sess.opt_state = None
     _release()
@@ -2183,6 +2272,10 @@ def phase_train(dev, db_path) -> dict:
     _release()
     drain_s = time.perf_counter() - t0
     check(len(part1) == 4, f"preempt@4 drained after {len(part1)} steps")
+    free = torch.cuda.mem_get_info(dev)[0] / gib
+    log(f"[train] before the resume: this process holds "
+        f"{torch.cuda.memory_reserved(dev) / gib:.2f} GiB reserved, the card "
+        f"{free:.2f} GiB free")
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, str(Path(__file__).resolve().parent / "examples"
@@ -2194,14 +2287,16 @@ def phase_train(dev, db_path) -> dict:
     resume_s = time.perf_counter() - t0
     check(proc.returncode == 0, f"the resumed process failed:\n"
           f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
-    part2 = json.loads((root / "resumed.json").read_text())["history"]
+    resumed = json.loads((root / "resumed.json").read_text())
+    part2 = resumed["history"]
     check(part1 + part2 == out["same"]["history"],
           f"drain + resume {part1 + part2} differs from the uninterrupted "
           f"run {out['same']['history']}")
     log(f"[train] preempt@4: drained after 4 steps ({drain_s:.1f} s with the "
         f"emergency save of params and Adam moments); a fresh process "
-        f"resumed and trained 4 more ({resume_s:.1f} s); the joined stream "
-        f"is bitwise equal to the uninterrupted run")
+        f"resumed and trained 4 more ({resume_s:.1f} s, peak "
+        f"{resumed['peak_bytes'] / 1e9:.2f} GB); the joined stream is "
+        f"bitwise equal to the uninterrupted run")
 
     # -- rank loss: elastic re-selection onto (data=1, model=4) -----------
     reg = obs_metrics.registry()
@@ -2328,11 +2423,10 @@ def main() -> int:
     bw = card_bandwidth(name)
     swe_ptxas = ptxas_summary(swe_ops.LIBRARY.log)
     log(f"[build] swe_step registers and spills: {swe_ptxas}")
-    sass = sass_counts(flash_ops.LIBRARY, ("HGMMA", "UTMALDG", "HMMA"))
-    log(f"[build] cuobjdump -sass of the flash library: {sass}")
-    check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
-          "the flash library holds no wgmma (HGMMA) or TMA (UTMALDG) "
-          "instruction")
+    # the forward's wgmma kernel at d 64 and 128; the backward's dQ and
+    # dK/dV kernels at each
+    check_wgmma_build("flash forward", flash_ops.LIBRARY, 2)
+    check_wgmma_build("flash backward", flash_ops.BWD_LIBRARY, 4)
 
     # -- 2. kernel against its plain version ----------------------------
     max_err = 0.0
@@ -2412,6 +2506,7 @@ def main() -> int:
     flash_timing = phase_flash_kernel(dev, flush, bw)
     ssd_timing = phase_ssd_kernel(dev, flush, bw)
     flash_bwd_timing = phase_flash_bwd_kernel(dev, flush, bw)
+    _release()
 
     # -- 3. main path at full size -------------------------------------
     modes = (("fused", CommConfig(), 1 + N_INNER),
@@ -2513,7 +2608,8 @@ def main() -> int:
         + f"; flash_attention launches={flash_launches} (serving)"
         + f"; ssd_scan launches={ssd_launches} (serving)"
         + f"; flash_attention launches={train_counts['fwd']} (training), "
-        f"flash_attention_bwd launches={train_counts['bwd']} (training)"
+        f"flash_attention_bwd launches={train_counts['bwd']} (training, "
+        f"{train_counts['bwd_wgmma']} on the wgmma route)"
         + "".join(f"; {k} launches={train['int8']['counts'][k]} (training, "
                   f"int8 gradient wire)" for k in ("quantize", "dequantize")))
     full, boundary = timings["full pass"], timings["boundary rows"]
@@ -2559,7 +2655,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78"
                     " (its gradient; the JAX package differentiates its jnp "
                     "reference, having no backward kernel)",
-        "launches": train_counts["bwd"], **flash_bwd_timing})
+        "launches": train_counts["bwd"],
+        "wgmma_launches": train_counts["bwd_wgmma"], **flash_bwd_timing})
     log(json.dumps({"kernels": rows}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

@@ -108,15 +108,24 @@ class Communicator:
     def groups(self, x: torch.Tensor, fn) -> torch.Tensor:
         """Apply ``fn(rows, comm)`` to each group's rows of the stacked
         ``x`` (``(size, ...)``, in rank order, with the group's own
-        communicator) and put the results back on the stacked rows."""
+        communicator) and put the results back on the stacked rows.  Each
+        group's result is written into the one output as it comes, so a
+        call holds the output and one group's result at a time (a
+        full-width ZeRO-1 gather's output is 10 GB)."""
         if self.n_groups == 1:
             return fn(x, self.local())
         outer, n, inner = self._layout()
         xv = x.reshape((outer, n, inner) + tuple(x.shape[1:]))
         comm = self.local()
-        rows = [torch.stack([fn(xv[o, :, i], comm) for i in range(inner)],
-                            dim=1) for o in range(outer)]
-        out = torch.stack(rows, dim=0)
+        out = None
+        for o in range(outer):
+            for i in range(inner):
+                y = fn(xv[o, :, i], comm)
+                if out is None:
+                    out = y.new_empty((outer, y.shape[0], inner)
+                                      + tuple(y.shape[1:]))
+                out[o, :, i] = y
+                del y
         return out.reshape((outer * n * inner,) + tuple(out.shape[3:]))
 
     @property

@@ -36,8 +36,9 @@ class Library:
 
     ``bind(lib)`` sets the ``argtypes``/``restype`` of the library's entry
     points.  After :meth:`load`, ``log`` holds what the build printed
-    (``-Xptxas -v``: registers, spills) and ``seconds`` what it took; both
-    stay empty when an earlier process had built the same sources."""
+    (``-Xptxas -v``: registers, spills), saved beside the library and read
+    back when an earlier process had built the same sources, and
+    ``seconds`` what the build took (0 when it was not built here)."""
 
     def __init__(self, source: Path, bind: Callable[[ctypes.CDLL], None]):
         self.source = Path(source)
@@ -59,12 +60,17 @@ class Library:
             h.update(f.read_bytes())
         return h.hexdigest()[:16]
 
+    def path(self) -> Path:
+        """The built library's file (named by :meth:`digest`); its build log
+        lies beside it with the suffix ``.log``."""
+        return self.build_dir / f"lib{self.source.stem}-{self.digest()}.so"
+
     def load(self) -> ctypes.CDLL:
         with self._lock:
             if self._lib is not None:
                 return self._lib
-            so = self.build_dir / f"lib{self.source.stem}-{self.digest()}.so"
-            if not so.exists():
+            so = self.path()
+            if not (so.exists() and so.with_suffix(".log").exists()):
                 self.build_dir.mkdir(parents=True, exist_ok=True)
                 tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
                 t0 = time.perf_counter()
@@ -75,9 +81,15 @@ class Library:
                     raise RuntimeError(
                         f"nvcc failed to build {self.source.name}:\n"
                         f"{proc.stdout}{proc.stderr}")
-                os.replace(tmp, so)   # atomic: concurrent builders never clash
                 self.seconds = time.perf_counter() - t0
                 self.log = proc.stdout + proc.stderr
+                # the log first, so that a library never lies without it;
+                # atomic: concurrent builders never clash
+                tmp.with_suffix(".log").write_text(self.log)
+                os.replace(tmp.with_suffix(".log"), so.with_suffix(".log"))
+                os.replace(tmp, so)
+            else:
+                self.log = so.with_suffix(".log").read_text()
             lib = ctypes.CDLL(str(so))
             self.bind(lib)
             self._lib = lib

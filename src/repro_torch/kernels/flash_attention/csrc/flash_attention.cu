@@ -85,6 +85,7 @@
 #include <climits>
 
 #include "hopper.cuh"
+#include "tma_map.cuh"
 
 namespace {
 
@@ -645,10 +646,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
       // one IEEE reciprocal per row: o * (1 / l) is within an f32 ulp of
       // o / l, far under the bf16 rounding that follows
       const float inv = 1.f / max_nan(l[e], 1e-30f);
-      // m and the exponents are in log2 units: L = (m + log2 l) ln 2
+      // m and the exponents are in log2 units: L = (m + log2 l) ln 2; a
+      // row that sees no key (l = 0) gets NEG_INF + ln(1e-30) = NEG_INF in
+      // f32, as the plain version and the FMA kernel give it
       if (a.lse != nullptr && c == 0)
         a.lse[(static_cast<long long>(it.n) * H + it.h) * a.S + qr] =
-            (m[e] + log2f(max_nan(l[e], 1e-30f))) * 0.6931471805599453f;
+            l[e] == 0.f
+                ? NEG_INF
+                : (m[e] + log2f(max_nan(l[e], 1e-30f))) * 0.6931471805599453f;
       __nv_bfloat16* O = static_cast<__nv_bfloat16*>(a.o) + it.n * a.os0 +
                          qr * a.os1 + it.h * a.os2;
 #pragma unroll
@@ -670,73 +675,6 @@ cudaError_t launch(const Args& a, int N, int H, cudaStream_t stream) {
   const dim3 grid((a.S + BQ - 1) / BQ, H, N);
   flash_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
-}
-
-// links no CUDA driver library
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-D tensor map over (d, heads, rows, n) of a bf16 tensor whose strides
-// (elements) are s_head, s_row, s_n, with boxes of 64 columns x 128 rows of
-// one (head, n), 128-byte swizzled.  Rows past `rows` read as zeros.  A
-// dimension of extent 1 is never stepped: its stride is replaced by 16
-// bytes when it is not a positive multiple of 16.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int d, int heads,
-                     int rows, int n, long long s_head, long long s_row,
-                     long long s_n, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  auto stride = [](long long s, int extent) -> cuuint64_t {
-    const long long bytes = 2 * s;
-    return extent == 1 && (bytes <= 0 || bytes % 16 != 0)
-               ? 16
-               : static_cast<cuuint64_t>(bytes);
-  };
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(rows > 0 ? rows : 1),
-                              static_cast<cuuint64_t>(n)};
-  const cuuint64_t strides[3] = {stride(s_head, heads), stride(s_row, rows),
-                                 stride(s_n, n)};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-int sm_count() {
-  int dev = 0, count = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 0;
-  return count;
 }
 
 template <int D>

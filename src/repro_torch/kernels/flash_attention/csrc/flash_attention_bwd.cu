@@ -6,10 +6,8 @@
 // defaults to False); this is the backward of the port's forward kernel,
 // flash_attention.cu, which writes the row log-sum-exp L it needs.
 //
-// Layout, the forward's, every tensor contiguous (the wrapper copies):
-// q, o, do, dq (N, S, H, D); k, v, dk, dv (N, T, KV, D); L and the scratch
-// delta (N, H, S) f32.  f32 or bf16 inputs and outputs, fp32 everywhere
-// inside.  D is one of 16, 32, 64, 128, 256 (the wrapper zero-pads).
+// Layout, the forward's: q, o, do, dq (N, S, H, D); k, v, dk, dv (N, T,
+// KV, D); L (N, H, S) f32.  f32 or bf16 inputs and outputs, fp32 inside.
 //
 // Semantics, the forward's masks and softcap:
 // - x = (q . k) * scale, s = c tanh(x / c) with a softcap c, else s = x;
@@ -20,9 +18,79 @@
 //   1 - tanh^2 = 1 - (s / c)^2 under a softcap, times scale;
 // - dQ = dS . K, dK = dS^T . Q and dV = P^T . dO, dK and dV summed over the
 //   q heads of each kv group.
+// A row that sees no key gets zero gradients.
 //
-// Deterministic, with no atomics: three kernels, each output element
-// written once by one thread, every sum in a fixed order.
+// What bounds it on this card: operations.  At the training shape (N 32,
+// S = T = 1024, 8 q heads over 2 kv heads, d 128, causal, bf16) the five
+// products of the gradient are 172 GFLOP against 337 MB to move, ~510
+// operations per byte, above the card's ~295 (989 TFLOP/s over 3.35
+// TB/s); only wgmma reaches the tensor cores' rate.  The design below does
+// seven products (S and dP twice, once for dQ and once for dK/dV: the
+// price of writing every gradient element once, with no atomics), so its
+// own ceiling is 5/7 of the bound.
+//
+// Two routes, both deterministic with no atomics (every output element has
+// one writer, every sum a fixed order), picked by ops.py::bwd_route:
+//
+// bf16 with D = 64 or 128 (the training path; smaller bf16 head dims are
+// zero-padded to 64): wg::launch, three kernels.
+// - flash_bwd_stats: delta = rowsum(dO o O) and L log2(e) per row into a
+//   (2, N, H, S_pad) f32 scratch, S_pad the rows rounded up to 128 and
+//   zero past S; 16-byte loads, D / 8 threads a row.
+// - flash_bwd_dq_wgmma: persistent, one block per SM walks the (q tile of
+//   128 rows, q head, n) items, longest causal tiles first, every other
+//   round of blocks in reverse (a snake, which evens out the blocks'
+//   shares).  Warpgroup 2 is the producer: one thread issues TMA loads (the
+//   forward's 4-D tensor maps, 128-byte swizzle, rows past the end
+//   zero-filled) of each item's Q and dO (two buffers, so the next item's
+//   land during this one's tail) and of its K and V tiles of 64 rows into a
+//   2-stage full/empty mbarrier ring.  Warpgroups 0 and 1 each own 64 q
+//   rows: S = Q . K^T and dP = dO . V^T are wgmma m64n64k16 with both
+//   operands K-major in shared memory; P = 2^(S scale log2(e) - L log2(e))
+//   and dS run on the accumulator fragments, dS is rounded to bf16 in
+//   registers and is the A operand of dQ += dS . K (K read MN-major
+//   through the descriptor's transpose bit, as the forward reads V), issued
+//   in two halves of the keys so that the second half's dS is formed while
+//   the first half's product runs.  dQ stays in registers and is written
+//   once per item.
+// - flash_bwd_dkdv_wgmma: persistent over (kv tile of 128 rows, kv head,
+//   n), the first kv tiles (which the most queries see) first, in the same
+//   snake.  K and V are staged once per item (two buffers); Q and dO tiles
+//   of 64 rows, with their rows' L log2(e) and delta (bulk copies of the
+//   scratch), stream through the ring, the group's q heads in order.  Each
+//   consumer warpgroup owns 64 kv rows: S^T = K . Q^T and dP^T = V . dO^T
+//   (both K-major), P^T and dS^T in registers, then dV += P^T . dO and
+//   dK += dS^T . Q with dO and Q read MN-major, in two halves of the
+//   queries as above.
+// In both, the masks run only on a tile that hides some pair (the tile's
+// elementwise pass is instantiated with and without them): testing every
+// pair of every tile, as a select, was the largest cost found on the card;
+// a tile hidden from every row of a warpgroup is skipped.
+// The dK/dV consumer holds dK and dV (64 + 64 registers at d 128) beside
+// S^T and dP^T (32 + 32): 192 of accumulators alone, over the 168 a
+// thread that a block of three warpgroups gets (three warps share an SM
+// sub-partition's 16,384 registers), and at that cap ptxas serialises every
+// wgmma (C7512).  So both wgmma kernels hand registers over as FA3 does:
+// launched at 168 a thread (__launch_bounds__(384, 1)), the producer
+// warpgroup drops to 40 (setmaxnreg.dec) and the two consumer warpgroups
+// rise to 232 (setmaxnreg.inc), 40 + 2 x 232 = 3 x 168.  setmaxnreg acts
+// on a whole warpgroup, and ptxas honours it only where the paths split
+// once and never join, so the producer is a full warpgroup (one of its
+// threads works) and the split is one if/else with nothing after it.
+// Found on the card: so built, both kernels compile at 168 registers with
+// no spill and no serialised wgmma; at 24 + 2 x 240 the producer spilled
+// 32 bytes.  Whether the forward's attempt failed for its lone producer
+// warp (a warpgroup of one warp) was not tested.  Two other overlaps
+// were tried on the card (before the masks were split out) and dropped:
+// keeping the two warpgroups' wgmma batches in turns (named barriers), and
+// forming P while dP's product runs; both raised register pressure until
+// ptxas spilled or serialised wgmmas (C7512, C7517), and both were
+// slower.
+//
+// f32 inputs (held to 1e-4 against the plain version: no tensor-core type
+// keeps that) and bf16 at D = 256: fp32 FMA, every tensor contiguous (the
+// wrapper copies), D one of 16, 32, 64, 128, 256 (the wrapper zero-pads);
+// three kernels:
 // - flash_bwd_delta: one warp per (n, s, h) row;
 // - flash_bwd_dq: one block per (q tile, q head, n) walks the kv tiles the
 //   tile can see and recomputes the scores, P, dP and dS for each;
@@ -31,12 +99,18 @@
 // Tiles are staged in shared memory as fp32 rows padded by one word (no
 // bank conflicts on column reads); 256 threads as 16 x 16, a thread owning
 // R = B / 16 rows and every 16th column of a score tile and of its output
-// rows.  The products run on fp32 FMA: a simple kernel that is right, not
-// yet a tensor-core one.
+// rows.
 // All launch on the caller's stream and allocate nothing.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <climits>
+#include <cstdint>
+
+#include "hopper.cuh"
+#include "tma_map.cuh"
 
 namespace {
 
@@ -411,6 +485,804 @@ cudaError_t launch_d(const Args& a, int d, cudaStream_t stream) {
   }
 }
 
+// ---------------------------------------------------------------------
+// bf16, d = 64 or 128: wgmma fed by TMA, warp-specialised, persistent
+// ---------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int ROW = 128;                 // bytes of a swizzled row: 64 bf16
+constexpr int CONSUMERS = 2;             // warpgroups 0 and 1 compute
+constexpr int THREADS = 128 * (CONSUMERS + 1);  // warpgroup 2 loads
+constexpr int BLOCK = 64 * CONSUMERS;    // rows a work item owns
+constexpr int TILE = 64;                 // rows of a streamed tile
+constexpr int STAGES = 2;                // streamed-tile ring depth
+// register budgets after the hand-over: 40 + 2 x 232 a thread of each SM
+// sub-partition's three warps, 504 x 32 = the 168 x 3 x 32 the block is
+// launched with (at 24 + 2 x 240 the producer spilled)
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct Args {
+  const void* o;
+  const void* dout;
+  long long os0, os1, os2;
+  long long ds0, ds1, ds2;
+  const float* lse;  // (N, H, S)
+  float* stats;      // (2, N, H, S_pad): L log2(e), then delta
+  __nv_bfloat16* dq;  // (N, S, H, D) contiguous
+  __nv_bfloat16* dk;  // (N, T, KV, D) contiguous
+  __nv_bfloat16* dv;
+  int N, S, T, H, KV, rep, S_pad;
+  float scale;
+  int causal, has_window, window;
+  float softcap;
+};
+
+// 2^x in one MUFU.EX2; a result below 2^-126 flushes to 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// bf16 pair -> one 32-bit register (lo in the low half)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ bool visible(const Args& a, int qp, int kp) {
+  bool vis = kp < a.T && qp < a.S;
+  if (a.causal) vis = vis && kp <= qp;
+  if (a.has_window) vis = vis && kp > qp - a.window;
+  return vis;
+}
+
+// P and dS of one raw score q . k (dp = dO . v) of a visible pair, with l2
+// = L log2(e) and dl = delta of its query row: P = 2^(s log2(e) - l2), dS
+// = P (dp - dl) (1 - t^2 under a softcap) scale
+template <bool CAP>
+__device__ __forceinline__ void prob_grad(const Args& a, float raw, float dp,
+                                          float l2, float dl, float& p,
+                                          float& ds) {
+  if (CAP) {
+    const float t = tanhf(raw * a.scale / a.softcap);
+    p = exp2_ftz(a.softcap * LOG2E * t - l2);
+    ds = p * (dp - dl) * (1.f - t * t) * a.scale;
+  } else {
+    p = exp2_ftz(fmaf(raw, a.scale * LOG2E, -l2));
+    ds = p * (dp - dl) * a.scale;
+  }
+}
+
+// The accumulator fragment of a 64 x 64 tile: register r of thread (warp,
+// lane) is row 16 warp + lane / 4 + 8 ((r >> 1) & 1), column 8 (r >> 2) +
+// 2 (lane % 4) + (r & 1).  Columns 16 kt .. 16 kt + 15 of it are the
+// register A fragment of k-step kt of a product that contracts them: its
+// register x packs registers 8 kt + 2 x and 8 kt + 2 x + 1 as a bf16 pair.
+
+// dS of score registers 16 H .. 16 H + 15 (keys 32 H .. 32 H + 31 of the
+// tile) in place, rows qp0 and qp0 + 8, and their bf16 A fragments, k-steps
+// 2 H and 2 H + 1 of dQ += dS . K; with MASK, hidden pairs give 0
+template <int H, bool MASK, bool CAP>
+__device__ __forceinline__ void dq_grads(float (&sc)[32],
+                                         const float (&dp)[32],
+                                         const float (&l2)[2],
+                                         const float (&dl)[2],
+                                         uint32_t (&g)[4][4], const Args& a,
+                                         int qp0, int k0, int c) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int r = 16 * H + i, e = (r >> 1) & 1;
+    float p, ds;
+    prob_grad<CAP>(a, sc[r], dp[r], l2[e], dl[e], p, ds);
+    if (MASK && !visible(a, qp0 + 8 * e, k0 + 8 * (r >> 2) + 2 * c + (r & 1)))
+      ds = 0.f;
+    sc[r] = ds;
+  }
+#pragma unroll
+  for (int kt = 2 * H; kt < 2 * H + 2; ++kt)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      g[kt][x] = pack_bf16(sc[8 * kt + 2 * x], sc[8 * kt + 2 * x + 1]);
+}
+
+template <int H>
+__device__ __forceinline__ void dq_grads(bool mask, bool cap, float (&sc)[32],
+                                         const float (&dp)[32],
+                                         const float (&l2)[2],
+                                         const float (&dl)[2],
+                                         uint32_t (&g)[4][4], const Args& a,
+                                         int qp0, int k0, int c) {
+  if (mask) {
+    if (cap) dq_grads<H, true, true>(sc, dp, l2, dl, g, a, qp0, k0, c);
+    else dq_grads<H, true, false>(sc, dp, l2, dl, g, a, qp0, k0, c);
+  } else {
+    if (cap) dq_grads<H, false, true>(sc, dp, l2, dl, g, a, qp0, k0, c);
+    else dq_grads<H, false, false>(sc, dp, l2, dl, g, a, qp0, k0, c);
+  }
+}
+
+// P^T and dS^T of score registers 16 H .. 16 H + 15 (queries 32 H .. 32 H
+// + 31 of the tile, whose l2 and delta are sl[] and sl[TILE + ]) in place,
+// kv rows kp0 and kp0 + 8, and their bf16 A fragments, k-steps 2 H and
+// 2 H + 1 of dV += P^T . dO and dK += dS^T . Q; with MASK, hidden pairs
+// give 0
+template <int H, bool MASK, bool CAP>
+__device__ __forceinline__ void dkv_grads(float (&st)[32], float (&dpt)[32],
+                                          const float* sl,
+                                          uint32_t (&pa)[4][4],
+                                          uint32_t (&ga)[4][4], const Args& a,
+                                          int q0, int kp0, int c) {
+#pragma unroll
+  for (int jj = 4 * H; jj < 4 * H + 4; ++jj) {
+    const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * jj + 2 * c);
+    const float2 dl =
+        *reinterpret_cast<const float2*>(sl + TILE + 8 * jj + 2 * c);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int r = 4 * jj + u;
+      float p, ds;
+      prob_grad<CAP>(a, st[r], dpt[r], (u & 1) ? l2.y : l2.x,
+                     (u & 1) ? dl.y : dl.x, p, ds);
+      if (MASK && !visible(a, q0 + 8 * jj + 2 * c + (u & 1),
+                           kp0 + 8 * ((u >> 1) & 1))) {
+        p = 0.f;
+        ds = 0.f;
+      }
+      st[r] = p;
+      dpt[r] = ds;
+    }
+  }
+#pragma unroll
+  for (int kt = 2 * H; kt < 2 * H + 2; ++kt)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      pa[kt][x] = pack_bf16(st[8 * kt + 2 * x], st[8 * kt + 2 * x + 1]);
+      ga[kt][x] = pack_bf16(dpt[8 * kt + 2 * x], dpt[8 * kt + 2 * x + 1]);
+    }
+}
+
+template <int H>
+__device__ __forceinline__ void dkv_grads(bool mask, bool cap,
+                                          float (&st)[32], float (&dpt)[32],
+                                          const float* sl,
+                                          uint32_t (&pa)[4][4],
+                                          uint32_t (&ga)[4][4], const Args& a,
+                                          int q0, int kp0, int c) {
+  if (mask) {
+    if (cap) dkv_grads<H, true, true>(st, dpt, sl, pa, ga, a, q0, kp0, c);
+    else dkv_grads<H, true, false>(st, dpt, sl, pa, ga, a, q0, kp0, c);
+  } else {
+    if (cap) dkv_grads<H, false, true>(st, dpt, sl, pa, ga, a, q0, kp0, c);
+    else dkv_grads<H, false, false>(st, dpt, sl, pa, ga, a, q0, kp0, c);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  hopper::wgmma_rs_n64(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  hopper::wgmma_rs_n128(d, a, db);
+}
+
+// acc (64 x 64) = A . B^T over d: A's 64 rows and B's 64 rows K-major in
+// 128-byte swizzled halves of 64 columns, a_half / b_half bytes apart
+template <int D>
+__device__ __forceinline__ void descs_kmajor(uint64_t (&da)[D / 16],
+                                             uint64_t (&db)[D / 16],
+                                             uint32_t a, uint32_t a_half,
+                                             uint32_t b, uint32_t b_half) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;  // a k-step is 32 bytes of a row
+    da[kk] = hopper::desc_sw128(a + (kk / 4) * a_half + off, 16, 1024);
+    db[kk] = hopper::desc_sw128(b + (kk / 4) * b_half + off, 16, 1024);
+  }
+}
+
+// B of acc (64 x D) += A (64 x 64 keys or queries, registers) . B: a tile
+// of 64 rows (the contracted dimension) by D, MN-major; a k-step is 16
+// rows, the next 64 columns the other half (TILE rows on)
+__device__ __forceinline__ void descs_mnmajor(uint64_t (&db)[4], uint32_t b) {
+#pragma unroll
+  for (int kt = 0; kt < 4; ++kt)
+    db[kt] = hopper::desc_sw128(b + kt * 16 * ROW, TILE * ROW, 1024);
+}
+
+// ---- delta = rowsum(dO o O) and L log2(e), padded to S_pad rows -------
+
+// D / 8 threads a row, 16 bytes (8 bf16) of O and of dO each; rows in the
+// order (n, s, h), h fastest, as the tensors lie; a row of s >= S is 0
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_stats(const Args a) {
+  constexpr int LANES = D / 8;  // divides 32: a row's threads share a warp
+  const long long rows = static_cast<long long>(a.N) * a.S_pad * a.H;
+  const long long t = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  const long long row = t / LANES;
+  const int part = static_cast<int>(t % LANES);
+  const int h = static_cast<int>(row % a.H);
+  const long long ns = row / a.H;
+  const int s = static_cast<int>(ns % a.S_pad);
+  const long long n = ns / a.S_pad;
+  const bool live = row < rows && s < a.S;
+  float acc = 0.f;
+  if (live) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(a.o) + n * a.os0 + s * a.os1 +
+        h * a.os2 + part * 8);
+    const uint4 gv = *reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(a.dout) + n * a.ds0 + s * a.ds1 +
+        h * a.ds2 + part * 8);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 fo = __bfloat1622float2(o2[i]);
+      const float2 fg = __bfloat1622float2(g2[i]);
+      acc = fmaf(fo.x, fg.x, acc);
+      acc = fmaf(fo.y, fg.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && part == 0) {
+    const long long li = (n * a.H + h) * a.S_pad + s;
+    a.stats[li] =
+        live ? a.lse[(n * a.H + h) * a.S + s] * LOG2E : 0.f;
+    a.stats[static_cast<long long>(a.N) * a.H * a.S_pad + li] =
+        live ? acc : 0.f;
+  }
+}
+
+// ---- dQ: items (q tile of BLOCK rows, q head, n) ----------------------
+
+template <int D>
+struct DqSmem {
+  static constexpr uint32_t Q_BYTES = BLOCK * D * 2;   // one Q or dO tile
+  static constexpr uint32_t KV_BYTES = TILE * D * 2;   // one K or V tile
+  static constexpr uint32_t KV_OFF = 4 * Q_BYTES;      // two (Q, dO) buffers
+  static constexpr uint32_t BAR_OFF = KV_OFF + STAGES * 2 * KV_BYTES;
+  static constexpr int BARS = 4 + 2 * STAGES;
+  // + 1024 to align the dynamic buffer's start
+  static constexpr size_t BYTES = BAR_OFF + 8 * BARS + 1024;
+};
+
+// mbarrier slots of both kernels: the item buffers' full and empty (per
+// buffer), then the streamed ring's full and empty (per stage)
+__device__ __forceinline__ int bar_item_full(int b) { return b; }
+__device__ __forceinline__ int bar_item_empty(int b) { return 2 + b; }
+__device__ __forceinline__ int bar_full(int s) { return 4 + s; }
+__device__ __forceinline__ int bar_empty(int s) { return 4 + STAGES + s; }
+
+__device__ __forceinline__ void init_bars(uint32_t bars) {
+  using namespace hopper;
+  for (int i = 0; i < 2 + STAGES; ++i) {
+    const int full = i < 2 ? bar_item_full(i) : bar_full(i - 2);
+    const int empty = i < 2 ? bar_item_empty(i) : bar_empty(i - 2);
+    mbar_init(bars + 8u * full, 1);
+    mbar_init(bars + 8u * empty, 4 * CONSUMERS);  // one arrival a warp
+  }
+  mbar_fence_init();
+}
+
+// The j-th work item of this block: rounds of gridDim.x items, every other
+// round in reverse block order (a snake), so that with items longest first
+// each block's share evens out.  Past the last item it is >= items.
+__device__ __forceinline__ int nth_item(int j) {
+  const int g = gridDim.x, b = blockIdx.x;
+  return j * g + ((j & 1) ? g - 1 - b : b);
+}
+
+struct DqItem {
+  int q0, h, n, lo, nt;
+};
+
+// q tiles longest first (causal), then heads, then n
+__device__ __forceinline__ DqItem dq_item(int w, int nq, const Args& a) {
+  DqItem it;
+  const int hn = a.H * a.N;
+  it.q0 = (nq - 1 - w / hn) * BLOCK;
+  it.h = (w % hn) % a.H;
+  it.n = (w % hn) / a.H;
+  // key tiles that can hold a visible key for some row of the item
+  int hi = a.T;
+  if (a.causal) hi = min(hi, it.q0 + BLOCK);
+  it.lo = 0;
+  if (a.has_window) it.lo = max(0, it.q0 - a.window + 1) / TILE * TILE;
+  it.nt = hi > it.lo ? (hi - it.lo + TILE - 1) / TILE : 0;
+  return it;
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmq,
+                   const __grid_constant__ CUtensorMap tmdo,
+                   const __grid_constant__ CUtensorMap tmk,
+                   const __grid_constant__ CUtensorMap tmv, const Args a,
+                   const int nq) {
+  using namespace hopper;
+  using L = DqSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::BAR_OFF;
+  auto bar = [bars](int i) { return bars + 8u * i; };
+  const int items = nq * a.H * a.N;
+  if (threadIdx.x == 0) init_bars(bars);
+  __syncthreads();
+
+  // warp-uniform (a shuffle from lane 0): the paths split here once
+  const int wgi = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128,
+                              0);
+  if (wgi == CONSUMERS) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 128 * CONSUMERS) {
+      int tile = 0;  // key tiles issued so far, across items
+      for (int j = 0, w = nth_item(0); w < items; w = nth_item(++j)) {
+        const DqItem it = dq_item(w, nq, a);
+        const int kvh = it.h / a.rep;
+        const int b = j & 1;
+        const uint32_t qs = base + b * 2 * L::Q_BYTES;
+        mbar_wait(bar(bar_item_empty(b)), ((j >> 1) & 1) ^ 1);
+        mbar_expect_tx(bar(bar_item_full(b)), 2 * L::Q_BYTES);
+#pragma unroll
+        for (int hf = 0; hf < D / 64; ++hf) {
+          tma_load_4d(qs + hf * BLOCK * ROW, &tmq, bar(bar_item_full(b)),
+                      64 * hf, it.h, it.q0, it.n);
+          tma_load_4d(qs + L::Q_BYTES + hf * BLOCK * ROW, &tmdo,
+                      bar(bar_item_full(b)), 64 * hf, it.h, it.q0, it.n);
+        }
+        for (int i = 0; i < it.nt; ++i, ++tile) {
+          const int s = tile % STAGES;
+          const int k0 = it.lo + i * TILE;
+          const uint32_t ks = base + L::KV_OFF + s * 2 * L::KV_BYTES;
+          mbar_wait(bar(bar_empty(s)), ((tile / STAGES) & 1) ^ 1);
+          mbar_expect_tx(bar(bar_full(s)), 2 * L::KV_BYTES);
+#pragma unroll
+          for (int hf = 0; hf < D / 64; ++hf) {
+            tma_load_4d(ks + hf * TILE * ROW, &tmk, bar(bar_full(s)),
+                        64 * hf, kvh, k0, it.n);
+            tma_load_4d(ks + L::KV_BYTES + hf * TILE * ROW, &tmv,
+                        bar(bar_full(s)), 64 * hf, kvh, k0, it.n);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wgi owns q rows [q0 + 64 wgi, + 64) ----
+    regs_inc<CONSUMER_REGS>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int c = lane % 4;
+    const bool cap = a.softcap != 0.f;
+    const long long nhs = static_cast<long long>(a.N) * a.H * a.S_pad;
+    int tile = 0;
+    for (int j = 0, w = nth_item(0); w < items; w = nth_item(++j)) {
+      const DqItem it = dq_item(w, nq, a);
+      const int wq0 = it.q0 + 64 * wgi;
+      const int qp0 = wq0 + 16 * warp + lane / 4;  // rows qp0, qp0 + 8
+      const int b = j & 1;
+      const uint32_t q_wg = base + b * 2 * L::Q_BYTES + 64 * wgi * ROW;
+      const uint32_t do_wg = q_wg + L::Q_BYTES;
+      float l2[2], dl[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const long long li =
+            (static_cast<long long>(it.n) * a.H + it.h) * a.S_pad + qp0 +
+            8 * e;
+        l2[e] = a.stats[li];
+        dl[e] = a.stats[nhs + li];
+      }
+      float dq[D / 2], sc[32], dp[32];
+#pragma unroll
+      for (int r = 0; r < D / 2; ++r) dq[r] = 0.f;
+#pragma unroll
+      for (int r = 0; r < 32; ++r) sc[r] = dp[r] = 0.f;
+
+      mbar_wait(bar(bar_item_full(b)), (j >> 1) & 1);
+      for (int i = 0; i < it.nt; ++i, ++tile) {
+        const int s = tile % STAGES;
+        const int k0 = it.lo + i * TILE;
+        // a key tile hidden from every row of this warpgroup changes
+        // nothing; it still takes part in the ring's hand-shakes
+        const bool skip = wq0 >= a.S || (a.causal && k0 > wq0 + 63) ||
+                          (a.has_window && k0 + TILE - 1 <= wq0 - a.window);
+        mbar_wait(bar(bar_full(s)), (tile / STAGES) & 1);
+        if (!skip) {
+          const uint32_t ks = base + L::KV_OFF + s * 2 * L::KV_BYTES;
+          const uint32_t vs = ks + L::KV_BYTES;
+          // S = Q . K^T and dP = dO . V^T
+          uint64_t dqa[D / 16], dkb[D / 16], doa[D / 16], dvb[D / 16];
+          descs_kmajor<D>(dqa, dkb, q_wg, BLOCK * ROW, ks, TILE * ROW);
+          descs_kmajor<D>(doa, dvb, do_wg, BLOCK * ROW, vs, TILE * ROW);
+          fence_regs(dqa);
+          fence_regs(dkb);
+          fence_regs(doa);
+          fence_regs(dvb);
+          fence_regs(sc);
+          fence_regs(dp);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss_n64(sc, dqa[kk], dkb[kk], kk > 0);
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss_n64(dp, doa[kk], dvb[kk], kk > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(sc);
+          fence_regs(dp);
+
+          // dS in place of the scores, the masks only on a tile that hides
+          // some pair; dQ += dS . K (K read MN-major) in two halves of
+          // the keys, so that the second half's dS is formed while the
+          // first half's product runs
+          const bool full = k0 + TILE <= a.T && wq0 + 64 <= a.S &&
+                            (!a.causal || k0 + TILE - 1 <= wq0) &&
+                            (!a.has_window || k0 > wq0 + 63 - a.window);
+          uint64_t kb[4];
+          descs_mnmajor(kb, ks);
+          fence_regs(kb);
+          uint32_t g[4][4];
+          dq_grads<0>(!full, cap, sc, dp, l2, dl, g, a, qp0, k0, c);
+          fence_regs(g[0]);
+          fence_regs(g[1]);
+          fence_regs(dq);
+          wgmma_fence();
+          wgmma_rs<D>(dq, g[0], kb[0]);
+          wgmma_rs<D>(dq, g[1], kb[1]);
+          wgmma_commit();
+          dq_grads<1>(!full, cap, sc, dp, l2, dl, g, a, qp0, k0, c);
+          fence_regs(g[2]);
+          fence_regs(g[3]);
+          wgmma_fence();
+          wgmma_rs<D>(dq, g[2], kb[2]);
+          wgmma_rs<D>(dq, g[3], kb[3]);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dq);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar(bar_empty(s)));
+      }
+      // this item's Q and dO buffer is free for the item after next
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar(bar_item_empty(b)));
+
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qr = qp0 + 8 * e;
+        if (qr >= a.S) continue;
+        __nv_bfloat16* out =
+            a.dq + ((static_cast<long long>(it.n) * a.S + qr) * a.H + it.h) *
+                       static_cast<long long>(D);
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj)
+          *reinterpret_cast<__nv_bfloat162*>(out + 8 * jj + 2 * c) =
+              __floats2bfloat162_rn(dq[4 * jj + 2 * e], dq[4 * jj + 2 * e + 1]);
+      }
+    }
+  }
+}
+
+// ---- dK and dV: items (kv tile of BLOCK rows, kv head, n) -------------
+
+template <int D>
+struct KvSmem {
+  static constexpr uint32_t KV_BYTES = BLOCK * D * 2;  // one K or V tile
+  static constexpr uint32_t Q_BYTES = TILE * D * 2;    // one Q or dO tile
+  static constexpr uint32_t Q_OFF = 4 * KV_BYTES;      // two (K, V) buffers
+  static constexpr uint32_t STAT_OFF = Q_OFF + STAGES * 2 * Q_BYTES;
+  static constexpr uint32_t STAT_BYTES = TILE * 4;     // one l2 or delta row
+  static constexpr uint32_t BAR_OFF = STAT_OFF + STAGES * 2 * STAT_BYTES;
+  static constexpr int BARS = 4 + 2 * STAGES;
+  static constexpr size_t BYTES = BAR_OFF + 8 * BARS + 1024;
+};
+
+struct KvItem {
+  int k0, kvh, n, lo, nt;  // nt q tiles per q head of the group
+};
+
+// kv tiles longest first (causal: the first sees the most queries), then
+// kv heads, then n
+__device__ __forceinline__ KvItem kv_item(int w, const Args& a) {
+  KvItem it;
+  const int hn = a.KV * a.N;
+  it.k0 = (w / hn) * BLOCK;
+  it.kvh = (w % hn) % a.KV;
+  it.n = (w % hn) / a.KV;
+  // q tiles that can see a key of the item
+  it.lo = a.causal ? it.k0 : 0;
+  int hi = a.S;
+  if (a.has_window) hi = min(hi, it.k0 + BLOCK - 1 + a.window);
+  it.nt = hi > it.lo ? (hi - it.lo + TILE - 1) / TILE : 0;
+  return it;
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tmq,
+                     const __grid_constant__ CUtensorMap tmdo,
+                     const __grid_constant__ CUtensorMap tmk,
+                     const __grid_constant__ CUtensorMap tmv, const Args a,
+                     const int nkv) {
+  using namespace hopper;
+  using L = KvSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::BAR_OFF;
+  auto bar = [bars](int i) { return bars + 8u * i; };
+  const int items = nkv * a.KV * a.N;
+  const long long nhs = static_cast<long long>(a.N) * a.H * a.S_pad;
+  if (threadIdx.x == 0) init_bars(bars);
+  __syncthreads();
+
+  const int wgi = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128,
+                              0);
+  if (wgi == CONSUMERS) {
+    // ---- producer warpgroup: one thread issues every load ----
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 128 * CONSUMERS) {
+      int tile = 0;  // q tiles issued so far, across items
+      for (int j = 0, w = nth_item(0); w < items; w = nth_item(++j)) {
+        const KvItem it = kv_item(w, a);
+        const int b = j & 1;
+        const uint32_t kvs = base + b * 2 * L::KV_BYTES;
+        mbar_wait(bar(bar_item_empty(b)), ((j >> 1) & 1) ^ 1);
+        mbar_expect_tx(bar(bar_item_full(b)), 2 * L::KV_BYTES);
+#pragma unroll
+        for (int hf = 0; hf < D / 64; ++hf) {
+          tma_load_4d(kvs + hf * BLOCK * ROW, &tmk, bar(bar_item_full(b)),
+                      64 * hf, it.kvh, it.k0, it.n);
+          tma_load_4d(kvs + L::KV_BYTES + hf * BLOCK * ROW, &tmv,
+                      bar(bar_item_full(b)), 64 * hf, it.kvh, it.k0, it.n);
+        }
+        // the group's q heads in order, each over its q tiles
+        for (int hh = 0; hh < a.rep; ++hh) {
+          const int h = it.kvh * a.rep + hh;
+          const long long row0 =
+              (static_cast<long long>(it.n) * a.H + h) * a.S_pad;
+          for (int i = 0; i < it.nt; ++i, ++tile) {
+            const int s = tile % STAGES;
+            const int q0 = it.lo + i * TILE;
+            const uint32_t qs = base + L::Q_OFF + s * 2 * L::Q_BYTES;
+            const uint32_t st = base + L::STAT_OFF + s * 2 * L::STAT_BYTES;
+            mbar_wait(bar(bar_empty(s)), ((tile / STAGES) & 1) ^ 1);
+            mbar_expect_tx(bar(bar_full(s)),
+                           2 * L::Q_BYTES + 2 * L::STAT_BYTES);
+#pragma unroll
+            for (int hf = 0; hf < D / 64; ++hf) {
+              tma_load_4d(qs + hf * TILE * ROW, &tmq, bar(bar_full(s)),
+                          64 * hf, h, q0, it.n);
+              tma_load_4d(qs + L::Q_BYTES + hf * TILE * ROW, &tmdo,
+                          bar(bar_full(s)), 64 * hf, h, q0, it.n);
+            }
+            bulk_load(st, a.stats + row0 + q0, L::STAT_BYTES,
+                      bar(bar_full(s)));
+            bulk_load(st + L::STAT_BYTES, a.stats + nhs + row0 + q0,
+                      L::STAT_BYTES, bar(bar_full(s)));
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wgi owns kv rows [k0 + 64 wgi, + 64) ----
+    regs_inc<CONSUMER_REGS>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int c = lane % 4;
+    const bool cap = a.softcap != 0.f;
+    int tile = 0;
+    for (int j = 0, w = nth_item(0); w < items; w = nth_item(++j)) {
+      const KvItem it = kv_item(w, a);
+      const int wk0 = it.k0 + 64 * wgi;
+      const int kp0 = wk0 + 16 * warp + lane / 4;  // rows kp0, kp0 + 8
+      const int b = j & 1;
+      const uint32_t k_wg = base + b * 2 * L::KV_BYTES + 64 * wgi * ROW;
+      const uint32_t v_wg = k_wg + L::KV_BYTES;
+      float dk[D / 2], dv[D / 2], st[32], dpt[32];
+#pragma unroll
+      for (int r = 0; r < D / 2; ++r) dk[r] = dv[r] = 0.f;
+#pragma unroll
+      for (int r = 0; r < 32; ++r) st[r] = dpt[r] = 0.f;
+
+      mbar_wait(bar(bar_item_full(b)), (j >> 1) & 1);
+      for (int hh = 0; hh < a.rep; ++hh) {
+        for (int i = 0; i < it.nt; ++i, ++tile) {
+          const int s = tile % STAGES;
+          const int q0 = it.lo + i * TILE;
+          const bool skip =
+              wk0 >= a.T || (a.causal && q0 + TILE - 1 < wk0) ||
+              (a.has_window && q0 >= wk0 + 63 + a.window);
+          mbar_wait(bar(bar_full(s)), (tile / STAGES) & 1);
+          if (!skip) {
+            const uint32_t qs = base + L::Q_OFF + s * 2 * L::Q_BYTES;
+            const uint32_t dos = qs + L::Q_BYTES;
+            // S^T = K . Q^T and dP^T = V . dO^T
+            uint64_t ka[D / 16], qb[D / 16], va[D / 16], dob[D / 16];
+            descs_kmajor<D>(ka, qb, k_wg, BLOCK * ROW, qs, TILE * ROW);
+            descs_kmajor<D>(va, dob, v_wg, BLOCK * ROW, dos, TILE * ROW);
+            fence_regs(ka);
+            fence_regs(qb);
+            fence_regs(va);
+            fence_regs(dob);
+            fence_regs(st);
+            fence_regs(dpt);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk)
+              wgmma_ss_n64(st, ka[kk], qb[kk], kk > 0);
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk)
+              wgmma_ss_n64(dpt, va[kk], dob[kk], kk > 0);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(st);
+            fence_regs(dpt);
+
+            // P^T and dS^T in place, the masks only on a tile that hides
+            // some pair (a column is a query, whose l2 and delta the
+            // producer staged beside Q); dV += P^T . dO and dK += dS^T . Q
+            // (dO and Q read MN-major) in two halves of the queries, so
+            // that the second half is formed while the first half's
+            // products run
+            const float* sl = reinterpret_cast<const float*>(
+                smem_raw + (base - smem_u32(smem_raw)) + L::STAT_OFF +
+                s * 2 * L::STAT_BYTES);
+            const bool full = wk0 + 64 <= a.T && q0 + TILE <= a.S &&
+                              (!a.causal || wk0 + 63 <= q0) &&
+                              (!a.has_window ||
+                               wk0 > q0 + TILE - 1 - a.window);
+            uint64_t dob2[4], qb2[4];
+            descs_mnmajor(dob2, dos);
+            descs_mnmajor(qb2, qs);
+            fence_regs(dob2);
+            fence_regs(qb2);
+            uint32_t pa[4][4], ga[4][4];
+            dkv_grads<0>(!full, cap, st, dpt, sl, pa, ga, a, q0, kp0, c);
+#pragma unroll
+            for (int kt = 0; kt < 2; ++kt) {
+              fence_regs(pa[kt]);
+              fence_regs(ga[kt]);
+            }
+            fence_regs(dv);
+            fence_regs(dk);
+            wgmma_fence();
+#pragma unroll
+            for (int kt = 0; kt < 2; ++kt) wgmma_rs<D>(dv, pa[kt], dob2[kt]);
+#pragma unroll
+            for (int kt = 0; kt < 2; ++kt) wgmma_rs<D>(dk, ga[kt], qb2[kt]);
+            wgmma_commit();
+            dkv_grads<1>(!full, cap, st, dpt, sl, pa, ga, a, q0, kp0, c);
+#pragma unroll
+            for (int kt = 2; kt < 4; ++kt) {
+              fence_regs(pa[kt]);
+              fence_regs(ga[kt]);
+            }
+            wgmma_fence();
+#pragma unroll
+            for (int kt = 2; kt < 4; ++kt) wgmma_rs<D>(dv, pa[kt], dob2[kt]);
+#pragma unroll
+            for (int kt = 2; kt < 4; ++kt) wgmma_rs<D>(dk, ga[kt], qb2[kt]);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(dv);
+            fence_regs(dk);
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bar(bar_empty(s)));
+        }
+      }
+      // this item's K and V buffer is free for the item after next
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar(bar_item_empty(b)));
+
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kr = kp0 + 8 * e;
+        if (kr >= a.T) continue;
+        const long long off =
+            ((static_cast<long long>(it.n) * a.T + kr) * a.KV + it.kvh) *
+            static_cast<long long>(D);
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          *reinterpret_cast<__nv_bfloat162*>(a.dk + off + 8 * jj + 2 * c) =
+              __floats2bfloat162_rn(dk[4 * jj + 2 * e], dk[4 * jj + 2 * e + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(a.dv + off + 8 * jj + 2 * c) =
+              __floats2bfloat162_rn(dv[4 * jj + 2 * e], dv[4 * jj + 2 * e + 1]);
+        }
+      }
+    }
+  }
+}
+
+// the stats pass, then the dQ and the dK/dV kernels, each persistent: one
+// block per SM walks its items
+template <int D>
+cudaError_t launch(const Args& a, const void* q, const void* k,
+                   const void* v, const long long (&st)[4][3],
+                   cudaStream_t stream) {
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  const int nq = (a.S + BLOCK - 1) / BLOCK;
+  const int nkv = (a.T + BLOCK - 1) / BLOCK;
+  const long long dq_items = static_cast<long long>(nq) * a.H * a.N;
+  const long long kv_items = static_cast<long long>(nkv) * a.KV * a.N;
+  const long long stat_threads =
+      static_cast<long long>(a.N) * a.S_pad * a.H * (D / 8);
+  if (dq_items > INT_MAX || kv_items > INT_MAX ||
+      (stat_threads + 255) / 256 > INT_MAX)
+    return cudaErrorInvalidValue;
+  // (q, dO) with boxes of BLOCK rows and (k, v) of TILE rows for dQ; the
+  // other way round for dK/dV
+  CUtensorMap mq[2], mdo[2], mk[2], mv[2];
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
+    const int qbox = i == 0 ? BLOCK : TILE, kbox = i == 0 ? TILE : BLOCK;
+    err = make_map(&mq[i], q, D, a.H, a.S, a.N, st[0][2], st[0][1],
+                   st[0][0], qbox);
+    if (err == cudaSuccess)
+      err = make_map(&mdo[i], a.dout, D, a.H, a.S, a.N, st[3][2], st[3][1],
+                     st[3][0], qbox);
+    if (err == cudaSuccess)
+      err = make_map(&mk[i], k, D, a.KV, a.T, a.N, st[1][2], st[1][1],
+                     st[1][0], kbox);
+    if (err == cudaSuccess)
+      err = make_map(&mv[i], v, D, a.KV, a.T, a.N, st[2][2], st[2][1],
+                     st[2][0], kbox);
+  }
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(DqSmem<D>::BYTES));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(KvSmem<D>::BYTES));
+  if (err != cudaSuccess) return err;
+  // setmaxnreg.inc waits for the registers the producer gave back: the
+  // block must be launched with enough of them, or the consumers would wait
+  // forever (ptxas sets the count from __launch_bounds__: 168 a thread)
+  const void* kernels[2] = {
+      reinterpret_cast<const void*>(flash_bwd_dq_wgmma<D>),
+      reinterpret_cast<const void*>(flash_bwd_dkdv_wgmma<D>)};
+  for (const void* fn : kernels) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, fn);
+    if (err != cudaSuccess) return err;
+    if (attr.numRegs * THREADS <
+        128 * PRODUCER_REGS + 128 * CONSUMERS * CONSUMER_REGS)
+      return cudaErrorInvalidConfiguration;
+  }
+  flash_bwd_stats<D><<<static_cast<unsigned>((stat_threads + 255) / 256), 256,
+                       0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wgmma<D><<<static_cast<int>(dq_items < sms ? dq_items : sms),
+                          THREADS, DqSmem<D>::BYTES, stream>>>(
+      mq[0], mdo[0], mk[0], mv[0], a, nq);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_wgmma<D><<<static_cast<int>(kv_items < sms ? kv_items : sms),
+                            THREADS, KvSmem<D>::BYTES, stream>>>(
+      mq[1], mdo[1], mk[1], mv[1], a, nkv);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; d one of 16, 32, 64, 128, 256; every
@@ -430,5 +1302,41 @@ extern "C" int flash_attention_bwd_launch(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_d<float>(a, d, st);
   if (dtype == 1) return launch_d<__nv_bfloat16>(a, d, st);
+  return cudaErrorInvalidValue;
+}
+
+// bf16 at d = 64 or 128 (the wrapper zero-pads smaller head dims to 64):
+// the wgmma + TMA route.  Strides in elements, the inner stride of every
+// input 1, every row 16-byte aligned and every stride of an extent over 1 a
+// positive multiple of 16 bytes (ops.py::_rows_aligned copies a view that
+// is not); dq, dk, dv contiguous; stats is 2 * N * H * s_pad floats of
+// scratch, s_pad a multiple of 128 no smaller than S.  window < 0 means no
+// window, softcap 0 no softcap.  Returns the CUDA error of the launches (0
+// on success).
+extern "C" int flash_attention_bwd_wgmma_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* stats, void* dq, void* dk,
+    void* dv, int d, int N, int S, int T, int H, int KV, int s_pad,
+    long long qs0, long long qs1, long long qs2, long long ks0,
+    long long ks1, long long ks2, long long vs0, long long vs1,
+    long long vs2, long long os0, long long os1, long long os2,
+    long long ds0, long long ds1, long long ds2, float scale, int causal,
+    int window, float softcap, void* stream) {
+  if (N <= 0 || S <= 0 || T <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
+      s_pad < S || s_pad % wg::BLOCK != 0)
+    return cudaErrorInvalidValue;
+  const wg::Args a{o, dout, os0, os1, os2, ds0, ds1, ds2, lse, stats,
+                   static_cast<__nv_bfloat16*>(dq),
+                   static_cast<__nv_bfloat16*>(dk),
+                   static_cast<__nv_bfloat16*>(dv), N, S, T, H, KV, H / KV,
+                   s_pad, scale, causal, window >= 0 ? 1 : 0, window,
+                   softcap};
+  const long long st[4][3] = {{qs0, qs1, qs2},
+                              {ks0, ks1, ks2},
+                              {vs0, vs1, vs2},
+                              {ds0, ds1, ds2}};
+  const cudaStream_t sm = static_cast<cudaStream_t>(stream);
+  if (d == 64) return wg::launch<64>(a, q, k, v, st, sm);
+  if (d == 128) return wg::launch<128>(a, q, k, v, st, sm);
   return cudaErrorInvalidValue;
 }

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernel: mbarriers,
-// TMA tensor loads, wgmma shared-memory descriptors and the wgmma shapes
-// the kernel issues.  Inline PTX only; the
-// library links no CUDA driver library (the tensor maps are encoded through
-// cudaGetDriverEntryPoint in flash_attention.cu).
+// Hopper (sm_90a) building blocks of the flash-attention kernels, forward
+// and backward: mbarriers, TMA tensor and bulk loads, register hand-over
+// between warpgroups, wgmma shared-memory descriptors and the wgmma shapes
+// the kernels issue.  Inline PTX only; the libraries link no CUDA driver
+// library (the tensor maps are encoded through cudaGetDriverEntryPoint in
+// tma_map.cuh).
 #pragma once
 
 #include <cuda.h>
@@ -72,6 +73,33 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
          "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous global memory at `src` (16-byte
+// aligned) into shared memory at `dst`; the bytes land on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(bar)
+      : "memory");
+}
+
+// ---- registers between warpgroups ---------------------------------------
+
+// The calling warpgroup's register budget drops to (dec) or rises to (inc)
+// N a thread; all four warps execute it together.  ptxas honours it only
+// where the warpgroups' paths split once and never join again.
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
 }
 
 // ---- wgmma ------------------------------------------------------------

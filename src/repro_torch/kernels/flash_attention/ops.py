@@ -20,6 +20,12 @@ gradient is wanted, also writes every row's log-sum-exp (serving never asks
 for it, so its launches and outputs are unchanged), and its backward is the
 backward kernel (:func:`flash_attention_bwd`): deterministic, with no
 atomics.  On the CPU autograd differentiates the plain version.
+
+The backward has two routes of ``csrc/flash_attention_bwd.cu``, picked by
+:func:`bwd_route`: bf16 at d 64 or 128 (smaller bf16 head dims padded to
+64) runs wgmma fed by TMA, reading views in place by the forward's rule
+(:func:`_rows_aligned`); f32 inputs, held to 1e-4, and bf16 at d 256 run
+the fp32-FMA kernels on contiguous copies.
 """
 from __future__ import annotations
 
@@ -38,9 +44,11 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 
 # Kernel launches issued by `flash_attention` (forward) and by
-# `flash_attention_bwd` (one per call: its three kernels in one launch).
+# `flash_attention_bwd` (one per call: its three kernels in one launch),
+# the latter also by route.
 launches = 0
 bwd_launches = 0
+bwd_route_launches = {"wgmma": 0, "fma": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels' instantiated head dims, by dtype
@@ -59,16 +67,24 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
-    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    vp, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_float)
     fn = lib.flash_attention_bwd_launch
     fn.argtypes = [vp] * 10 + [i] * 7 + [f, i, i, f, vp]
+    fn.restype = i
+    fn = lib.flash_attention_bwd_wgmma_launch
+    fn.argtypes = [vp] * 10 + [i] * 7 + [ll] * 15 + [f, i, i, f, vp]
     fn.restype = i
 
 
 LIBRARY = _build.Library(SOURCE, _bind)
 BWD_LIBRARY = _build.Library(BWD_SOURCE, _bind_bwd)
-# the backward kernel's instantiated head dims (both dtypes)
+# the fp32-FMA backward's instantiated head dims (both dtypes); the wgmma
+# route's are 64 and 128 (bf16)
 BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
+# the wgmma backward's scratch rows (L log2 e and delta) per (n, head):
+# S rounded up to this
+_STATS_ROWS = 128
 
 
 def load_library() -> ctypes.CDLL:
@@ -90,6 +106,29 @@ def _rows_aligned(t: torch.Tensor) -> bool:
     return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
         n == 1 or (st > 0 and st * t.element_size() % 16 == 0)
         for n, st in zip(t.shape[:3], t.stride()[:3]))
+
+
+def bwd_route(dtype: torch.dtype, d: int) -> tuple[str, int]:
+    """The backward kernel that ``dtype`` inputs of head dim ``d`` take and
+    the head dim they are zero-padded to: ``("wgmma", 64 or 128)`` for bf16
+    at d <= 128, else ``("fma", the next of BWD_HEAD_DIMS)`` (f32 is held
+    to 1e-4, which no tensor-core type keeps)."""
+    if dtype == torch.bfloat16 and d <= 128:
+        return "wgmma", padded_head_dim(dtype, d)
+    return "fma", next(h for h in BWD_HEAD_DIMS if h >= d)
+
+
+def _bwd_operand(t: torch.Tensor, dp: int, route: str) -> torch.Tensor:
+    """What the backward kernel of ``route`` reads for ``t``: zero-padded to
+    head dim ``dp``; the wgmma route reads a view in place where
+    :func:`_rows_aligned` allows it (TMA, as the forward), the fp32-FMA
+    route a contiguous tensor."""
+    if t.shape[-1] != dp:
+        t = F.pad(t, (0, dp - t.shape[-1]))
+    if route == "fma":
+        return t.contiguous()
+    return t if _rows_aligned(t) else t.clone(
+        memory_format=torch.contiguous_format)
 
 
 def _check(q, k, v, window, softcap) -> None:
@@ -221,10 +260,10 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                         softcap: Optional[float] = None):
     """Gradients ``(dq, dk, dv)`` of attention at ``q``, ``k``, ``v`` for the
     output cotangent ``dout``, given the forward's output and row
-    log-sum-exp.  On CUDA tensors the backward kernel runs (or raises); on
-    CPU tensors autograd differentiates the plain version (which needs
-    neither ``out`` nor ``lse``)."""
-    global bwd_launches
+    log-sum-exp.  On CUDA tensors the backward kernel of
+    :func:`bwd_route` runs (or raises); on CPU tensors autograd
+    differentiates the plain version (which needs neither ``out`` nor
+    ``lse``)."""
     _check(q, k, v, window, softcap)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, dout, causal=causal,
@@ -238,36 +277,62 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                          f"tensors of one dtype, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}, {out.dtype}, {dout.dtype}")
     N, S, H, d = q.shape
-    T, KV = k.shape[1], k.shape[2]
-    if d > _D_MAX or H > _GRID_MAX or N > _GRID_MAX:
+    T = k.shape[1]
+    if d > _D_MAX or H > _GRID_MAX or N > _GRID_MAX \
+            or max(S, T) >= 2**31 - 256:
         raise ValueError(f"flash_attention_bwd: shape {tuple(q.shape)} over "
                          f"the kernel's limits")
     if N * S * H == 0 or T == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    dp = next(h for h in BWD_HEAD_DIMS if h >= d)
+    return _backward(q, k, v, out, dout, lse, bwd_route(q.dtype, d),
+                     causal, window, softcap)
 
-    def prep(t):
-        if dp != d:
-            t = F.pad(t, (0, dp - d))
-        return t.contiguous()
-    q, k, v, out, dout = (prep(t) for t in (q, k, v, out, dout))
+
+def _backward(q, k, v, out, dout, lse, route: tuple[str, int], causal,
+              window, softcap):
+    """The backward kernels of ``route`` (``(kind, padded head dim)``, as
+    :func:`bwd_route` gives it) on checked, non-empty CUDA tensors.
+    ``("fma", 128)`` also runs bf16 (``chip_smoke.py`` times the fp32-FMA
+    kernels beside the wgmma route on the same inputs)."""
+    global bwd_launches
+    kind, dp = route
+    N, S, H, d = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    q, k, v, out, dout = (_bwd_operand(t, dp, kind)
+                          for t in (q, k, v, out, dout))
     lse = lse.float().contiguous()
-    delta = torch.empty((N, H, S), dtype=torch.float32, device=q.device)
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for t in (q, k, v))
     lib = BWD_LIBRARY.load()
+    scale = 1.0 / math.sqrt(d)
+    opts = (int(causal), -1 if window is None else int(window),
+            float(softcap) if softcap else 0.0)
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype],
-            dp, N, S, T, H, KV, 1.0 / math.sqrt(d), int(causal),
-            -1 if window is None else int(window),
-            float(softcap) if softcap else 0.0,
-            torch.cuda.current_stream(q.device).cuda_stream)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if kind == "wgmma":
+            s_pad = -(-S // _STATS_ROWS) * _STATS_ROWS
+            stats = torch.empty((2, N, H, s_pad), dtype=torch.float32,
+                                device=q.device)
+            err = lib.flash_attention_bwd_wgmma_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), stats.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dp, N, S, T, H,
+                KV, s_pad, *q.stride()[:3], *k.stride()[:3],
+                *v.stride()[:3], *out.stride()[:3], *dout.stride()[:3],
+                scale, *opts, stream)
+        else:
+            delta = torch.empty((N, H, S), dtype=torch.float32,
+                                device=q.device)
+            err = lib.flash_attention_bwd_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                _DTYPES[q.dtype], dp, N, S, T, H, KV, scale, *opts, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention_bwd kernel launch ({kind} "
+                           f"route) failed: CUDA error {err}")
     bwd_launches += 1
+    bwd_route_launches[kind] += 1
     if dp != d:
         dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
     return dq, dk, dv

@@ -28,7 +28,13 @@ values); under the serving model's steep decay, against the plain version
 in float64 (at most twice the f32 plain version's error + 1e-6 max|y|,
 ``chip_smoke.py``'s gate); mamba2's smoke serving path on the card against
 the CPU, as qwen3's.  The flash kernel's wgmma + TMA path (bf16, d 64 and
-128) on ragged lengths, S != T, windows, softcaps and GQA rep 1 to 8."""
+128) on ragged lengths, S != T, windows, softcaps and GQA rep 1 to 8.
+
+The flash backward against the plain backward: 1e-4 (f32, the FMA route)
+and 2e-2 (bf16) in the form tol + tol |plain|, two runs bitwise equal; the
+route each dtype and head dim takes, by its launch counter; the forward's
+bits unchanged against digests of the forward kernel as it was before its
+tensor maps moved into a shared header."""
 import dataclasses
 
 import numpy as np
@@ -946,7 +952,12 @@ def test_plan_cache_bypass_captures_on_the_card(card, monkeypatch):
 # ----------------------------------------------------------------------
 
 # (N, S, T, H, KV, d, causal, window, softcap): GQA, ragged and cross
-# lengths, window, softcap, every head dim of the backward kernel
+# lengths, window, softcap, every head dim of the backward kernel; then the
+# wgmma route's edges (bf16; f32 takes the FMA route): lengths no multiple
+# of its 64- and 128-row tiles, S != T both ways (causal with S < T leaves
+# whole kv tiles unseen), GQA rep 1, 2 and 4, window, softcap, rows without
+# keys, d 32 (padded to 64), 64 and 128, and more work items than SMs in
+# both of its kernels
 FLASH_BWD_CASES = [(2, 100, 100, 4, 2, 64, True, None, None),
                    (2, 64, 64, 4, 4, 128, True, None, None),
                    (1, 70, 90, 4, 2, 32, False, None, None),
@@ -954,8 +965,35 @@ FLASH_BWD_CASES = [(2, 100, 100, 4, 2, 64, True, None, None),
                    (2, 128, 128, 4, 2, 64, True, 16, None),
                    (2, 96, 96, 2, 1, 64, True, None, 30.0),
                    (1, 64, 64, 2, 1, 256, True, None, None),
-                   (1, 130, 130, 8, 2, 128, True, 37, 5.0)]
+                   (1, 130, 130, 8, 2, 128, True, 37, 5.0),
+                   (2, 200, 200, 8, 8, 128, True, None, None),
+                   (1, 333, 129, 8, 4, 128, True, None, None),
+                   (2, 77, 301, 8, 2, 64, False, None, None),
+                   (1, 100, 257, 4, 2, 128, True, None, None),
+                   (1, 260, 260, 8, 2, 128, True, 50, 3.0),
+                   (2, 190, 190, 4, 1, 64, False, None, 5.0),
+                   (1, 150, 70, 4, 2, 32, True, 20, None),
+                   (16, 600, 600, 8, 4, 64, True, None, None)]
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _bwd_inputs(case, dtype, dev):
+    N, S, T, H, KV, d = case[:6]
+    g = torch.Generator(device=dev).manual_seed(sum(case[:6]))
+    q = torch.randn((N, S, H, d), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((N, T, KV, d), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    dout = torch.randn((N, S, H, d), generator=g, device=dev).to(dtype)
+    return q, k, v, dout
+
+
+def _assert_grads_close(got, want, dtype):
+    tol = FLASH_BWD_TOL[dtype]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        diff = (a.float() - b.float()).abs()
+        assert bool((diff <= tol + tol * b.float().abs()).all()), (
+            name, diff.max().item())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -964,32 +1002,24 @@ def test_flash_backward_kernel_matches_plain(card, case, dtype):
     """dq, dk, dv of the backward kernel against the plain backward
     (autograd through the plain version) within tol + tol |plain|, and two
     runs bitwise equal (no atomics)."""
-    N, S, T, H, KV, d = case[:6]
     kw = dict(zip(("causal", "window", "softcap"), case[6:]))
-    g = torch.Generator(device=card).manual_seed(sum(case[:6]))
-    q = torch.randn((N, S, H, d), generator=g, device=card).to(dtype)
-    k, v = (torch.randn((N, T, KV, d), generator=g, device=card).to(dtype)
-            for _ in range(2))
-    dout = torch.randn((N, S, H, d), generator=g, device=card).to(dtype)
+    q, k, v, dout = _bwd_inputs(case, dtype, card)
     out, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
     _, want_lse = fa_ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
     got = fa_ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
     again = fa_ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
     want = fa_ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
-    tol = FLASH_BWD_TOL[dtype]
-    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
-        assert a.dtype == dtype and a.shape == b.shape, name
-        diff = (a.float() - b.float()).abs()
-        assert bool((diff <= tol + tol * b.float().abs()).all()), (
-            name, diff.max().item())
+    _assert_grads_close(got, want, dtype)
+    for name, a, c in zip(("dq", "dk", "dv"), got, again):
         assert torch.equal(a, c), name
 
 
 def test_flash_autograd_launches_the_backward_kernel(card):
     """Autograd through ``flash_attention`` on the card: the forward (with
-    its log-sum-exp) and the backward kernel launch once each; a forward
-    without a gradient writes no log-sum-exp and gives the same output."""
+    its log-sum-exp) and the backward kernel launch once each, the backward
+    on the wgmma route (bf16, d 64); a forward without a gradient writes no
+    log-sum-exp and gives the same output."""
     g = torch.Generator(device=card).manual_seed(5)
     q = torch.randn((2, 64, 4, 64), generator=g, device=card,
                     dtype=torch.bfloat16, requires_grad=True)
@@ -997,9 +1027,12 @@ def test_flash_autograd_launches_the_backward_kernel(card):
                         dtype=torch.bfloat16, requires_grad=True)
             for _ in range(2))
     f0, b0 = fa_ops.launches, fa_ops.bwd_launches
+    r0 = dict(fa_ops.bwd_route_launches)
     out = fa_ops.flash_attention(q, k, v)
     out.float().square().sum().backward()
     assert (fa_ops.launches - f0, fa_ops.bwd_launches - b0) == (1, 1)
+    assert fa_ops.bwd_route_launches == {
+        r: n + (r == "wgmma") for r, n in r0.items()}
     with torch.no_grad():
         plain = fa_ops.flash_attention(q, k, v)
     assert torch.equal(plain, out.detach())
@@ -1008,6 +1041,116 @@ def test_flash_autograd_launches_the_backward_kernel(card):
     for a, b in zip((q.grad, k.grad, v.grad), want):
         assert bool(((a.float() - b.float()).abs()
                      <= 2e-2 + 2e-2 * b.float().abs()).all())
+
+
+# (dtype, head dim) -> the route the backward takes (ops.bwd_route)
+FLASH_BWD_ROUTES = [(torch.bfloat16, 128, "wgmma"),
+                    (torch.bfloat16, 64, "wgmma"),
+                    (torch.bfloat16, 32, "wgmma"),
+                    (torch.bfloat16, 256, "fma"),
+                    (torch.float32, 128, "fma")]
+
+
+@pytest.mark.parametrize("dtype,d,route", FLASH_BWD_ROUTES)
+def test_flash_backward_takes_its_route(card, dtype, d, route):
+    """Each call counts one backward launch, on its route's counter only,
+    and agrees with the plain backward; the fp32-FMA kernels run bf16 too
+    when asked (the old kernel, timed beside the new)."""
+    case = (2, 150, 150, 4, 2, d, True, None, None)
+    q, k, v, dout = _bwd_inputs(case, dtype, card)
+    out, lse = fa_ops.flash_attention_lse(q, k, v)
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, dout)
+    assert fa_ops.bwd_route(dtype, d)[0] == route
+    fma = ("fma", fa_ops.bwd_route(torch.float32, d)[1])
+    for took, run in (
+            (route, lambda: fa_ops.flash_attention_bwd(q, k, v, out, dout,
+                                                       lse)),
+            ("fma", lambda: fa_ops._backward(q, k, v, out, dout, lse, fma,
+                                             True, None, None))):
+        b0, r0 = fa_ops.bwd_launches, dict(fa_ops.bwd_route_launches)
+        got = run()
+        torch.cuda.synchronize()
+        assert fa_ops.bwd_launches == b0 + 1
+        assert fa_ops.bwd_route_launches == {
+            r: n + (r == took) for r, n in r0.items()}
+        _assert_grads_close(got, want, dtype)
+
+
+def test_flash_backward_reads_strided_views_in_place(card):
+    """bf16 q/k/v as views of one fused (N, S, 3, H, 128) projection and a
+    cotangent that is a view too: the wgmma route reads them through their
+    strides (TMA) and agrees with the plain backward; an expanded cotangent
+    (stride 0) is copied first."""
+    qkv = torch.randn(2, 150, 3, 4, 128, device=card).bfloat16()
+    q, k, v = qkv.unbind(2)
+    k, v = k[:, :, :2], v[:, :, :2]
+    douts = torch.randn(2, 150, 2, 4, 128, device=card).bfloat16()
+    kw = dict(window=40, softcap=4.0)
+    out, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
+    for dout in (douts[:, :, 1], douts[0, 0, 0, 0].expand(2, 150, 4, 128)):
+        assert fa_ops._rows_aligned(dout) == (dout.stride(0) != 0)
+        got = fa_ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+        want = fa_ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
+        _assert_grads_close(got, want, torch.bfloat16)
+
+
+# sha256 of the wgmma forward's output and log-sum-exp on numpy-seeded bf16
+# inputs (every row sees a key), as the forward kernel gave them before its
+# tensor maps moved into csrc/tma_map.cuh (read from the earlier kernel on
+# an NVIDIA H100 80GB HBM3): the move must leave every bit as it was
+FLASH_FWD_DIGESTS = {
+    (2, 300, 300, 8, 2, 128, True, None, None):
+        "b2502fcf1234d1ab8d1b3d6ea0f01f61e45eb7d50ea5bb38f7ca4f673564ff04",
+    (1, 200, 333, 4, 4, 64, False, 50, 5.0):
+        "de5b5aa68caf47a2e89d002e234e5c0cdded22408b7df6ff6ba9235a5869690c",
+    (2, 190, 190, 8, 2, 32, True, None, None):
+        "e88e53e28eae44c61f5c9e8fd0a08a69fc75a564ea944aa6d45f5f760de04d5f",
+}
+
+
+def flash_forward_digest(case, dev) -> str:
+    """sha256 of ``flash_attention_lse``'s output and log-sum-exp, and of
+    ``flash_attention``'s output (which must equal the former), for bf16
+    inputs made from a numpy seed."""
+    import hashlib
+    N, S, T, H, KV, d = case[:6]
+    kw = dict(zip(("causal", "window", "softcap"), case[6:]))
+    rng = np.random.RandomState(1234)
+    q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+               .bfloat16().to(dev)
+               for shape in ((N, S, H, d), (N, T, KV, d), (N, T, KV, d)))
+    out, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
+    assert torch.equal(fa_ops.flash_attention(q, k, v, **kw), out)
+    h = hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes())
+    h.update(lse.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("case", list(FLASH_FWD_DIGESTS))
+def test_flash_forward_is_bitwise_what_it_was(card, case):
+    assert flash_forward_digest(case, card) == FLASH_FWD_DIGESTS[case]
+
+
+def test_group_gather_holds_its_output_once(card):
+    """A data-group all-gather on a (data=2, model=4) stack (the ZeRO-1
+    update's): ``groups`` writes each group's result into the one output,
+    so the call's peak stays under 1.75x the output (the output, one
+    group's result and its concatenated message: 1.375x here)."""
+    from repro_torch.launch import mesh as mesh_mod
+    data = Communicator.from_mesh(mesh_mod.make_test_mesh(2, 4),
+                                  ("data", "model")).split("data")
+    x = torch.randn(8, 1 << 22, device=card)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    out = collectives.all_gather(x, data, CommConfig(), axis=0, tiled=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(card) - base
+    assert out.shape == (8, 2 << 22)
+    assert peak < 1.75 * out.numel() * out.element_size(), peak
+    for d in range(2):
+        assert torch.equal(out.view(2, 4, -1)[d],
+                           torch.cat((x[:4], x[4:]), dim=1))
 
 
 def test_ssd_backward_raises_on_the_card(card):

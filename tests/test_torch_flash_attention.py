@@ -16,9 +16,11 @@ once).  The CUDA kernel is held against this plain version on the card at
 the same tolerances (``tests/test_torch_cuda.py``, ``cuda`` marker).
 
 The head dim the wrapper pads to by dtype, which picks the kernel
-(``padded_head_dim``), the rule by which it reads a view in place or
-copies it (TMA's alignment), and the build loader's naming of a library by
-all its sources are checked here too; the kernels themselves run only on the card.
+(``padded_head_dim``), the backward's route by dtype and head dim
+(``bwd_route``), the rule by which either reads a view in place or copies
+it (TMA's alignment), and the build loader's naming of a library by all
+its sources are checked here too; the kernels themselves run only on the
+card.
 
 JAX runs in this process (one CPU device suffices): no subprocess."""
 import jax.numpy as jnp
@@ -145,6 +147,64 @@ def test_tma_alignment_rule():
     assert not ops._rows_aligned(t.float()[..., ::2])
 
 
+# (dtype, head dim) -> the backward's route and the head dim it pads to:
+# bf16 up to 128 runs wgmma + TMA (at 64 or 128, as the forward pads); f32
+# (held to 1e-4: no tensor-core type keeps it) and bf16 over 128 run the
+# fp32-FMA kernels
+BWD_ROUTES = {("bf16", 16): ("wgmma", 64), ("bf16", 32): ("wgmma", 64),
+              ("bf16", 64): ("wgmma", 64), ("bf16", 100): ("wgmma", 128),
+              ("bf16", 128): ("wgmma", 128), ("bf16", 200): ("fma", 256),
+              ("bf16", 256): ("fma", 256), ("f32", 16): ("fma", 16),
+              ("f32", 48): ("fma", 64), ("f32", 128): ("fma", 128),
+              ("f32", 256): ("fma", 256)}
+
+
+@pytest.mark.parametrize("dtype,d", list(BWD_ROUTES))
+def test_backward_route_by_dtype_and_head_dim(dtype, d):
+    tdt = DTYPES[dtype][0]
+    route, dp = ops.bwd_route(tdt, d)
+    assert (route, dp) == BWD_ROUTES[(dtype, d)]
+    if route == "wgmma":
+        assert dp == ops.padded_head_dim(tdt, d)
+    else:
+        assert dp in ops.BWD_HEAD_DIMS
+
+
+# bf16 (N, S, H, d) operands as the backward may receive them
+BWD_VIEWS = {
+    "contiguous": lambda: torch.randn(2, 64, 4, 128).bfloat16(),
+    "fused_qkv": lambda: torch.randn(2, 64, 3, 4, 128).bfloat16()[:, :, 1],
+    "offset_start": lambda: torch.randn(
+        1 + 2 * 64 * 4 * 128).bfloat16()[1:].view(2, 64, 4, 128),
+    "odd_row_stride": lambda: torch.randn(
+        2, 64, 4, 129).bfloat16()[..., :128],
+    "expanded_head": lambda: torch.randn(
+        2, 64, 1, 128).bfloat16().expand(-1, -1, 4, -1),
+    "expanded_all": lambda: torch.ones(()).bfloat16().expand(2, 64, 4, 128),
+    "head_dim_outer": lambda: torch.randn(
+        2, 64, 128, 4).bfloat16().transpose(2, 3),
+}
+
+
+@pytest.mark.parametrize("view", list(BWD_VIEWS))
+def test_backward_reads_in_place_by_the_forward_rule(view):
+    """The wgmma backward reads an operand in place exactly when the
+    forward's rule (``_rows_aligned``) lets TMA read it, and copies it
+    otherwise; the fp32-FMA route reads contiguous tensors; a padded head
+    dim is a zero-padded copy either way."""
+    t = BWD_VIEWS[view]()
+    got = ops._bwd_operand(t, 128, "wgmma")
+    assert (got is t) == ops._rows_aligned(t)
+    assert ops._rows_aligned(got) and torch.equal(got, t)
+    fma = ops._bwd_operand(t, 128, "fma")
+    assert fma.is_contiguous() and torch.equal(fma, t)
+    for route in ("wgmma", "fma"):
+        padded = ops._bwd_operand(t[..., :100], 128, route)
+        assert padded.is_contiguous() and padded.shape[-1] == 128
+        assert torch.equal(padded[..., :100], t[..., :100])
+        assert not padded[..., 100:].any()
+
+
 def test_library_build_name_covers_sources(tmp_path):
     """A build is named by every file under ``csrc/`` and the nvcc flags: an
     edited header or a new file names another build, so a stale library is
@@ -163,6 +223,42 @@ def test_library_build_name_covers_sources(tmp_path):
     second = lib.digest()
     (csrc / "more.cuh").write_text("\n")
     assert lib.digest() != second
+
+
+def test_library_build_log_lies_beside_the_library(tmp_path, monkeypatch):
+    """The build's log (ptxas registers and spills) is saved beside the
+    library, so a later process that loads the same build reads it back
+    without building; a library found without its log is built again.  A
+    C compiler stands in for nvcc."""
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "kern" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "k.cu").write_text("int k(void) { return 7; }\n")
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\n'
+                    f'echo built >> "{tmp_path}/builds"\n'
+                    'while [ "$1" != "-o" ]; do shift; done\n'
+                    'echo "ptxas info    : Used 40 registers"\n'
+                    'exec cc -shared -fPIC -x c -o "$2" "$3"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
+
+    def builds() -> int:
+        return len((tmp_path / "builds").read_text().split())
+
+    first = _build.Library(csrc / "k.cu", lambda lib: None)
+    assert first.load().k() == 7
+    assert "Used 40 registers" in first.log and first.seconds > 0
+    assert first.path().with_suffix(".log").read_text() == first.log
+    again = _build.Library(csrc / "k.cu", lambda lib: None)
+    again.load()
+    assert (again.log, again.seconds, builds()) == (first.log, 0.0, 1)
+    first.path().with_suffix(".log").unlink()
+    third = _build.Library(csrc / "k.cu", lambda lib: None)
+    third.load()
+    assert (third.log, builds()) == (first.log, 2)
+    assert sorted(p.name for p in first.build_dir.iterdir()) == sorted(
+        (first.path().name, first.path().with_suffix(".log").name))
 
 
 # the backward is held to 1e-4 in float32 (a gradient sums more products

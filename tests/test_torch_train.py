@@ -351,6 +351,32 @@ def test_communicator_split_and_groups():
                                                                 (4,))
 
 
+@pytest.mark.parametrize("axis", ["data", "model"])
+def test_communicator_groups_put_results_on_their_rows(axis):
+    """``groups`` puts each group's result on that group's rows, exactly as
+    stacking the results (then the stacks) did, and autograd passes through
+    it the same: ``fn`` gathers its group's rows to every rank of it, so
+    the result is wider than the input."""
+    mesh = mesh_mod.make_test_mesh(2, 4)
+    comm = Communicator.from_mesh(mesh, ("data", "model")).split(axis)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(8, 3, generator=g, requires_grad=True)
+
+    def fn(v, c):
+        return 2.0 * v.reshape(1, -1).expand(v.shape[0], -1)
+
+    outer, n, inner = comm._layout()
+    xv = x.reshape(outer, n, inner, 3)
+    want = torch.stack([torch.stack([fn(xv[o, :, i], None)
+                                     for i in range(inner)], dim=1)
+                        for o in range(outer)]).reshape(8, 3 * n)
+    got = comm.groups(x, fn)
+    assert torch.equal(got, want)
+    ct = torch.randn(got.shape, generator=g)
+    (dg,), (dw,) = (torch.autograd.grad(t, x, ct) for t in (got, want))
+    assert torch.equal(dg, dw)
+
+
 def test_launch_mesh_constructors():
     m = mesh_mod.make_test_mesh(2, 4)
     assert (m.dp, m.tp, m.n_ranks, m.axis_names) == (2, 4, 8,
