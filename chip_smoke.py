@@ -23,7 +23,8 @@ exits non-zero:
    (270,886 elements) on 48 stacked ranks — under the fused, overlapped and
    host-scheduled configurations for 200 steps (20-step segments): final
    states bitwise equal, mass drift, finiteness, and the kernel launch
-   counts; then one fused run with the plain version, against the kernel run,
+   counts (each graph replay counts its steps' launches: 1 a step fused
+   and host, 2 overlapped, after one eager warm-up step per capture); then one fused run with the plain version, against the kernel run,
    and a profile of one fused and one overlapped segment (device time by
    kernel, ``swe_step``'s passes among them);
 4. routing: the 1696-element mesh on a 2x4 torus (8 ranks) and the full size
@@ -115,7 +116,24 @@ exits non-zero:
    process, bitwise equal to the uninterrupted run; ``rank_lost@3=r7``
    re-formed onto ``(data=1, model=4)`` by ``elastic_restore``, re-selected
    from phase 5's TuneDB with no sweep, twice, bitwise equal; and the
-   smoke config (f32) trained on the card against the CPU;
+   smoke config (f32) trained on the card against the CPU; then the SSD
+   scan's backward kernel (deterministic, five kernels a call) against the
+   plain backward (autograd through the plain version) at the unit shapes
+   (f32) and at the training shape (tp 4 x dp 2 x batch 4 = 8 x 4
+   sequences, 6 heads, 2048 tokens, head dim 64, state 128, chunk 128;
+   bf16 and f32, the model's steep decay and a shallow one, against the
+   plain backward in float64), two runs bitwise equal, timed beside the
+   plain backward and its bound, its kernels profiled (before phase 3,
+   beside the other kernels); then mamba2-130m at full width and depth
+   (24 layers, bf16, random weights from seed 0, ``(data=2, model=4)``,
+   ZeRO-1, 8 x 2048 tokens a step) trained 8 steps through
+   ``examples/train_lm_torch.py`` (the loss falls; ms/step, tokens/s and
+   peak memory; SSD forward and backward launches per step exact; the
+   backward's share of one profiled step); the first step's loss and
+   gradients through the SSD kernels against the plain version through the
+   first layer (the full-depth gap printed); ``preempt@4`` drained and
+   resumed by a fresh process, bitwise equal; and mamba2's smoke config
+   (f32) trained on the card against the CPU;
 10. a ``kernels:`` line, the kernel table as one JSON line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -865,10 +883,30 @@ def faults_name(f) -> str:
             f"reorder={f.reorder})")
 
 
-def kernel_counts(fn) -> dict:
-    """Kernel launches by name over one profiled call of ``fn`` (graph
-    replays included)."""
-    return {key: count for _, count, key in device_rows(profiled(fn)[0])}
+def kernel_counts(fn, graph, tries: int = 5) -> dict:
+    """Kernel launches by name over one profiled call of ``fn`` (already
+    warm), which replays ``graph`` (captured under
+    ``scheduler.keeping_topology()``).  A complete profile holds one device
+    record per host launch call plus one per kernel, copy and set node of
+    the graph, both counted exactly; the profiler drops records now and
+    then (never adds one), so a profile that holds fewer is taken again,
+    up to ``tries`` times, and only a complete one is read."""
+    nodes = graph.node_counts()
+    work = nodes["KERNEL"] + nodes["MEMCPY"] + nodes["MEMSET"]
+    for i in range(tries):
+        prof, _ = profiled(fn)
+        rows = device_rows(prof)
+        calls = sum(e.count for e in prof.key_averages()
+                    if e.key.startswith(LAUNCH_CALLS)) - LEAD_IN
+        recorded = sum(r[1] for r in rows)
+        check(recorded <= calls + work, f"the profiler recorded {recorded} "
+              f"device ops, more than the {calls} launch calls and {work} "
+              f"graph nodes ({dict(nodes)}) of the call")
+        if recorded == calls + work:
+            return {key: count for _, count, key in rows}
+        log(f"[wire] profile {i + 1} recorded {recorded} of {calls} launch "
+            f"calls + {work} graph nodes: records dropped, taken again")
+    check(False, f"no complete profile in {tries} tries")
 
 
 def segment_runner(driver, sim):
@@ -914,7 +952,7 @@ def phase_reliable_wire(driver, sim, want_state) -> None:
     """The reliable wire on the main path at full size: fused, overlapped
     and host under four reliability cells, each run bitwise equal to the
     lossless one; kernel counts of one profiled fused segment per cell."""
-    from repro_torch.core import reliable
+    from repro_torch.core import reliable, scheduler
     from repro_torch.core.config import (BASELINE_CONFIG, OVERLAPPED_CONFIG,
                                          CommConfig)
     t_phase = time.perf_counter()
@@ -950,14 +988,14 @@ def phase_reliable_wire(driver, sim, want_state) -> None:
     for cell, (rel, faults) in wire_cells().items():
         msim = dataclasses.replace(sim, comm_cfg=dataclasses.replace(
             modes["fused"], reliability=rel))
-        with reliable.inject(faults):
+        with reliable.inject(faults), scheduler.keeping_topology():
             for _ in range(STEPS // N_INNER):   # builds, as run_wire_cell
                 run, tape = segment_runner(driver, msim)
                 state = run(msim.state, 0.0)    # its plans are drawn now
                 if tape.extra_slots or faults is None:
                     break
-        counts[cell] = kernel_counts(lambda: run(state, N_INNER *
-                                                 msim.swe.dt))
+        counts[cell] = kernel_counts(
+            lambda: run(state, N_INNER * msim.swe.dt), run.graph)
         extras[cell] = tape.extra_slots
     check(counts["guaranteed"] == counts["best_effort"],
           "a clean GUARANTEED segment launches other kernels than "
@@ -1992,9 +2030,9 @@ FLASH_BWD_GRID = [
 # bf16, random weights from seed 0, (data=2, model=4) stacked, ZeRO-1,
 # global batch 8 x 1024 tokens of the synthetic corpus
 TRAIN_STEPS = 8
-TRAIN_ARGV = ["--full-size", "--layers", "4", "--dp", "2", "--tp", "4",
-              "--seq", "1024", "--batch", "8", "--steps", str(TRAIN_STEPS),
-              "--lr", "3e-4", "--seed", "0"]
+TRAIN_ARGV = ["--arch", "qwen3-8b", "--full-size", "--layers", "4", "--dp",
+              "2", "--tp", "4", "--seq", "1024", "--batch", "8", "--steps",
+              str(TRAIN_STEPS), "--lr", "3e-4", "--seed", "0"]
 # tests/test_distributed_parity.py's bounds (smoke config, f32)
 TRAIN_GRAD_TOL, TRAIN_LOSS_TOL, TRAIN_PARAM_REL = 1e-4, 5e-4, 8e-3
 
@@ -2101,15 +2139,63 @@ def _release():
     torch.cuda.empty_cache()
 
 
-def _leaf_gap(a_tree, b_tree) -> float:
-    """The largest leaf's max|a - b| / max|b|."""
+def _leaf_gap(a_tree, b_tree, floor: float = 0.0) -> float:
+    """The largest leaf's max|a - b| / max|b| (or over ``floor``, where that
+    is larger)."""
     from repro_torch.optim import adamw
     gap = 0.0
     for (_, a), (_, b) in zip(adamw.leaves_with_names(a_tree),
                               adamw.leaves_with_names(b_tree)):
         a, b = a.float(), b.float().to(a.device)
-        gap = max(gap, ((a - b).abs().max() / (b.abs().max() + 1e-12)).item())
+        gap = max(gap, ((a - b).abs().max()
+                        / max(b.abs().max().item() + 1e-12, floor)).item())
     return gap
+
+
+def drain_and_resume(ex, argv, want, ckpt, tag, dev) -> None:
+    """``preempt@4`` through ``ex`` (examples/train_lm_torch.py) with
+    ``argv``: the run drains after 4 steps (an emergency save of params and
+    Adam moments into ``ckpt``), a fresh process resumes it to the end, and
+    the joined loss stream must equal ``want``, the uninterrupted run's,
+    bitwise."""
+    from repro_torch.runtime.faults import FaultInjector, FaultSchedule
+    argv = argv + ["--ckpt-dir", str(ckpt), "--ckpt-every", "1000"]
+    t0 = time.perf_counter()
+    res = ex.run(ex.parser().parse_args(argv), log=lambda *_: None,
+                 faults=FaultInjector(FaultSchedule.parse("preempt@4")))
+    part1 = res["history"]
+    del res
+    _release()
+    drain_s = time.perf_counter() - t0
+    check(len(part1) == 4, f"[{tag}] preempt@4 drained after {len(part1)} "
+          f"steps")
+    gib = 2.0**30
+    free = torch.cuda.mem_get_info(dev)[0] / gib
+    log(f"[{tag}] before the resume: this process holds "
+        f"{torch.cuda.memory_reserved(dev) / gib:.2f} GiB reserved, the card "
+        f"{free:.2f} GiB free")
+    t0 = time.perf_counter()
+    out = ckpt.parent / f"{ckpt.name}_resumed.json"
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve().parent / "examples"
+                             / "train_lm_torch.py"), *argv, "--resume",
+         "--json", str(out)], capture_output=True,
+        text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                            / "src")))
+    resume_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"[{tag}] the resumed process failed:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    resumed = json.loads(out.read_text())
+    part2 = resumed["history"]
+    check(part1 + part2 == want,
+          f"[{tag}] drain + resume {part1 + part2} differs from the "
+          f"uninterrupted run {want}")
+    log(f"[{tag}] preempt@4: drained after 4 steps ({drain_s:.1f} s with the "
+        f"emergency save of params and Adam moments); a fresh process "
+        f"resumed and trained 4 more ({resume_s:.1f} s, peak "
+        f"{resumed['peak_bytes'] / 1e9:.2f} GB); the joined stream is "
+        f"bitwise equal to the uninterrupted run")
 
 
 def phase_train(dev, db_path) -> dict:
@@ -2124,7 +2210,6 @@ def phase_train(dev, db_path) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.quant import ops as qops
     from repro_torch.launch import mesh as mesh_mod, setup
-    from repro_torch.models import sharding
     from repro_torch.obs import metrics as obs_metrics, trace as obs_trace
     from repro_torch.optim import adamw
     from repro_torch.runtime import fault_tolerance as ft
@@ -2262,41 +2347,8 @@ def phase_train(dev, db_path) -> dict:
     _release()
 
     # -- preemption: drain at step 4, a fresh process resumes -------------
-    pre = root / "preempt"
-    argv = TRAIN_ARGV + ["--ckpt-dir", str(pre), "--ckpt-every", "1000"]
-    t0 = time.perf_counter()
-    res = ex.run(ex.parser().parse_args(argv), log=quiet,
-                 faults=FaultInjector(FaultSchedule.parse("preempt@4")))
-    part1 = res["history"]
-    del res
-    _release()
-    drain_s = time.perf_counter() - t0
-    check(len(part1) == 4, f"preempt@4 drained after {len(part1)} steps")
-    free = torch.cuda.mem_get_info(dev)[0] / gib
-    log(f"[train] before the resume: this process holds "
-        f"{torch.cuda.memory_reserved(dev) / gib:.2f} GiB reserved, the card "
-        f"{free:.2f} GiB free")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve().parent / "examples"
-                             / "train_lm_torch.py"), *argv, "--resume",
-         "--json", str(root / "resumed.json")], capture_output=True,
-        text=True, timeout=600,
-        env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
-                                            / "src")))
-    resume_s = time.perf_counter() - t0
-    check(proc.returncode == 0, f"the resumed process failed:\n"
-          f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
-    resumed = json.loads((root / "resumed.json").read_text())
-    part2 = resumed["history"]
-    check(part1 + part2 == out["same"]["history"],
-          f"drain + resume {part1 + part2} differs from the uninterrupted "
-          f"run {out['same']['history']}")
-    log(f"[train] preempt@4: drained after 4 steps ({drain_s:.1f} s with the "
-        f"emergency save of params and Adam moments); a fresh process "
-        f"resumed and trained 4 more ({resume_s:.1f} s, peak "
-        f"{resumed['peak_bytes'] / 1e9:.2f} GB); the joined stream is "
-        f"bitwise equal to the uninterrupted run")
+    drain_and_resume(ex, TRAIN_ARGV, out["same"]["history"], root / "preempt",
+                     "train", dev)
 
     # -- rank loss: elastic re-selection onto (data=1, model=4) -----------
     reg = obs_metrics.registry()
@@ -2347,14 +2399,179 @@ def phase_train(dev, db_path) -> dict:
         "tune.model_reselects moved")
 
     # -- the smoke config (f32) on the card against the CPU ----------------
+    train_smoke_vs_cpu(dev, "qwen3-8b", dict(lr=1e-2, warmup_steps=1,
+                                             total_steps=100), TRAIN_GRAD_TOL)
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# ----------------------------------------------------------------------
+# Training mamba2-130m: the SSD backward kernel and the model at full width
+# ----------------------------------------------------------------------
+
+# the training shape: 8 stacked ranks x 4 sequences (dp 2 x tp 4, batch 8),
+# 6 heads per rank, 2048 tokens in 16 chunks of 128, head dim 64, state 128
+SSD_TRAIN = (8, 4, 2048, 6, 64, 128, 128)
+# mamba2-130m at full width and depth, bf16, random weights from seed 0,
+# (data=2, model=4) stacked, ZeRO-1, 8 x 2048 tokens of the synthetic corpus
+# a step: the Mamba2 paper's context
+SSM_TRAIN_ARGV = ["--arch", "mamba2-130m", "--full-size", "--layers", "24",
+                  "--dp", "2", "--tp", "4", "--seq", "2048", "--batch", "8",
+                  "--steps", str(TRAIN_STEPS), "--lr", "3e-4", "--seed", "0"]
+# the first step's loss and every gradient leaf, through the kernels
+# against the plain version, through the model's first SSM_GATE_LAYERS
+# layer(s) of the same full-width weights (random-weight mamba2 is chaotic
+# with depth: the full-depth gap is printed, not gated): the loss within
+# 1e-2 of itself (qwen3's gate), each leaf within 5e-2 of its max|grad|
+# (the serving gate's share; the bf16 model rounds y, B and C to bf16, so
+# an f32-level difference in the scan moves elements by a bf16 step)
+SSM_TRAIN_LOSS_REL, SSM_TRAIN_GRAD_REL = 1e-2, 5e-2
+# mamba2's smoke config (f32) on the card against the CPU, the bounds of
+# tests/test_torch_train_ssm.py: the JAX package's mamba2 gradient bound
+# (tests/test_distributed_parity.py), and 3 AdamW steps at Adam eps 1 with
+# a leaf that starts at zero held against 3 lr (why: that file's OC)
+SSM_SMOKE_GRAD_TOL = 2e-3
+SSM_SMOKE_OC = dict(lr=1e-2, warmup_steps=1, total_steps=100, eps=1.0)
+
+
+def ssd_bwd_work(case, itemsize: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of the scan's backward on these inputs: per chunk,
+    C·Bᵀ over the i >= j triangle once per (rank, batch, group); per head
+    dy·xᵀ, (C·Bᵀ o D)ᵀ·dy (dx), Zᵀ·C (dB) and Z·B (dC) over the triangle, and
+    five N x P products over the chunk (Cᵀ·dy for the hand-off, C·h and
+    dy·hᵀ, B·g and x·gᵀ); x, B, C (itemsize), dt, A and dy (f32) read once,
+    dx, dB, dC (itemsize), ddt and dA (f32) written once."""
+    R, B, S, H, P, N, L = case
+    G, nc, tri = 1, S // L, L * (L + 1) // 2
+    flops = (R * B * G * nc * 2 * tri * N
+             + R * B * H * nc * (4 * tri * (P + N) + 10 * L * N * P))
+    rows, bc = R * B * S * H, R * B * S * G * N
+    nbytes = (itemsize * 2 * (rows * P + 2 * bc)
+              + 4 * (2 * rows + 2 * R * H + rows * P))
+    return flops, nbytes
+
+
+def _ssd_grads(fn, inp, chunk, dy, dh=None):
+    """(dx, ddt, dA, dB, dC) of ``<y, dy> + <h_final, dh>`` through ``fn``."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inp]
+    y, h = fn(*leaves, chunk)
+    loss = (y * dy).sum() + ((h * dh).sum() if dh is not None else 0.0)
+    return torch.autograd.grad(loss, leaves)
+
+
+def phase_ssd_bwd_kernel(dev, flush, bw) -> dict:
+    """The SSD backward kernel against the plain backward (autograd of the
+    plain version) at the unit shapes (f32, per element, with and without a
+    cotangent of h_final) and at the training shape (bf16 and f32, under
+    the model's steep decay and a shallow one, against the plain backward
+    in float64), two runs bitwise equal; timed at the training shape in
+    bf16 beside the plain backward and its bound (no PyTorch call computes
+    the scan's gradient), its five kernels profiled."""
+    from repro_torch.kernels.ssd_scan import ops as ssd, ref
+    gen = torch.Generator(device=dev).manual_seed(6)
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    worst = 0.0
+    for case in SSD_GRID:
+        inp = ssd_inputs(case, torch.float32, gen, dev)
+        dy = torch.randn(inp[0].shape, generator=gen, device=dev)
+        R, B, _, H, P, N, L = case
+        dh = torch.randn((R, B, H, N, P), generator=gen, device=dev)
+        for cot in (None, dh):
+            got = _ssd_grads(ssd.ssd_chunked, inp, L, dy, cot)
+            again = _ssd_grads(ssd.ssd_chunked, inp, L, dy, cot)
+            want = _ssd_grads(ref.ssd_chunked_ref, inp, L, dy, cot)
+            for name, g, a, w in zip(names, got, again, want):
+                diff = (g - w).abs()
+                err = diff.max().item()
+                check(bool((diff <= SSD_TOL + SSD_TOL * w.abs()).all()),
+                      f"ssd backward {case} {name}: max|kernel - plain| "
+                      f"{err} over {SSD_TOL} + {SSD_TOL} |plain|")
+                check(torch.equal(g, a), f"ssd backward {case} {name}: two "
+                      f"runs differ")
+                worst = max(worst, err)
+    log(f"[ssd-bwd] kernel vs plain backward on {len(SSD_GRID)} unit shapes "
+        f"(f32, with and without a cotangent of h_final): max|err| "
+        f"{worst:.3e} (tol {SSD_TOL} + {SSD_TOL} |plain|); two runs bitwise "
+        f"equal")
+    L = SSD_TRAIN[-1]
+    for dtype in (torch.bfloat16, torch.float32):
+        for decay, steep in (("steep", True), ("shallow", False)):
+            inp = ssd_inputs(SSD_TRAIN, dtype, gen, dev, serving=steep)
+            dy = torch.randn(inp[0].shape, generator=gen, device=dev)
+            got = _ssd_grads(ssd.ssd_chunked, inp, L, dy)
+            again = _ssd_grads(ssd.ssd_chunked, inp, L, dy)
+            plain = _ssd_grads(ref.ssd_chunked_ref, inp, L, dy)
+            exact = _ssd_grads(ref.ssd_chunked_ref,
+                               [t.double() for t in inp], L, dy.double())
+            for name, g, a, p, e in zip(names, got, again, plain, exact):
+                err_k = (g.double() - e).abs().max().item()
+                err_p = (p.double() - e).abs().max().item()
+                bound = (SSD_F64_SLACK * err_p
+                         + SSD_F64_FLOOR * e.abs().max().item())
+                check(err_k <= bound, f"ssd backward training shape {dtype} "
+                      f"{decay} {name}: kernel off float64 by {err_k}, over "
+                      f"{bound} (f32 plain off by {err_p})")
+                check(torch.equal(g, a), f"ssd backward training shape "
+                      f"{dtype} {decay} {name}: two runs differ")
+                log(f"[ssd-bwd] training shape {dtype} {decay} decay {name}: "
+                    f"max|kernel - f64| {err_k:.3e}, max|plain f32 - f64| "
+                    f"{err_p:.3e} (bound {bound:.3e})")
+                worst = max(worst, (g.float() - p.float()).abs().max().item())
+            del got, again, plain, exact
+            _release()
+    times = {}
+    for decay, steep in (("steep", True), ("shallow", False)):
+        inp = ssd_inputs(SSD_TRAIN, torch.bfloat16, gen, dev, serving=steep)
+        dy = torch.randn(inp[0].shape, generator=gen, device=dev)
+        _, _, states, cum = ssd._forward(*inp, L, keep=True)
+        bwd = lambda: ssd._backward(*inp, states, cum, L, dy, None)  # noqa
+        smi_sample("ssd-bwd")
+        times[decay] = time_ms(bwd, flush)
+        if steep:
+            leaves = [t.detach().clone().requires_grad_(True) for t in inp]
+            y, _ = ref.ssd_chunked_ref(*leaves, L)
+            times["plain"] = time_ms(lambda: torch.autograd.grad(
+                y, leaves, dy, retain_graph=True), flush)
+            del y, leaves
+            profile_device_time("ssd-bwd", bwd)
+        smi_sample("ssd-bwd")
+        del states, cum
+        _release()
+    flops, nbytes = ssd_bwd_work(SSD_TRAIN, 2)
+    ops_ms, bytes_ms = flops / BF16_FLOP_PER_S * 1e3, nbytes / bw * 1e3
+    out = dict(ms=times["steep"], plain_ms=times["plain"], library_ms=None,
+               bound_ms=max(ops_ms, bytes_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               max_abs_err=worst, shallow_ms=times["shallow"])
+    log(f"[ssd-bwd] training shape {SSD_TRAIN} bf16, steep decay: kernel "
+        f"{out['ms'] * 1e3:.2f} us, plain backward {out['plain_ms'] * 1e3:.2f}"
+        f" us, bound {out['bound_ms'] * 1e3:.2f} us ({flops / 1e9:.2f} GFLOP "
+        f"at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB at "
+        f"{bw / 1e12:.2f} TB/s: {out['bound_by']}); kernel at "
+        f"{100 * out['bound_ms'] / out['ms']:.1f} % of its bound; library "
+        f"call: none; at the shallow decay (no product skipped) kernel "
+        f"{out['shallow_ms'] * 1e3:.2f} us")
+    return out
+
+
+def train_smoke_vs_cpu(dev, arch, oc_kw, grad_tol, param_floor=0.0) -> None:
+    """``arch``'s smoke config (f32) on a (2, 2) stack, ZeRO-1: the first
+    step's gradients and 3 AdamW steps on the card against the CPU, within
+    ``grad_tol`` of each leaf's max|grad|, TRAIN_LOSS_TOL on the losses and
+    TRAIN_PARAM_REL of each leaf's max|param| (or ``param_floor``, where
+    that is larger)."""
     from repro_torch.configs import get_smoke_config
-    scfg = dataclasses.replace(get_smoke_config("qwen3-8b"),
-                               dtype=torch.float32)
+    from repro_torch.core.config import CommConfig
+    from repro_torch.launch import mesh as mesh_mod, setup
+    from repro_torch.models import sharding
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as ts
+    scfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
     rng = np.random.RandomState(0)
     batch = {"tokens": rng.randint(0, scfg.vocab_size, (4, 32)),
              "labels": rng.randint(0, scfg.vocab_size, (4, 32))}
-    soc = adamw.OptConfig(lr=1e-2, warmup_steps=1, total_steps=100,
-                          zero1=True)
+    soc = adamw.OptConfig(zero1=True, **oc_kw)
     runs, full = {}, None
     for where in ("cpu", dev):
         s = setup.build_session(scfg, mesh_mod.make_test_mesh(2, 2),
@@ -2371,16 +2588,143 @@ def phase_train(dev, db_path) -> dict:
         runs[str(where)] = (losses, sharding.unshard_params(g, scfg, 2),
                             setup.global_params(s, p))
     (lc, gc_, pc), (lk, gk, pk) = runs["cpu"], runs[str(dev)]
-    gap_g, gap_p = _leaf_gap(gk, gc_), _leaf_gap(pk, pc)
+    gap_g = _leaf_gap(gk, gc_)
+    gap_p = _leaf_gap(pk, pc, param_floor)
     gap_l = max(abs(a - b) for a, b in zip(lk, lc))
-    check(gap_g < TRAIN_GRAD_TOL and gap_l < TRAIN_LOSS_TOL
+    check(gap_g < grad_tol and gap_l < TRAIN_LOSS_TOL
           and gap_p < TRAIN_PARAM_REL,
-          f"smoke training on the card vs the CPU: grad {gap_g}, loss "
+          f"{arch} smoke training on the card vs the CPU: grad {gap_g}, loss "
           f"{gap_l}, params {gap_p}")
-    log(f"[train] smoke config (f32, (2, 2), ZeRO-1) on the card vs the CPU: "
-        f"first-step gradients {gap_g:.3e} of max|grad| (tol "
-        f"{TRAIN_GRAD_TOL}), losses {gap_l:.3e} (tol {TRAIN_LOSS_TOL}), "
-        f"params after 3 steps {gap_p:.3e} (tol {TRAIN_PARAM_REL})")
+    log(f"[train] {arch} smoke config (f32, (2, 2), ZeRO-1) on the card vs "
+        f"the CPU: first-step gradients {gap_g:.3e} of max|grad| (tol "
+        f"{grad_tol}), losses {gap_l:.3e} (tol {TRAIN_LOSS_TOL}), params "
+        f"after 3 steps {gap_p:.3e} (tol {TRAIN_PARAM_REL})")
+
+
+def phase_train_ssm(dev) -> dict:
+    """mamba2-130m training at full width and depth through
+    ``examples/train_lm_torch.py`` (the main path: the SSD kernels' counts
+    are zeroed just before it and read just after), the backward's share
+    of one profiled step, kernel vs plain SSD on the first step through the
+    first SSM_GATE_LAYERS layer(s), preemption with a fresh-process resume,
+    and the smoke config against the CPU."""
+    import tempfile
+    from repro_torch.core.config import CommConfig
+    from repro_torch.data.pipeline import SyntheticLM, DataConfig
+    from repro_torch.device import deterministic
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.launch import mesh as mesh_mod, setup
+    from repro_torch.models.common import Runtime
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as ts
+
+    ex = load_example("train_lm_torch")
+    probe = load_example("ssm_fault_probe_torch")
+    step_ms = load_example("train_ab_torch").step_ms
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_ssm_"))
+    args = ex.parser().parse_args(SSM_TRAIN_ARGV)
+    cfg = ex.model_config(args)
+    L, tokens = cfg.n_layers, args.batch * args.seq
+
+    # -- the main path ----------------------------------------------------
+    _release()
+    obs_trace.configure("1")
+    ssd.launches = ssd.bwd_launches = 0
+    res = ex.run(ex.parser().parse_args(
+        SSM_TRAIN_ARGV + ["--ckpt-dir", str(root / "main"),
+                          "--ckpt-every", "1000"]), log=log)
+    counts = dict(fwd=ssd.launches, bwd=ssd.bwd_launches)
+    ms, n_spans = step_ms(obs_trace.events())
+    obs_trace.configure("0")
+    hist = res["history"]
+    del res["session"]
+    _release()
+    check(len(hist) == TRAIN_STEPS and n_spans == TRAIN_STEPS,
+          f"mamba2 training: {len(hist)} steps, {n_spans} spans")
+    check(all(math.isfinite(x) for x in hist) and hist[-1] < hist[0],
+          f"mamba2 training: loss {hist}")
+    check(counts["fwd"] == TRAIN_STEPS * L * 2
+          and counts["bwd"] == TRAIN_STEPS * L,
+          f"mamba2 training: SSD launches {counts}, want "
+          f"{TRAIN_STEPS * L * 2} forward (remat recomputes each block) and "
+          f"{TRAIN_STEPS * L} backward")
+    out = dict(history=hist, ms=ms, counts=counts, peak=res["peak_bytes"])
+    log(f"[train-ssm] mamba2-130m {L} layers, (data=2, model=4), ZeRO-1, "
+        f"8 x {args.seq} tokens: loss {hist[0]:.4f} -> {hist[-1]:.4f} over "
+        f"{len(hist)} steps; {ms:.1f} ms/step (median of steps 2-"
+        f"{TRAIN_STEPS}), {tokens / ms * 1e3:.0f} tokens/s; peak "
+        f"{res['peak_bytes'] / 1e9:.2f} GB; {res['seconds']:.1f} s in all; "
+        f"SSD launches per step: forward {counts['fwd'] // TRAIN_STEPS}, "
+        f"backward {counts['bwd'] // TRAIN_STEPS}")
+
+    # -- where a step's device time goes: one profiled step after a warm one
+    oc = adamw.OptConfig(lr=args.lr, warmup_steps=20, total_steps=args.steps,
+                         zero1=True)
+    mesh = mesh_mod.make_test_mesh(args.dp, args.tp)
+    src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                                 global_batch=args.batch))
+    sess = setup.build_session(cfg, mesh, CommConfig(), oc=oc, seed=0,
+                               device=dev)
+    step = setup.make_sharded_train_step(sess)
+    p, o, _ = step(sess.params, sess.opt_state, src.batch_at(0))
+    prof = profile_device_time("train-ssm", lambda: step(p, o,
+                                                         src.batch_at(1)))
+    bwd_ms = sum(us for us, _, key in prof["rows"] if "ssd_bwd" in key) / 1e3
+    fwd_ms = sum(us for us, _, key in prof["rows"]
+                 if "ssd_" in key and "ssd_bwd" not in key) / 1e3
+    out.update(busy_ms=prof["busy_ms"], bwd_ms=bwd_ms, fwd_ms=fwd_ms)
+    log(f"[train-ssm] one profiled step: the card busy "
+        f"{100 * prof['busy_ms'] / prof['wall_ms']:.1f} % of its wall time; "
+        f"the SSD backward's kernels {bwd_ms:.3f} ms of it "
+        f"({100 * bwd_ms / prof['busy_ms']:.1f} % of the busy time), the "
+        f"forward's {fwd_ms:.3f} ms")
+    del p, o, step
+    sess.opt_state = None
+    _release()
+
+    # -- the first step through the kernels and through the plain version --
+    stacked = setup.shard_batch(sess, src.batch_at(0))
+    cut = dataclasses.replace(cfg, n_layers=SSM_GATE_LAYERS)
+    cut_params = dict(sess.params, layers={
+        k: v[:SSM_GATE_LAYERS] if torch.is_tensor(v) else
+        {kk: vv[:SSM_GATE_LAYERS] for kk, vv in v.items()}
+        for k, v in sess.params["layers"].items()})
+    gaps = {}
+    for label, rt, params in (
+            ("cut", Runtime(cfg=cut, mesh=sess.rt.mesh, comm=sess.rt.comm),
+             cut_params),
+            ("full", sess.rt, sess.params)):
+        lg = ts.make_loss_and_grad(rt)
+        with deterministic():
+            loss_k, _, g_k = lg(params, stacked)
+            loss_p, _, g_p = probe.through(lambda: lg(params, stacked))
+        gaps[label] = ((loss_k - loss_p).abs().max().item()
+                       / abs(loss_p[0].item()), _leaf_gap(g_k, g_p),
+                       loss_k[0].item(), loss_p[0].item())
+        del g_k, g_p, lg
+        _release()
+    cl, cg, lk, lp = gaps["cut"]
+    log(f"[train-ssm] first step through the SSD kernels vs the plain "
+        f"version, the first {SSM_GATE_LAYERS} layer(s): loss {lk:.6f} vs "
+        f"{lp:.6f} ({cl:.3e} of it; bound {SSM_TRAIN_LOSS_REL}), largest "
+        f"gradient leaf gap {cg:.3e} of its max|grad| (bound "
+        f"{SSM_TRAIN_GRAD_REL}); all {L} layers (not gated): loss "
+        f"{gaps['full'][0]:.3e}, gradients {gaps['full'][1]:.3e}")
+    check(cl <= SSM_TRAIN_LOSS_REL and cg <= SSM_TRAIN_GRAD_REL,
+          f"mamba2 first step through the kernels vs plain: loss {cl}, "
+          f"gradients {cg}")
+    out["gate"] = gaps
+    del sess, stacked, cut_params
+    _release()
+
+    # -- preemption: drain at step 4, a fresh process resumes -------------
+    drain_and_resume(ex, SSM_TRAIN_ARGV, hist, root / "preempt", "train-ssm",
+                     dev)
+
+    # -- the smoke config (f32) on the card against the CPU ----------------
+    train_smoke_vs_cpu(dev, "mamba2-130m", SSM_SMOKE_OC, SSM_SMOKE_GRAD_TOL,
+                       param_floor=3 * SSM_SMOKE_OC["lr"])
     import shutil
     shutil.rmtree(root, ignore_errors=True)
     return out
@@ -2417,8 +2761,9 @@ def main() -> int:
     build_all({"swe_step": swe_ops.LIBRARY, "quant": quant_ops.LIBRARY,
                "flash_attention": flash_ops.LIBRARY,
                "flash_attention_bwd": flash_ops.BWD_LIBRARY,
-               "ssd_scan": ssd_ops.LIBRARY})
-    log(f"[build] the five libraries built and loaded in "
+               "ssd_scan": ssd_ops.LIBRARY,
+               "ssd_scan_bwd": ssd_ops.BWD_LIBRARY})
+    log(f"[build] the six libraries built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     bw = card_bandwidth(name)
     swe_ptxas = ptxas_summary(swe_ops.LIBRARY.log)
@@ -2427,6 +2772,12 @@ def main() -> int:
     # dK/dV kernels at each
     check_wgmma_build("flash forward", flash_ops.LIBRARY, 2)
     check_wgmma_build("flash backward", flash_ops.BWD_LIBRARY, 4)
+    ssd_bwd_ptxas = ptxas_summary(ssd_ops.BWD_LIBRARY.log)
+    check(len(ssd_bwd_ptxas) == 7 and not any(
+        k.get("spill_stores") or k.get("spill_loads")
+        for k in ssd_bwd_ptxas.values()),
+        f"the SSD backward's kernels spill: {ssd_bwd_ptxas}")
+    log(f"[build] SSD backward registers and spills: {ssd_bwd_ptxas}")
 
     # -- 2. kernel against its plain version ----------------------------
     max_err = 0.0
@@ -2506,16 +2857,21 @@ def main() -> int:
     flash_timing = phase_flash_kernel(dev, flush, bw)
     ssd_timing = phase_ssd_kernel(dev, flush, bw)
     flash_bwd_timing = phase_flash_bwd_kernel(dev, flush, bw)
+    ssd_bwd_timing = phase_ssd_bwd_kernel(dev, flush, bw)
     _release()
 
     # -- 3. main path at full size -------------------------------------
-    modes = (("fused", CommConfig(), 1 + N_INNER),
-             ("overlapped", OVERLAPPED_CONFIG, 2 + 2 * N_INNER),
-             ("host", BASELINE_CONFIG, STEPS))
+    # (label, config, swe_step launches of the eager warm-up step that
+    # builds a segment's graph, launches per step): the counter counts the
+    # graph's replays, every step's launches
+    modes = (("fused", CommConfig(), 1, 1),
+             ("overlapped", OVERLAPPED_CONFIG, 2, 2),
+             ("host", BASELINE_CONFIG, 0, 1))
     m0 = mass(sim, sim.state)
     finals, launches_by_mode, step_us = {}, {}, {}
     swe_ops.launches = 0
-    for label, cfg, want_launches in modes:
+    for label, cfg, warm_launches, per_step_launches in modes:
+        want_launches = warm_launches + per_step_launches * STEPS
         msim = dataclasses.replace(sim, comm_cfg=cfg)
         before = swe_ops.launches
         if cfg.scheduling == Scheduling.HOST:
@@ -2533,18 +2889,16 @@ def main() -> int:
         check(bool(torch.isfinite(state).all()), f"{label}: non-finite state")
         check(abs(drift) < MASS_DRIFT, f"{label}: mass drift {drift}")
     main_launches = swe_ops.launches
-    # a graph captures N_INNER steps after one eager warm-up step; the host
-    # runner launches every step
-    per_step = {label: launches_by_mode[label] / (
-        STEPS if label == "host" else N_INNER + 1) for label in step_us}
+    per_step = {label: (launches_by_mode[label] - warm) / STEPS
+                for label, _, warm, _ in modes}
     log(f"[main] swe_step launches per step: {per_step}")
     for label in ("overlapped", "host"):
         check(torch.equal(finals[label], finals["fused"]),
               f"{label} final state differs from fused")
     log(f"[main] fused, overlapped and host final states bitwise equal; "
-        f"swe_step launched {main_launches} times (a captured launch counts "
-        f"once; each fused/overlapped graph replays it {N_INNER} or "
-        f"{2 * N_INNER} times per segment)")
+        f"swe_step launched {main_launches} times (each replay of a "
+        f"{N_INNER}-step graph counts its {N_INNER} or {2 * N_INNER} "
+        f"launches; one eager warm-up step before each capture)")
     plain_state, plain_us = run_fused(driver, sim,
                                       update=swe_ref.swe_step_ref)
     diff = (plain_state - finals["fused"]).abs().max().item()
@@ -2597,6 +2951,8 @@ def main() -> int:
     # -- 9. training ---------------------------------------------------
     train = phase_train(dev, db_path)
     train_counts = train["same"]["counts"]
+    train_ssm = phase_train_ssm(dev)
+    ssm_counts = train_ssm["counts"]
 
     # -- 10. summary ---------------------------------------------------
     log(f"kernels: swe_step launches={main_launches} "
@@ -2611,7 +2967,9 @@ def main() -> int:
         f"flash_attention_bwd launches={train_counts['bwd']} (training, "
         f"{train_counts['bwd_wgmma']} on the wgmma route)"
         + "".join(f"; {k} launches={train['int8']['counts'][k]} (training, "
-                  f"int8 gradient wire)" for k in ("quantize", "dequantize")))
+                  f"int8 gradient wire)" for k in ("quantize", "dequantize"))
+        + f"; ssd_scan launches={ssm_counts['fwd']} (mamba2 training), "
+        f"ssd_scan_bwd launches={ssm_counts['bwd']} (mamba2 training)")
     full, boundary = timings["full pass"], timings["boundary rows"]
     rows = [{
         "name": "swe_step", "route": "cuda",
@@ -2647,7 +3005,8 @@ def main() -> int:
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:74",
-        "launches": ssd_launches, **ssd_timing})
+        "launches": ssd_launches, "training_launches": ssm_counts["fwd"],
+        **ssd_timing})
     rows.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2657,6 +3016,15 @@ def main() -> int:
                     "reference, having no backward kernel)",
         "launches": train_counts["bwd"],
         "wgmma_launches": train_counts["bwd_wgmma"], **flash_bwd_timing})
+    rows.append({
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:74 (its "
+                    "gradient; the JAX package differentiates its jnp "
+                    "reference, src/repro/models/ssm.py:72, having no "
+                    "backward kernel)",
+        "launches": ssm_counts["bwd"], "ptxas": ssd_bwd_ptxas,
+        **ssd_bwd_timing})
     log(json.dumps({"kernels": rows}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ok": True, "device": {

@@ -28,9 +28,9 @@ from pathlib import Path
 
 # chip_smoke.py's training main path, with no checkpoint (a full-width
 # save is 17 GB of disk writes and runs beside the timed steps)
-TRAIN_FLAGS = ["--full-size", "--layers", "4", "--dp", "2", "--tp", "4",
-               "--seq", "1024", "--batch", "8", "--steps", "8", "--lr",
-               "3e-4", "--seed", "0", "--ckpt-every", "1000"]
+TRAIN_FLAGS = ["--arch", "qwen3-8b", "--full-size", "--layers", "4", "--dp",
+               "2", "--tp", "4", "--seq", "1024", "--batch", "8", "--steps",
+               "8", "--lr", "3e-4", "--seed", "0", "--ckpt-every", "1000"]
 
 
 def step_ms(events) -> tuple[float, int]:

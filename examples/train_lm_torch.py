@@ -14,13 +14,13 @@ flash-attention kernels, forward and backward, and the step runs under
 deterministic algorithms (``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA
 starts).
 
-``--arch`` defaults to qwen3-8b, not the reference example's mamba2-130m:
-the SSD scan has no backward kernel yet, so the ssm family cannot train on
-the card (its backward raises there; see ROADMAP.md Queue 1).  Without
-``--full-size`` the model is a ~100M-parameter reduction of the family in
-float32, as in the reference; ``--full-size`` takes the published widths
-in bf16 at ``--layers`` layers (full qwen3-8b does not fit training on one
-80 GB card).
+``--arch`` defaults to mamba2-130m, as the reference example does: on the
+card its SSD scan runs the hand-written CUDA forward and backward kernels
+(``--seq`` must be whole SSD chunks: 128 with ``--full-size``, 32
+without).  Without ``--full-size`` the model is a ~100M-parameter
+reduction of the family in float32, as in the reference; ``--full-size``
+takes the published widths in bf16 at ``--layers`` layers (mamba2-130m's
+24 fit one 80 GB card, full qwen3-8b does not).
 """
 import os
 
@@ -52,7 +52,7 @@ GRAD_COMMS = {"same": None,
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=200)
-    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--arch", default="mamba2-130m")
     ap.add_argument("--full-size", action="store_true",
                     help="the published widths (bf16, --layers layers); "
                     "defaults to a ~100M-scale reduction in float32")

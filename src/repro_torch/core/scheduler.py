@@ -149,8 +149,10 @@ class CapturedGraph:
 
     Construction runs ``fn(*static)`` once eagerly, on a side stream (the
     warm-up: it builds the kernels and fills the plan caches, so that no
-    host-to-device copy happens during the capture); its result is
-    ``warm``, the answer of the call that built the graph.  Then it
+    host-to-device copy happens during the capture), or ``warm(*static)``
+    when given (a cheaper call that does the same: one step of a segment);
+    its result is ``warm``, the answer of the call that built the graph.
+    Then it
     captures ``fn(*static)`` into ``pool`` (a handle from another graph's
     ``pool``, which is safe where no graph's result must outlive another's
     replay; a private pool when ``None``).  A capture that fails raises.
@@ -164,13 +166,13 @@ class CapturedGraph:
     """
 
     def __init__(self, fn: Callable, static: Sequence = (), pool=None,
-                 span: str = "graph"):
+                 span: str = "graph", warm: Callable | None = None):
         self.fn, self.static, self.span = fn, tuple(static), span
         main = torch.cuda.current_stream()
         side = torch.cuda.Stream()
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            warm = fn(*self.static)
+            warm = (fn if warm is None else warm)(*self.static)
         main.wait_stream(side)
         # the warm-up's result is read on the caller's stream
         _tree_map(lambda t: t.record_stream(main), warm)

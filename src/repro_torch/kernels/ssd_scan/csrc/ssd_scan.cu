@@ -85,18 +85,13 @@
 
 #include <cstdint>
 
+#include "ssd_common.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;  // 8 warps
-constexpr int MAX_L = 128;    // chunk rows
-constexpr int MAX_N = 128;    // state size
-constexpr int MAX_P = 64;     // head dim
 constexpr int LDN = MAX_N + 8;  // bf16 per padded smem row of B or C
 constexpr int LDP = MAX_P + 8;  // bf16 per padded smem row of x, w.x, h
-// expf(x) is exactly 0 below this (e^-110 is far under f32's least
-// denormal): a block of products whose decays all lie below it adds 0
-constexpr float EXP_ZERO = -110.f;
-constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
   const void* x;
@@ -117,25 +112,6 @@ struct Args {
   long long cs0, cs1, cs2, cs3;
 };
 
-// v as TT bf16 terms of decreasing size, each the rounded remainder of the
-// ones before (the remainders are exact in f32); three rebuild an f32 to
-// ~2^-24, one is exact for a value that came from bf16
-template <int TT>
-__device__ __forceinline__ void split(float v, __nv_bfloat16 (&t)[TT]) {
-  float r = v;
-#pragma unroll
-  for (int k = 0; k < TT; ++k) {
-    t[k] = __float2bfloat16_rn(r);
-    r = __fsub_rn(r, __bfloat162float(t[k]));
-  }
-}
-
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
-                                          __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16;
-}
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -152,16 +128,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
-}
-
-// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 accumulation
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // (d0 | d1) += A . B for A of TA terms and a B fragment pair (two n-tiles:

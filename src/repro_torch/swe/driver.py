@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.core import latmodel
 from repro_torch.core.config import CommConfig, Scheduling
+from repro_torch.core.scheduler import CapturedGraph
 from repro_torch.device import resolve_device
 from repro_torch.obs import trace as obs_trace
 from repro_torch.swe import dg_solver
@@ -254,37 +255,35 @@ def make_sim_runner(sim: Simulation, n_inner: int = 10, update=None):
 
 
 class _GraphSegment:
-    """An ``n_inner``-step segment captured as one CUDA graph.  The graph
-    reads its inputs through fixed addresses, so this object keeps every
-    tensor it reads alive: the step's constants and the static input buffers
-    that each call refills (the wire's index tensors live in the
-    process-long plan cache)."""
+    """An ``n_inner``-step segment captured as one CUDA graph
+    (:class:`~repro_torch.core.scheduler.CapturedGraph`, after one eager
+    step that builds the kernel and fills the plan caches: no host-to-device
+    copy may happen during capture).  The graph reads its inputs through
+    fixed addresses, so this object keeps every tensor it reads alive: the
+    step's constants, and the static state and time that each call refills
+    (the wire's index tensors live in the process-long plan cache).  The
+    kernels' ``launches`` and the ``comm.*``/``wire.*`` counters count each
+    replay, not the capture."""
 
     def __init__(self, sim, step, args, advance, n_inner, scheduling):
         self.args, self.step, self.tape = args, step, step.tape
         self.n_inner, self.scheduling = n_inner, scheduling
-        self.state_in = sim.state.clone()
-        self.t_in = torch.zeros((), dtype=torch.float32, device=sim.device)
-        # One eager step first: builds the kernel and fills the plan caches
-        # (no host-to-device copy may happen during capture).
-        warm = torch.cuda.Stream(sim.device)
-        warm.wait_stream(torch.cuda.current_stream(sim.device))
-        with torch.cuda.stream(warm):
-            step(self.state_in, self.t_in, **args)
-        torch.cuda.current_stream(sim.device).wait_stream(warm)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.state_out = advance(self.state_in, self.t_in)
+        static = (sim.state.clone(),
+                  torch.zeros((), dtype=torch.float32, device=sim.device))
+        with torch.cuda.device(sim.device):
+            self.graph = CapturedGraph(
+                advance, static, span="swe.graph",
+                warm=lambda state, t: step(state, t, **args))
 
     def __call__(self, state, t):
         # Host span: the replay is asynchronous, so it covers the launch,
         # not completion — callers that need completion time synchronize.
         with obs_trace.span("swe.segment", cat="driver", steps=self.n_inner,
                             scheduling=self.scheduling):
-            self.state_in.copy_(state)
-            self.t_in.fill_(t)
-            self.graph.replay()
-            return self.state_out.clone()
+            state_in, t_in = self.graph.static
+            state_in.copy_(state)
+            t_in.fill_(t)
+            return self.graph.replay().clone()
 
 
 class HostScheduledRunner:

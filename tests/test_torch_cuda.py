@@ -34,7 +34,13 @@ The flash backward against the plain backward: 1e-4 (f32, the FMA route)
 and 2e-2 (bf16) in the form tol + tol |plain|, two runs bitwise equal; the
 route each dtype and head dim takes, by its launch counter; the forward's
 bits unchanged against digests of the forward kernel as it was before its
-tensor maps moved into a shared header."""
+tensor maps moved into a shared header.
+
+The SSD backward against autograd of the plain version: tol + tol |plain|
+with 1e-4 in float32 and, in bfloat16, 1e-4 + 2^-7 |plain| (dx, dB and dC
+leave in bf16: one rounding step); at the training head, under the
+model's steep decay and a shallow one, against the plain backward in
+float64, the forward's gate; two runs bitwise equal."""
 import dataclasses
 
 import numpy as np
@@ -204,6 +210,36 @@ def test_kernel_reads_unaligned_views(card):
         assert shifted[i].is_contiguous() and shifted[i].data_ptr() % 16
     got = _check_both_passes(shifted, _ragged_rows(P, E, card, seed=8))
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name,cfg,per_step", [
+    ("fused", CommConfig(), 1), ("overlapped", OVERLAPPED_CONFIG, 2)])
+def test_segment_graphs_count_their_replays(card, name, cfg, per_step):
+    """A segment runner's graph counts what its replays run: after k
+    replays of a 10-step segment, ``swe_step`` launches and
+    ``comm.exchange_rounds`` moved by k x 10 x the per-step count (the
+    eager warm-up step before the capture counts once, the capture not at
+    all)."""
+    from repro_torch.obs import metrics as obs_metrics
+    rounds = obs_metrics.registry().counter("comm.exchange_rounds")
+    sim = dataclasses.replace(driver.build_simulation(1696, 8, CommConfig()),
+                              comm_cfg=cfg)
+    # one eager step: the exchange rounds and launches of a step
+    l0, r0 = ops.launches, rounds.value
+    driver.make_step_fn(sim.pm, cfg, sim.swe)(sim.state, torch.zeros(
+        (), device=card), **driver._static_args(sim))
+    step_rounds = rounds.value - r0
+    assert ops.launches - l0 == per_step and step_rounds > 0
+    l0, r0 = ops.launches, rounds.value
+    run = driver.make_sim_runner(sim, 10)
+    assert (ops.launches - l0, rounds.value - r0) == (per_step, step_rounds)
+    state = sim.state
+    for k in range(1, 4):
+        state = run(state, 10 * DT * (k - 1))
+        assert ops.launches - l0 == per_step + 10 * k * per_step
+        assert rounds.value - r0 == step_rounds * (1 + 10 * k)
+    torch.cuda.synchronize()
+    assert torch.isfinite(state).all()
 
 
 def test_schedules_on_the_card(card):
@@ -1153,18 +1189,123 @@ def test_group_gather_holds_its_output_once(card):
                            torch.cat((x[:4], x[4:]), dim=1))
 
 
-def test_ssd_backward_raises_on_the_card(card):
-    """The SSD scan has no backward kernel: differentiating it on the card
-    raises, and never falls back to the plain version."""
-    g = torch.Generator(device=card).manual_seed(0)
-    x = torch.randn((1, 1, 16, 2, 8), generator=g, device=card,
-                    requires_grad=True)
-    dt = torch.rand((1, 1, 16, 2), generator=g, device=card)
-    A = -torch.rand((1, 2), generator=g, device=card)
-    B = torch.randn((1, 1, 16, 1, 8), generator=g, device=card)
-    y, _ = ssd_ops.ssd_chunked(x, dt, A, B, B.clone(), 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        y.sum().backward()
+# (R, B, S, H, G, P, N, chunk): G = 1 and G > 1, P and N that are no
+# multiple of 16 (the wrapper pads 12 -> 16, 20 -> 24), a single chunk, a
+# chunk that is no multiple of 16; mamba2-130m's training head is held in
+# float64 below (its decay's cumulative sums reach ~1e3, where two right
+# f32 orders differ by more than 1e-4)
+SSD_BWD_SHAPES = [
+    (1, 1, 32, 2, 1, 8, 8, 16),
+    (2, 1, 64, 3, 1, 16, 8, 16),
+    (1, 2, 48, 2, 1, 12, 20, 16),
+    (1, 1, 64, 4, 2, 32, 16, 64),
+    (2, 1, 120, 6, 3, 24, 40, 40),
+]
+# the kernel vs autograd of the plain version, tol + tol |plain|: 1e-4 in
+# f32 (the forward's bound); bf16 inputs make both compute in f32 from the
+# same values, but dx, dB and dC leave in bf16, where two f32 results a
+# rounding apart may round one bf16 step apart (2^-7 of |plain| at most)
+SSD_BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-4, 2**-7)}
+
+
+def _ssd_bwd_inputs(shape, dtype, card, steep=False):
+    R, B, S, H, G, P, N, chunk = shape
+    gen = torch.Generator(device=card).manual_seed(sum(shape))
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device=card)
+    if steep:   # the model's decay: dt = softplus(N(0, 1)), A to -16
+        dt = torch.nn.functional.softplus(rnd(R, B, S, H))
+        a = -torch.linspace(1.0, 16.0, R * H, device=card).view(R, H)
+    else:
+        dt, a = rnd(R, B, S, H).abs() * 0.1 + 0.01, -(rnd(R, H).abs() + 0.5)
+    return ((rnd(R, B, S, H, P).to(dtype), dt, a,
+             rnd(R, B, S, G, N).to(dtype), rnd(R, B, S, G, N).to(dtype)),
+            rnd(R, B, S, H, P), rnd(R, B, H, N, P))
+
+
+def _ssd_grads(fn, inp, chunk, dy, dh):
+    """(dx, ddt, dA, dB, dC) of <y, dy> + <h_final, dh> through ``fn``."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inp]
+    y, h = fn(*leaves, chunk)
+    loss = (y * dy).sum() + ((h * dh).sum() if dh is not None else 0.0)
+    return torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES)
+def test_ssd_backward_matches_plain(card, shape, dtype):
+    """The backward kernel against autograd of the plain version, with and
+    without a cotangent of h_final: every gradient within the bound, two
+    runs bitwise equal, one backward launch a call."""
+    inp, dy, dh = _ssd_bwd_inputs(shape, dtype, card)
+    atol, rtol = SSD_BWD_TOL[dtype]
+    for cot in (None, dh):
+        before = ssd_ops.bwd_launches
+        got = _ssd_grads(ssd_ops.ssd_chunked, inp, shape[-1], dy, cot)
+        again = _ssd_grads(ssd_ops.ssd_chunked, inp, shape[-1], dy, cot)
+        torch.cuda.synchronize()
+        assert ssd_ops.bwd_launches == before + 2
+        want = _ssd_grads(ssd_ref.ssd_chunked_ref, inp, shape[-1], dy, cot)
+        for name, g, a, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, again,
+                                 want):
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            assert torch.equal(g, a), f"{name}: two runs differ"
+            err = (g.float() - w.float()).abs()
+            assert (err <= atol + rtol * w.float().abs()).all(), (
+                name, err.max().item())
+
+
+@pytest.mark.parametrize("steep", [True, False], ids=["steep", "shallow"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_against_float64(card, dtype, steep):
+    """4 chunks of the training head under the model's steep decay and the
+    unit shapes' shallow one: against the plain backward in float64, each
+    gradient errs at most twice as much as the f32 plain backward plus 1e-6
+    of its max, the forward's gate."""
+    shape = (2, 2, 512, 6, 1, 64, 128, 128)
+    inp, dy, dh = _ssd_bwd_inputs(shape, dtype, card, steep=steep)
+    got = _ssd_grads(ssd_ops.ssd_chunked, inp, 128, dy, dh)
+    plain = _ssd_grads(ssd_ref.ssd_chunked_ref, inp, 128, dy, dh)
+    exact = _ssd_grads(ssd_ref.ssd_chunked_ref,
+                       [t.double() for t in inp], 128, dy.double(),
+                       dh.double())
+    for name, g, p, e in zip(("dx", "ddt", "dA", "dB", "dC"), got, plain,
+                             exact):
+        err_k = (g.double() - e).abs().max().item()
+        err_p = (p.double() - e).abs().max().item()
+        assert err_k <= 2 * err_p + 1e-6 * e.abs().max().item(), (
+            name, err_k, err_p)
+
+
+def test_ssd_backward_raises_and_never_falls_back(card, monkeypatch):
+    """The backward on the card runs the kernel or raises: with the plain
+    version made to raise it still answers; a library that does not build,
+    or a launch that fails, raises."""
+    shape = SSD_BWD_SHAPES[1]
+    inp, dy, _ = _ssd_bwd_inputs(shape, torch.float32, card)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(ssd_ref, "ssd_chunked_ref", refuse)
+    grads = _ssd_grads(ssd_ops.ssd_chunked, inp, shape[-1], dy, None)
+    assert all(torch.isfinite(g).all() for g in grads)
+
+    class Broken:
+        def __init__(self, fail_build):
+            self.fail_build = fail_build
+
+        def load(self):
+            if self.fail_build:
+                raise RuntimeError("nvcc failed")
+            return self
+
+        def ssd_scan_bwd_launch(self, *args):
+            return 1   # cudaErrorInvalidValue
+    for fail_build, match in ((True, "nvcc"), (False, "launch failed")):
+        monkeypatch.setattr(ssd_ops, "BWD_LIBRARY", Broken(fail_build))
+        before = ssd_ops.bwd_launches
+        with pytest.raises(RuntimeError, match=match):
+            _ssd_grads(ssd_ops.ssd_chunked, inp, shape[-1], dy, None)
+        assert ssd_ops.bwd_launches == before
 
 
 def test_train_steps_on_the_card_match_the_cpu(card):

@@ -18,10 +18,17 @@ of the products differ); 1e-3 against the naive recurrence, that test's
 bound.  The CUDA kernel is held against this plain version on the card
 (``tests/test_torch_cuda.py``, ``cuda`` marker).
 
+The backward: autograd of the plain version against ``jax.grad`` of the
+JAX model reference (dx, ddt, dA, dB, dC, with and without a cotangent of
+h_final), within the same 1e-4.
+
 The CUDA kernels' arithmetic is mirrored here in torch: the
 chunk-parallel decomposition (chunk states, the state hand-off, chunk
-outputs with C·Bᵀ once per group) against both references, also under the
-serving model's steep decay in float64; the three-term bf16 split of an
+outputs) against both references, also under the serving model's steep
+decay in float64; the backward kernel's passes (U_c, the hand-off in
+reverse, the per-group gradients and the row-order reverse cumsum) against
+autograd of the plain version, in f32 within 1e-4 and under the model's
+decay in float64; the three-term bf16 split of an
 f32 operand (it rebuilds f32 to 2^-24, and a split product stays inside
 ``chip_smoke.py``'s float64 gate); and the wrapper's padding of N and P to
 whole 16-byte vectors and its alignment rule.
@@ -196,22 +203,22 @@ def test_wrapper_rejects_what_the_scan_does_not_take():
 # decomposition and the three-term bf16 split
 # ---------------------------------------------------------------------
 
-def _three_pass(x, dt, A, B, C, chunk):
-    """The CUDA kernels' decomposition in plain torch (in x's float type):
-    pass 1, each chunk's running decay ``cum`` (a sequential sum, as the
-    kernels take it) and state ``S_c = B^T (exp(cum_last - cum) dt x)``;
-    pass 2, the hand-off ``h_c = exp(cum_last) h_{c-1} + S_c`` keeping each
-    chunk's incoming state; pass 3, ``y = ((C B^T) o exp(cum_i - cum_j)
-    dt_j)_{j <= i} x + exp(cum_i) C h_{c-1}`` with ``C B^T`` once per group
-    and the exponent masked before exp."""
+def _passes_1_2(x, dt, A, B, C, chunk):
+    """Passes 1 and 2 of the CUDA forward in plain torch (in x's float
+    type): each chunk's running decay ``cum`` (a sequential sum, as the
+    kernels take it) and state ``S_c = B^T (exp(cum_last - cum) dt x)``, and
+    the hand-off ``h_c = exp(cum_last) h_{c-1} + S_c`` keeping each chunk's
+    incoming state.  Returns ``cum (R, Bt, nc, L, H)``, the incoming states
+    ``(R, Bt, nc, H, N, P)``, ``h_final`` and the per-head views of x, dt,
+    B and C by chunk."""
     R, Bt, S, H, P = x.shape
     G, N = B.shape[3], B.shape[4]
     nc, hpg = S // chunk, H // G
     grp = torch.arange(H) // hpg
     xs = x.reshape(R, Bt, nc, chunk, H, P)
     dts = dt.reshape(R, Bt, nc, chunk, H)
-    Bs = B.reshape(R, Bt, nc, chunk, G, N)
-    Cs = C.reshape(R, Bt, nc, chunk, G, N)
+    Bs = B.reshape(R, Bt, nc, chunk, G, N)[..., grp, :]
+    Cs = C.reshape(R, Bt, nc, chunk, G, N)[..., grp, :]
     cum = torch.zeros_like(dts)
     run = torch.zeros_like(dts[:, :, :, 0])
     for i in range(chunk):                       # pass 1: row order
@@ -219,24 +226,36 @@ def _three_pass(x, dt, A, B, C, chunk):
         cum[:, :, :, i] = run
     last = cum[:, :, :, -1:]                     # (R, Bt, nc, 1, H)
     w = torch.exp(last - cum) * dts
-    states = torch.einsum("rbcjhn,rbcjh,rbcjhp->rbchnp", Bs[..., grp, :], w,
-                          xs)
+    states = torch.einsum("rbcjhn,rbcjh,rbcjhp->rbchnp", Bs, w, xs)
     h = torch.zeros_like(states[:, :, 0])       # pass 2
     incoming = []
     for c in range(nc):
         incoming.append(h)
         h = h * torch.exp(last[:, :, c, 0])[..., None, None] + states[:, :, c]
-    incoming = torch.stack(incoming, 2)         # (R, Bt, nc, H, N, P)
-    cb = torch.einsum("rbcign,rbcjgn->rbcijg", Cs, Bs)  # pass 3: per group
+    return cum, torch.stack(incoming, 2), h, (xs, dts, Bs, Cs)
+
+
+def _decay(cum, chunk):
+    """``D_ij = exp(cum_i - cum_j)`` for ``j <= i``, the exponent masked
+    before exp: ``(R, Bt, nc, i, j, H)``."""
     diff = cum[:, :, :, :, None, :] - cum[:, :, :, None, :, :]
     tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
-    decay = torch.exp(torch.where(tri[:, :, None], diff,
-                                  torch.full((), float("-inf"),
-                                             dtype=x.dtype)))
-    W = cb[..., grp] * decay * dts[:, :, :, None, :, :]
+    return torch.exp(torch.where(tri[:, :, None], diff, torch.full(
+        (), float("-inf"), dtype=cum.dtype)))
+
+
+def _three_pass(x, dt, A, B, C, chunk):
+    """The CUDA kernels' decomposition in plain torch (in x's float type):
+    passes 1 and 2 (:func:`_passes_1_2`), then pass 3, ``y = ((C B^T) o
+    exp(cum_i - cum_j) dt_j)_{j <= i} x + exp(cum_i) C h_{c-1}`` with the
+    exponent masked before exp."""
+    R, Bt, S, H, P = x.shape
+    cum, incoming, h, (xs, dts, Bs, Cs) = _passes_1_2(x, dt, A, B, C, chunk)
+    cb = torch.einsum("rbcihn,rbcjhn->rbcijh", Cs, Bs)  # pass 3
+    W = cb * _decay(cum, chunk) * dts[:, :, :, None, :, :]
     y = torch.einsum("rbcijh,rbcjhp->rbcihp", W, xs)
     y = y + torch.exp(cum)[..., None] * torch.einsum(
-        "rbcihn,rbchnp->rbcihp", Cs[..., grp, :], incoming)
+        "rbcihn,rbchnp->rbcihp", Cs, incoming)
     return y.reshape(R, Bt, S, H, P), h
 
 
@@ -334,3 +353,148 @@ def test_wrapper_pads_to_whole_vectors_and_copies_misaligned_rows():
     padded = ops._pad_last(torch.ones(2, 12), 16)
     assert padded.shape == (2, 16) and not padded[:, 12:].any()
     assert ops._pad_last(x, 8) is x
+
+
+# ---------------------------------------------------------------------
+# The backward: the plain version's autograd against jax.grad of the JAX
+# model reference, and the backward kernel's passes mirrored in torch
+# ---------------------------------------------------------------------
+
+def _cotangents(B, S, H, P, N, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, S, H, P).astype(np.float32),
+            rng.randn(B, H, N, P).astype(np.float32))
+
+
+def _plain_grads(inp, chunk, dy, dh):
+    """(dx, ddt, dA, dB, dC) of ``<y, dy> + <h_final, dh>`` through the
+    plain version (autograd), ``dh`` None for a zero cotangent."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inp]
+    y, h = ref.ssd_chunked_ref(*leaves, chunk)
+    loss = (y * dy).sum() + ((h * dh).sum() if dh is not None else 0.0)
+    return torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("with_dh", [False, True], ids=["no_dh", "dh"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_backward_matches_jax_grad(case, with_dh):
+    """Autograd of the plain version against ``jax.grad`` of the JAX model
+    reference, for every input's gradient, with a zero and a nonzero
+    cotangent of h_final: within 1e-4, the SSD tolerance."""
+    import jax
+    B, S, H, P, N, chunk = CASES[case]
+    x, dt, a, b, c = _inputs(B, S, H, P, N, seed=11)
+    dy, dh = _cotangents(B, S, H, P, N, seed=12)
+    dh = dh if with_dh else np.zeros_like(dh)
+
+    def loss(*args):
+        y, h = jax_model_ref(*args, chunk)
+        return (y * dy).sum() + (h * dh).sum()
+    want = jax.grad(loss, argnums=tuple(range(5)))(
+        *(jnp.asarray(v) for v in (x, dt, a, b, c)))
+    got = _plain_grads([torch.from_numpy(v)[None] for v in (x, dt, a, b, c)],
+                       chunk, torch.from_numpy(dy)[None],
+                       torch.from_numpy(dh)[None] if with_dh else None)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        _close(g[0].numpy(), np.asarray(w), name)
+
+
+def _bwd_passes(x, dt, A, B, C, chunk, dy, dh=None):
+    """The backward kernel's passes in plain torch (in x's float type),
+    from the forward's ``cum`` and incoming states (:func:`_passes_1_2`):
+    b1, ``U_c = C^T (exp(cum) dy)``; b2, the hand-off in reverse, ``g_{c-1}
+    = exp(cum_last) g_c + U_c`` from ``g = dh``, keeping each chunk's
+    ``g_c``; b3, per (chunk, group), the rows-i pass (dC, the row sums of
+    ``W = (C B^T) o Z``, ``Z = D dt_j (dy x^T)``, the inter-chunk term) and
+    the rows-j pass (dx, dB, the column sums of W, the direct ddt, the
+    state terms), dB and dC summed over the group's heads; b4, the reverse
+    cumsum of dcum in row order, ddt and dA."""
+    R, Bt, S, H, P = x.shape
+    G, N = B.shape[3], B.shape[4]
+    nc, hpg = S // chunk, H // G
+    cum, hprev, _, (xs, dts, Bs, Cs) = _passes_1_2(x, dt, A, B, C, chunk)
+    dys = dy.reshape(R, Bt, nc, chunk, H, P)
+    last = cum[:, :, :, -1]                              # (R, Bt, nc, H)
+    ec = torch.exp(cum)
+    U = torch.einsum("rbcihn,rbcih,rbcihp->rbchnp", Cs, ec, dys)   # b1
+    g = torch.zeros_like(hprev[:, :, 0]) if dh is None else dh    # b2
+    gs = [None] * nc
+    for c in reversed(range(nc)):
+        gs[c] = g
+        g = g * torch.exp(last[:, :, c])[..., None, None] + U[:, :, c]
+    gc = torch.stack(gs, 2)
+    D = _decay(cum, chunk)                                          # b3
+    strict = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool),
+                        -1)[:, :, None]
+    cb = torch.einsum("rbcihn,rbcjhn->rbcijh", Cs, Bs)
+    M = torch.einsum("rbcihp,rbcjhp->rbcijh", dys, xs)
+    Z = D * dts[:, :, :, None, :, :] * M
+    W = cb * Z * strict
+    # rows i
+    dC = (torch.einsum("rbcijh,rbcjhn->rbcihn", Z, Bs)
+          + torch.einsum("rbcih,rbcihp,rbchnp->rbcihn", ec, dys, hprev))
+    dcum = W.sum(4) + ec * (dys * torch.einsum(
+        "rbcihn,rbchnp->rbcihp", Cs, hprev)).sum(-1)
+    # rows j
+    de = torch.exp(last[:, :, :, None] - cum)            # (R, Bt, nc, L, H)
+    V = torch.einsum("rbcjhn,rbchnp->rbcjhp", Bs, gc)
+    q = (V * xs).sum(-1)
+    dx = dts[..., None] * (torch.einsum("rbcijh,rbcihp->rbcjhp", cb * D, dys)
+                           + de[..., None] * V)
+    dB = (torch.einsum("rbcijh,rbcihn->rbcjhn", Z, Cs)
+          + torch.einsum("rbcjh,rbcjhp,rbchnp->rbcjhn", de * dts, xs, gc))
+    s = de * dts * q
+    dcum = dcum - W.sum(3) - s
+    ddt_direct = (cb * D * M).sum(3) + de * q
+    tail = s.sum(3) + torch.exp(last) * (hprev * gc).sum((-1, -2))
+    ddt = torch.zeros_like(dts)                                     # b4
+    rc, da = tail, torch.zeros_like(tail)
+    for j in reversed(range(chunk)):
+        rc = rc + dcum[:, :, :, j]
+        ddt[:, :, :, j] = ddt_direct[:, :, :, j] + rc * A[:, None, None, :]
+        da = da + rc * dts[:, :, :, j]
+    by_group = lambda t: t.reshape(R, Bt, S, G, hpg, N).sum(4)  # noqa: E731
+    return (dx.reshape(R, Bt, S, H, P), ddt.reshape(R, Bt, S, H),
+            da.sum((1, 2)), by_group(dB), by_group(dC))
+
+
+@pytest.mark.parametrize("with_dh", [False, True], ids=["no_dh", "dh"])
+@pytest.mark.parametrize("case", list(CASES) + ["groups"])
+def test_backward_passes_match_the_plain_backward(case, with_dh):
+    """The backward kernel's decomposition against autograd of the plain
+    version, in float32, within 1e-4; ``groups`` takes 2 B/C groups over 4
+    heads (head h reads group h // 2)."""
+    B_, S, H, P, N, chunk = CASES.get(case, (2, 64, 4, 16, 8, 16))
+    x, dt, a, b, c = _inputs(B_, S, H, P, N, seed=13)
+    if case == "groups":
+        rng = np.random.RandomState(14)
+        b, c = (rng.randn(B_, S, 2, N).astype(np.float32) for _ in range(2))
+    dy, dh = _cotangents(B_, S, H, P, N, seed=15)
+    inp = [torch.from_numpy(v)[None] for v in (x, dt, a, b, c)]
+    dy, dh = torch.from_numpy(dy)[None], torch.from_numpy(dh)[None]
+    dh = dh if with_dh else None
+    got = _bwd_passes(*inp, chunk, dy, dh)
+    want = _plain_grads(inp, chunk, dy, dh)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert g.shape == w.shape, name
+        _close(g.numpy(), w.numpy(), name)
+
+
+def test_backward_passes_under_the_models_decay():
+    """The training model's decay (dt = softplus(N(0, 1)), A =
+    -linspace(1, 16, H)) at 4 chunks of 128, in float64: the decomposition
+    equals autograd of the plain version to 1e-10 of each gradient's max."""
+    rng = np.random.RandomState(16)
+    B_, S, H, P, N, chunk = 1, 512, 4, 16, 32, 128
+    inp = [torch.from_numpy(v)[None] for v in (
+        rng.randn(B_, S, H, P), np.log1p(np.exp(rng.randn(B_, S, H))),
+        -np.linspace(1.0, 16.0, H), rng.randn(B_, S, 1, N),
+        rng.randn(B_, S, 1, N))]
+    dy = torch.from_numpy(rng.randn(1, B_, S, H, P))
+    dh = torch.from_numpy(rng.randn(1, B_, H, N, P))
+    got = _bwd_passes(*inp, chunk, dy, dh)
+    want = _plain_grads(inp, chunk, dy, dh)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert g.dtype == torch.float64, name
+        assert (g - w).abs().max().item() <= 1e-10 * w.abs().max().item(), \
+            name

@@ -392,8 +392,7 @@ def test_launch_mesh_constructors():
 
 
 def test_ssd_scan_autograd_on_the_cpu_is_the_plain_version():
-    """On CPU tensors the SSD wrapper differentiates its plain version (the
-    card raises instead: no backward kernel yet)."""
+    """On CPU tensors the SSD wrapper differentiates its plain version."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
     g = torch.Generator().manual_seed(0)
     R, Bt, S_, H, P, N, chunk = 1, 1, 16, 2, 4, 4, 8
@@ -411,7 +410,8 @@ def test_ssd_scan_autograd_on_the_cpu_is_the_plain_version():
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py",
-                                  "examples/train_lm_torch.py"])
+                                  "examples/train_lm_torch.py",
+                                  "examples/swe_ab_torch.py"])
 def test_scripts_import_no_jax_and_no_reference_package(path):
     """The card's scripts import nothing of JAX or of the JAX package (the
     port's modules are checked by ``test_torch_swe``)."""
