@@ -13,7 +13,9 @@ exits non-zero:
    kernel's ``-Xptxas -v`` registers and spills), and ``cuobjdump -sass``
    of the flash forward and backward libraries, which must hold HGMMA
    (wgmma) and UTMALDG (TMA) instructions; the backward's wgmma kernels
-   must spill nothing and draw no ptxas note of serialised wgmmas;
+   must spill nothing and draw no ptxas note of serialised wgmmas; the
+   SSD backward's eight kernels must spill nothing, its library must hold
+   HGMMA and LDSM (ldmatrix), no atomic, and draw no such note;
 2. every kernel held against its plain PyTorch version on the card, at the
    test shapes and at the main paths' full-size shapes (``swe_step`` with
    and without the boundary row list; ``quantize``/``dequantize`` at blocks
@@ -117,9 +119,10 @@ exits non-zero:
    re-formed onto ``(data=1, model=4)`` by ``elastic_restore``, re-selected
    from phase 5's TuneDB with no sweep, twice, bitwise equal; and the
    smoke config (f32) trained on the card against the CPU; then the SSD
-   scan's backward kernel (deterministic, five kernels a call) against the
+   scan's backward kernel (deterministic, five kernels a call; bf16 on
+   term planes, ldmatrix and wgmma, f32 on its first kernels) against the
    plain backward (autograd through the plain version) at the unit shapes
-   (f32) and at the training shape (tp 4 x dp 2 x batch 4 = 8 x 4
+   (f32 and bf16) and at the training shape (tp 4 x dp 2 x batch 4 = 8 x 4
    sequences, 6 heads, 2048 tokens, head dim 64, state 128, chunk 128;
    bf16 and f32, the model's steep decay and a shallow one, against the
    plain backward in float64), two runs bitwise equal, timed beside the
@@ -418,30 +421,36 @@ def sass_counts(library, opcodes) -> dict:
 PTXAS_WGMMA_NOTES = ("C7508", "C7512", "C7515", "C7517")
 
 
-def check_wgmma_build(name: str, library, n_wgmma: int) -> None:
-    """A flash library's registers and spills by kernel (from its build log,
+def check_wgmma_build(name: str, library, n: int, pick: str = "wgmma",
+                      require=("HGMMA", "UTMALDG"), forbid=()) -> dict:
+    """A library's registers and spills by kernel (from its build log,
     which lies beside the library when an earlier process built it) and the
-    HGMMA (wgmma), UTMALDG (TMA tensor load) and UBLKCP (bulk copy) counts
-    of its SASS; fails unless the SASS holds HGMMA and UTMALDG and its
-    ``n_wgmma`` wgmma kernels are there, spill nothing and drew no note of
-    serialised wgmmas from ptxas."""
+    counts of some opcodes in its SASS: HGMMA (wgmma), UTMALDG (TMA tensor
+    load), UBLKCP (bulk copy), HMMA (mma.sync), LDSM (ldmatrix), ATOM and
+    RED (atomics).  Fails unless each opcode of ``require`` is there and
+    none of ``forbid``, the ``n`` kernels whose names hold ``pick`` ("" for
+    every kernel) are there and spill nothing, and ptxas drew no note of
+    serialised wgmmas.  Returns the registers and spills."""
     check(bool(library.log), f"the {name} library has no build log")
     regs = ptxas_summary(library.log)
     log(f"[build] {name} registers and spills: {regs}")
-    sass = sass_counts(library, ("HGMMA", "UTMALDG", "UBLKCP", "HMMA"))
+    sass = sass_counts(library, ("HGMMA", "UTMALDG", "UBLKCP", "HMMA",
+                                 "LDSM", "ATOM", " RED"))
     log(f"[build] cuobjdump -sass of the {name} library: {sass}")
-    check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
-          f"the {name} library holds no wgmma (HGMMA) or TMA (UTMALDG) "
-          f"instruction")
-    wgmma = {k: v for k, v in regs.items() if "wgmma" in k}
-    check(len(wgmma) == n_wgmma and all(
+    check(all(sass[op] > 0 for op in require),
+          f"the {name} library lacks one of {require}: {sass}")
+    check(not any(sass[op] for op in forbid),
+          f"the {name} library holds one of {forbid}: {sass}")
+    picked = {k: v for k, v in regs.items() if pick in k}
+    check(len(picked) == n and all(
         v.get("spill_stores", 1) == 0 and v.get("spill_loads", 1) == 0
-        for v in wgmma.values()),
-        f"the {name} library's wgmma kernels ({n_wgmma} wanted) spill or are "
-        f"missing: {wgmma}")
+        for v in picked.values()),
+        f"the {name} library's kernels ({n} wanted) spill or are missing: "
+        f"{picked}")
     notes = [line.strip() for line in library.log.splitlines()
              if any(code in line for code in PTXAS_WGMMA_NOTES)]
     check(not notes, f"ptxas serialised the {name} library's wgmmas: {notes}")
+    return regs
 
 
 def quant_bytes(P: int, n: int, block: int, itemsize: int,
@@ -1780,6 +1789,11 @@ SSD_SERVE = (4, 8, 2048, 6, 64, 128, 128)
 # SSD_F64_SLACK times the f32 plain version's own error plus
 # SSD_F64_FLOOR * max|y|.
 SSD_F64_SLACK, SSD_F64_FLOOR = 2.0, 1e-6
+# the backward in bf16 against the plain backward at the unit shapes: tol +
+# 2^-7 |plain| (tests/test_torch_cuda.py's SSD_BWD_TOL: both compute in f32
+# from the same values, but dx, dB and dC leave in bf16, where two f32
+# results a rounding apart may round one bf16 step apart)
+SSD_BWD_BF16_RTOL = 2.0 ** -7
 SSM_ARGV = ["--arch", "mamba2-130m", "--tp", "4", "--batch", "8",
             "--prompt-len", "2048", "--gen", "64", "--requests", "16",
             "--comm", "static"]
@@ -2462,38 +2476,45 @@ def _ssd_grads(fn, inp, chunk, dy, dh=None):
 
 def phase_ssd_bwd_kernel(dev, flush, bw) -> dict:
     """The SSD backward kernel against the plain backward (autograd of the
-    plain version) at the unit shapes (f32, per element, with and without a
-    cotangent of h_final) and at the training shape (bf16 and f32, under
-    the model's steep decay and a shallow one, against the plain backward
-    in float64), two runs bitwise equal; timed at the training shape in
-    bf16 beside the plain backward and its bound (no PyTorch call computes
-    the scan's gradient), its five kernels profiled."""
+    plain version) at the unit shapes (f32, the mma.sync route, and bf16,
+    the wgmma route; per element, with and without a cotangent of h_final)
+    and at the training shape (bf16 and f32, under the model's steep decay
+    and a shallow one, against the plain backward in float64), two runs
+    bitwise equal; timed at the training shape in bf16 beside the plain
+    backward and its bound (no PyTorch call computes the scan's gradient),
+    its five kernels profiled.  ~13 s of the script's time; the bf16 unit
+    shapes add under a second."""
     from repro_torch.kernels.ssd_scan import ops as ssd, ref
     gen = torch.Generator(device=dev).manual_seed(6)
     names = ("dx", "ddt", "dA", "dB", "dC")
     worst = 0.0
-    for case in SSD_GRID:
-        inp = ssd_inputs(case, torch.float32, gen, dev)
-        dy = torch.randn(inp[0].shape, generator=gen, device=dev)
-        R, B, _, H, P, N, L = case
-        dh = torch.randn((R, B, H, N, P), generator=gen, device=dev)
-        for cot in (None, dh):
-            got = _ssd_grads(ssd.ssd_chunked, inp, L, dy, cot)
-            again = _ssd_grads(ssd.ssd_chunked, inp, L, dy, cot)
-            want = _ssd_grads(ref.ssd_chunked_ref, inp, L, dy, cot)
-            for name, g, a, w in zip(names, got, again, want):
-                diff = (g - w).abs()
-                err = diff.max().item()
-                check(bool((diff <= SSD_TOL + SSD_TOL * w.abs()).all()),
-                      f"ssd backward {case} {name}: max|kernel - plain| "
-                      f"{err} over {SSD_TOL} + {SSD_TOL} |plain|")
-                check(torch.equal(g, a), f"ssd backward {case} {name}: two "
-                      f"runs differ")
-                worst = max(worst, err)
-    log(f"[ssd-bwd] kernel vs plain backward on {len(SSD_GRID)} unit shapes "
-        f"(f32, with and without a cotangent of h_final): max|err| "
-        f"{worst:.3e} (tol {SSD_TOL} + {SSD_TOL} |plain|); two runs bitwise "
-        f"equal")
+    for dtype, rtol in ((torch.float32, SSD_TOL),
+                        (torch.bfloat16, SSD_BWD_BF16_RTOL)):
+        unit = 0.0
+        for case in SSD_GRID:
+            inp = ssd_inputs(case, dtype, gen, dev)
+            dy = torch.randn(inp[0].shape, generator=gen, device=dev)
+            R, B, _, H, P, N, L = case
+            dh = torch.randn((R, B, H, N, P), generator=gen, device=dev)
+            for cot in (None, dh):
+                got = _ssd_grads(ssd.ssd_chunked, inp, L, dy, cot)
+                again = _ssd_grads(ssd.ssd_chunked, inp, L, dy, cot)
+                want = _ssd_grads(ref.ssd_chunked_ref, inp, L, dy, cot)
+                for name, g, a, w in zip(names, got, again, want):
+                    diff = (g.float() - w.float()).abs()
+                    err = diff.max().item()
+                    check(bool((diff <= SSD_TOL + rtol * w.float().abs())
+                               .all()),
+                          f"ssd backward {case} {dtype} {name}: max|kernel "
+                          f"- plain| {err} over {SSD_TOL} + {rtol} |plain|")
+                    check(torch.equal(g, a), f"ssd backward {case} {dtype} "
+                          f"{name}: two runs differ")
+                    unit = max(unit, err)
+        log(f"[ssd-bwd] kernel vs plain backward on {len(SSD_GRID)} unit "
+            f"shapes ({dtype}, with and without a cotangent of h_final): "
+            f"max|err| {unit:.3e} (tol {SSD_TOL} + {rtol} |plain|); two runs "
+            f"bitwise equal")
+        worst = max(worst, unit)
     L = SSD_TRAIN[-1]
     for dtype in (torch.bfloat16, torch.float32):
         for decay, steep in (("steep", True), ("shallow", False)):
@@ -2772,12 +2793,11 @@ def main() -> int:
     # dK/dV kernels at each
     check_wgmma_build("flash forward", flash_ops.LIBRARY, 2)
     check_wgmma_build("flash backward", flash_ops.BWD_LIBRARY, 4)
-    ssd_bwd_ptxas = ptxas_summary(ssd_ops.BWD_LIBRARY.log)
-    check(len(ssd_bwd_ptxas) == 7 and not any(
-        k.get("spill_stores") or k.get("spill_loads")
-        for k in ssd_bwd_ptxas.values()),
-        f"the SSD backward's kernels spill: {ssd_bwd_ptxas}")
-    log(f"[build] SSD backward registers and spills: {ssd_bwd_ptxas}")
+    # all eight of the SSD backward's kernels: the f32 route's U, grads
+    # and ddt, the bf16 route's, and the shared hand-off and dA
+    ssd_bwd_ptxas = check_wgmma_build(
+        "SSD backward", ssd_ops.BWD_LIBRARY, 8, pick="",
+        require=("HGMMA", "LDSM"), forbid=("ATOM", " RED"))
 
     # -- 2. kernel against its plain version ----------------------------
     max_err = 0.0

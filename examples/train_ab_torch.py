@@ -14,6 +14,16 @@ no checkpoint) with the ``train.step`` spans on, both trees under one
 allocator setting, and prints the median ms/step over steps 2..N;
 the last line is one JSON object with every run's reading and each tree's
 mean.
+
+With ``--ssd-bwd`` each run times only the SSD scan's backward instead, at
+mamba2-130m's training shape in bf16 (``chip_smoke.py``'s SSD_TRAIN) under
+the model's steep decay and a shallow one: ``torch.autograd.grad`` through
+the tree's own ``ssd_chunked`` (its forward's buffers kept), CUDA events,
+the L2 flushed before each call, the median of 60; each run also prints a
+digest of the gradients' bits per decay, so two trees that should compute
+the same bits show it:
+
+    PYTHONPATH=src python examples/train_ab_torch.py --trees OLD . --ssd-bwd
 """
 from __future__ import annotations
 
@@ -40,6 +50,65 @@ def step_ms(events) -> tuple[float, int]:
     return statistics.median(durs[1:]) / 1e3, len(durs)
 
 
+# mamba2-130m's training shape (chip_smoke.py's SSD_TRAIN): 8 stacked
+# ranks x 4 sequences, 2048 tokens in 16 chunks of 128, 6 heads of 64,
+# state 128
+SSD_TRAIN = (8, 4, 2048, 6, 64, 128, 128)
+SSD_RUNS = 60
+
+
+def ssd_bwd_worker(tree: Path) -> dict:
+    """The SSD backward of ``tree``'s ``ssd_chunked`` at SSD_TRAIN in bf16,
+    per decay: the median CUDA-event ms of SSD_RUNS calls of
+    ``torch.autograd.grad(y, leaves, dy, retain_graph=True)``, each after an
+    L2 flush and a sleep kernel that lets the host queue the call, and a
+    digest of the gradients' bits (``<decay>_digest``)."""
+    import hashlib
+
+    import torch
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.kernels.ssd_scan import ops
+    dev = torch.device("cuda", 0)
+    R, B, S, H, P, N, L = SSD_TRAIN
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    out = {}
+    for decay in ("steep", "shallow"):
+        if decay == "steep":   # the model's: dt = softplus(N(0, 1)), A to -16
+            dt = torch.nn.functional.softplus(rnd(R, B, S, H))
+            a = -torch.linspace(1.0, 16.0, R * H, device=dev).view(R, H)
+        else:
+            dt, a = rnd(R, B, S, H).abs() * 0.1 + 0.01, -(rnd(R, H).abs() + 0.5)
+        leaves = [t.detach().requires_grad_(True) for t in (
+            rnd(R, B, S, H, P).bfloat16(), dt, a, rnd(R, B, S, 1, N).bfloat16(),
+            rnd(R, B, S, 1, N).bfloat16())]
+        dy = rnd(R, B, S, H, P)
+        y, _ = ops.ssd_chunked(*leaves, L)
+        call = lambda: torch.autograd.grad(y, leaves, dy,  # noqa: E731
+                                           retain_graph=True)
+        h = hashlib.sha256()
+        for g in call():
+            h.update(g.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        out[f"{decay}_digest"] = h.hexdigest()[:16]
+        torch.cuda.synchronize()
+        before, times = ops.bwd_launches, []
+        for _ in range(SSD_RUNS):
+            torch.cuda._sleep(4_000_000)
+            flush.zero_()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            call()
+            t1.record()
+            t1.synchronize()
+            times.append(t0.elapsed_time(t1))
+        assert ops.bwd_launches == before + SSD_RUNS, "the kernel did not run"
+        out[decay] = statistics.median(times)
+        del y, leaves, call
+    return out
+
+
 def worker(tree: Path, flags: list) -> dict:
     """One training run of ``tree`` in this process -> its median ms/step
     over steps 2..N and its loss stream."""
@@ -59,19 +128,25 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--trees", nargs=2, metavar=("A", "B"))
     ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--ssd-bwd", action="store_true",
+                    help="time only the SSD scan's backward")
     ap.add_argument("flags", nargs="*", help="train_lm_torch.py flags")
     args = ap.parse_args()
     flags = args.flags or TRAIN_FLAGS
     if args.worker:
-        print(json.dumps(worker(Path(args.worker).resolve(), flags)))
+        tree = Path(args.worker).resolve()
+        print(json.dumps(ssd_bwd_worker(tree) if args.ssd_bwd
+                         else worker(tree, flags)))
         return 0
     if not args.trees:
         ap.error("--trees A B is required")
     trees = [Path(t).resolve() for t in args.trees]
     runs = []
     for tree in (trees[0], trees[1], trees[1], trees[0]):
+        mode = ["--ssd-bwd"] if args.ssd_bwd else []
         proc = subprocess.run(
-            [sys.executable, __file__, "--worker", str(tree), "--", *flags],
+            [sys.executable, __file__, "--worker", str(tree), *mode, "--",
+             *flags],
             capture_output=True, text=True,
             # one allocator setting for both trees: growable segments,
             # which leave neither tree's run at the mercy of fragmentation
@@ -82,12 +157,20 @@ def main() -> int:
             return proc.returncode
         out = json.loads(proc.stdout.strip().splitlines()[-1])
         runs.append({"tree": str(tree), **out})
-        print(f"{tree}: {out['ms_per_step']:.1f} ms/step (median of steps "
-              f"2-{out['steps']}), loss {out['loss'][0]:.4f} -> "
-              f"{out['loss'][-1]:.4f}", flush=True)
-    mean = {str(t): statistics.mean(r["ms_per_step"] for r in runs
-                                    if r["tree"] == str(t)) for t in trees}
-    print(json.dumps({"runs": runs, "mean_ms_per_step": mean}))
+        if args.ssd_bwd:
+            print(f"{tree}: SSD backward {out['steep'] * 1e3:.2f} us steep, "
+                  f"{out['shallow'] * 1e3:.2f} us shallow (median of "
+                  f"{SSD_RUNS}); gradient digests {out['steep_digest']}, "
+                  f"{out['shallow_digest']}", flush=True)
+        else:
+            print(f"{tree}: {out['ms_per_step']:.1f} ms/step (median of "
+                  f"steps 2-{out['steps']}), loss {out['loss'][0]:.4f} -> "
+                  f"{out['loss'][-1]:.4f}", flush=True)
+    keys = ("steep", "shallow") if args.ssd_bwd else ("ms_per_step",)
+    mean = {str(t): {k: statistics.mean(r[k] for r in runs
+                                        if r["tree"] == str(t))
+                     for k in keys} for t in trees}
+    print(json.dumps({"runs": runs, "mean": mean}))
     return 0
 
 

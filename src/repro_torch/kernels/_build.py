@@ -3,8 +3,9 @@
 Each kernel folder holds a ``csrc/*.cu`` source with a plain C interface,
 and may hold headers (``*.cuh``) beside it.  :class:`Library` compiles it
 at first use for ``sm_90a`` into a shared library under that folder's
-``build/`` (gitignored), named by a hash of every file under ``csrc/`` and
-of ``NVCC_FLAGS``, so an edited source or header never loads a stale build,
+``build/`` (gitignored), named by a hash of every file under ``csrc/``, of
+the headers it includes from elsewhere (``includes``) and of
+``NVCC_FLAGS``, so an edited source or header never loads a stale build,
 and loads it with ``ctypes``.  The flags leave out ``--use_fast_math``: the
 kernels' divisions, square roots and roundings must be IEEE, as the JAX package's are.
 """
@@ -38,24 +39,30 @@ class Library:
     points.  After :meth:`load`, ``log`` holds what the build printed
     (``-Xptxas -v``: registers, spills), saved beside the library and read
     back when an earlier process had built the same sources, and
-    ``seconds`` what the build took (0 when it was not built here)."""
+    ``seconds`` what the build took (0 when it was not built here).
+    ``includes`` names the files outside ``csrc/`` that the source includes
+    (hashed with it)."""
 
-    def __init__(self, source: Path, bind: Callable[[ctypes.CDLL], None]):
+    def __init__(self, source: Path, bind: Callable[[ctypes.CDLL], None],
+                 includes: tuple = ()):
         self.source = Path(source)
         self.build_dir = self.source.parent.parent / "build"
         self.bind = bind
+        self.includes = tuple(Path(f) for f in includes)
         self.log = ""
         self.seconds = 0.0
         self._lib = None
         self._lock = threading.Lock()
 
     def digest(self) -> str:
-        """Hash of ``NVCC_FLAGS`` and of every file under the source's folder
-        (names and contents), which names the build."""
+        """Hash of ``NVCC_FLAGS``, of every file under the source's folder
+        and of ``includes`` (names and contents), which names the build."""
         h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
-        for f in sorted(p for p in self.source.parent.rglob("*")
-                        if p.is_file()):
-            h.update(f.relative_to(self.source.parent).as_posix().encode())
+        files = [(f.relative_to(self.source.parent).as_posix(), f)
+                 for f in sorted(p for p in self.source.parent.rglob("*")
+                                 if p.is_file())]
+        for name, f in files + [(f.name, f) for f in self.includes]:
+            h.update(name.encode())
             h.update(b"\0")
             h.update(f.read_bytes())
         return h.hexdigest()[:16]

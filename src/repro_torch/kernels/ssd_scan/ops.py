@@ -17,10 +17,11 @@ mamba2-130m's serving shape) and the cumulative decay ``(R, Bt, H, S)``.
 
 Under autograd on the card the forward keeps those two buffers (each
 chunk's incoming state and the decay) and its backward is the kernel of
-``csrc/ssd_scan_bwd.cu`` (a second library): five kernels per call, which
-``bwd_launches`` counts once.  There is no fallback there either: a build
-or launch failure raises.  On CPU tensors autograd differentiates the
-plain version.
+``csrc/ssd_scan_bwd.cu`` (a second library, which also includes the flash
+kernels' ``hopper.cuh``): five kernels per call, which ``bwd_launches``
+counts once; bf16 calls run its wgmma route, f32 calls its mma.sync one.
+There is no fallback there either: a build or launch failure raises.  On
+CPU tensors autograd differentiates the plain version.
 """
 from __future__ import annotations
 
@@ -35,6 +36,10 @@ from repro_torch.kernels.ssd_scan import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 BWD_SOURCE = SOURCE.with_name("ssd_scan_bwd.cu")
+# the wgmma descriptor and fence helpers the backward's bf16 route shares
+# with the flash-attention kernels
+HOPPER_HEADER = (SOURCE.parents[2] / "flash_attention" / "csrc"
+                 / "hopper.cuh")
 
 # Calls of `ssd_chunked` that launched the kernels (three each), and of
 # its backward (five each).
@@ -62,7 +67,8 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = _build.Library(SOURCE, _bind)
-BWD_LIBRARY = _build.Library(BWD_SOURCE, _bind_bwd)
+BWD_LIBRARY = _build.Library(BWD_SOURCE, _bind_bwd,
+                             includes=(HOPPER_HEADER,))
 
 
 def load_library() -> ctypes.CDLL:

@@ -1276,12 +1276,14 @@ def test_ssd_backward_against_float64(card, dtype, steep):
             name, err_k, err_p)
 
 
-def test_ssd_backward_raises_and_never_falls_back(card, monkeypatch):
-    """The backward on the card runs the kernel or raises: with the plain
-    version made to raise it still answers; a library that does not build,
-    or a launch that fails, raises."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_raises_and_never_falls_back(card, monkeypatch, dtype):
+    """The backward on the card runs the kernel or raises, on both routes
+    (f32, and bf16's wgmma kernels): with the plain version made to raise
+    it still answers; a library that does not build, or a launch that
+    fails, raises."""
     shape = SSD_BWD_SHAPES[1]
-    inp, dy, _ = _ssd_bwd_inputs(shape, torch.float32, card)
+    inp, dy, _ = _ssd_bwd_inputs(shape, dtype, card)
 
     def refuse(*a, **k):
         raise AssertionError("a CUDA tensor reached the plain version")

@@ -339,6 +339,47 @@ def test_split_product_stays_within_the_float64_gate():
     assert err_s <= 2 * err_p + 1e-6 * exact.abs().max().item()
 
 
+def test_scaled_split_product_stays_within_the_float64_gate():
+    """The bf16 route's form of the state term x g^T: bf16 x (exact) times
+    g's three bf16 terms, accumulated in f32 smallest first, and only then
+    scaled by each row's f32 factor exp(cL - cum_j) dt_j, errs against
+    float64 by at most twice the f32 product of the scaled x (the form the
+    kernel used before) plus 1e-6 of its scale: chip_smoke.py's gate."""
+    rng = np.random.RandomState(17)
+    x = torch.from_numpy(rng.randn(128, 64).astype(np.float32)).bfloat16()
+    g = torch.from_numpy((rng.randn(128, 64) * np.exp(
+        -rng.uniform(0, 30, (128, 1)))).astype(np.float32))
+    s = torch.from_numpy(np.exp(-rng.uniform(0, 30, 128)).astype(np.float32))
+    exact = s.double()[:, None] * (x.double() @ g.double().T)
+    plain = (s[:, None] * x.float()) @ g.T
+    split = s[:, None] * sum(x.float() @ t.float().T
+                             for t in reversed(_split3(g)))
+    err_p = (plain.double() - exact).abs().max().item()
+    err_s = (split.double() - exact).abs().max().item()
+    assert err_s <= 2 * err_p + 1e-6 * exact.abs().max().item()
+
+
+def test_backward_library_build_covers_the_flash_header(tmp_path):
+    """The backward includes the flash kernels' ``hopper.cuh``: its build's
+    name covers that header as well as its own folder, so an edit there
+    never loads a stale build."""
+    from repro_torch.kernels import _build
+    assert ops.HOPPER_HEADER.exists()
+    assert ops.BWD_LIBRARY.includes == (ops.HOPPER_HEADER,)
+    csrc = tmp_path / "kern" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "k.cu").write_text('#include "../../other/h.cuh"\n')
+    other = tmp_path / "other"
+    other.mkdir()
+    (other / "h.cuh").write_text("// v1\n")
+    lib = _build.Library(csrc / "k.cu", lambda lib: None,
+                         includes=(other / "h.cuh",))
+    first = lib.digest()
+    assert first != _build.Library(csrc / "k.cu", lambda lib: None).digest()
+    (other / "h.cuh").write_text("// v2\n")
+    assert lib.digest() != first
+
+
 def test_wrapper_pads_to_whole_vectors_and_copies_misaligned_rows():
     """On the card the kernels take N and P in whole 16-byte vectors and
     rows that start 16-byte aligned: the wrapper zero-pads the last dim
@@ -408,7 +449,9 @@ def _bwd_passes(x, dt, A, B, C, chunk, dy, dh=None):
     ``W = (C B^T) o Z``, ``Z = D dt_j (dy x^T)``, the inter-chunk term) and
     the rows-j pass (dx, dB, the column sums of W, the direct ddt, the
     state terms), dB and dC summed over the group's heads; b4, the reverse
-    cumsum of dcum in row order, ddt and dA."""
+    cumsum of dcum in row order, ddt and dA.  As in the kernel's bf16
+    route, the chunk-state products dy h^T and x g^T are formed first and
+    scaled by their row factors (exp(cum_i); exp(cL - cum_j) dt_j) after."""
     R, Bt, S, H, P = x.shape
     G, N = B.shape[3], B.shape[4]
     nc, hpg = S // chunk, H // G
@@ -430,9 +473,9 @@ def _bwd_passes(x, dt, A, B, C, chunk, dy, dh=None):
     M = torch.einsum("rbcihp,rbcjhp->rbcijh", dys, xs)
     Z = D * dts[:, :, :, None, :, :] * M
     W = cb * Z * strict
-    # rows i
-    dC = (torch.einsum("rbcijh,rbcjhn->rbcihn", Z, Bs)
-          + torch.einsum("rbcih,rbcihp,rbchnp->rbcihn", ec, dys, hprev))
+    # rows i; the chunk-state product dy h^T first, then its row scale
+    dyh = torch.einsum("rbcihp,rbchnp->rbcihn", dys, hprev)
+    dC = torch.einsum("rbcijh,rbcjhn->rbcihn", Z, Bs) + ec[..., None] * dyh
     dcum = W.sum(4) + ec * (dys * torch.einsum(
         "rbcihn,rbchnp->rbcihp", Cs, hprev)).sum(-1)
     # rows j
@@ -441,8 +484,9 @@ def _bwd_passes(x, dt, A, B, C, chunk, dy, dh=None):
     q = (V * xs).sum(-1)
     dx = dts[..., None] * (torch.einsum("rbcijh,rbcihp->rbcjhp", cb * D, dys)
                            + de[..., None] * V)
+    xg = torch.einsum("rbcjhp,rbchnp->rbcjhn", xs, gc)   # x g^T, then scaled
     dB = (torch.einsum("rbcijh,rbcihn->rbcjhn", Z, Cs)
-          + torch.einsum("rbcjh,rbcjhp,rbchnp->rbcjhn", de * dts, xs, gc))
+          + (de * dts)[..., None] * xg)
     s = de * dts * q
     dcum = dcum - W.sum(3) - s
     ddt_direct = (cb * D * M).sum(3) + de * q
