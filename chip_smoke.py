@@ -124,8 +124,9 @@ exits non-zero:
    plain backward (autograd through the plain version) at the unit shapes
    (f32 and bf16) and at the training shape (tp 4 x dp 2 x batch 4 = 8 x 4
    sequences, 6 heads, 2048 tokens, head dim 64, state 128, chunk 128;
-   bf16 and f32, the model's steep decay and a shallow one, against the
-   plain backward in float64), two runs bitwise equal, timed beside the
+   bf16 and f32, the model's steep decay and a shallow one, outputs and
+   gradients against the plain version in float64), two runs bitwise
+   equal, timed beside the
    plain backward and its bound, its kernels profiled (before phase 3,
    beside the other kernels); then mamba2-130m at full width and depth
    (24 layers, bf16, random weights from seed 0, ``(data=2, model=4)``,
@@ -137,7 +138,22 @@ exits non-zero:
    first layer (the full-depth gap printed); ``preempt@4`` drained and
    resumed by a fresh process, bitwise equal; and mamba2's smoke config
    (f32) trained on the card against the CPU;
-10. a ``kernels:`` line, the kernel table as one JSON line, and as the
+10. the plan store and the pod axis: the sweep CLI (``--fast --ranks 8``,
+   sendrecv, all_reduce and hierarchical_all_reduce at 16 KiB and 1 MiB)
+   with ``--plan-dir --warm-check`` as a subprocess (rc 0: warm program
+   hits and warm <= 0.7 x cold in-process; a fresh process replays every
+   plan from disk), its cold, warm and fresh-process seconds; the SWE
+   example at its default size twice on one ``--plan-dir`` (equal
+   final-state digests, disk hits the second time); the hierarchical
+   all-reduce at 1 MiB a rank on ``(inner 4, outer 2)`` against the plain
+   sum and the flat ring all-reduce (captured, CUDA events); the SSD
+   forward and backward kernels at those meshes' shape (8, 2, 2048, 12, 64,
+   128, 128), bf16 under both decays, against the plain version in float64;
+   and mamba2-130m at full width and depth, 4 steps on ``(pod 2, data 2,
+   model 2)`` against ``(data 4, model 2)`` (bf16, ZeRO-1, 8 x 2048 tokens: step
+   1's loss within 1e-6 and gradient norm within 1e-4, later losses within
+   1e-2; SSD launches exact; ms/step of both);
+11. a ``kernels:`` line, the kernel table as one JSON line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and exits non-zero without one, or when the repository
@@ -2466,12 +2482,52 @@ def ssd_bwd_work(case, itemsize: int) -> tuple[int, int]:
     return flops, nbytes
 
 
-def _ssd_grads(fn, inp, chunk, dy, dh=None):
-    """(dx, ddt, dA, dB, dC) of ``<y, dy> + <h_final, dh>`` through ``fn``."""
+def _ssd_outs_grads(fn, inp, chunk, dy, dh=None):
+    """(y, h_final, dx, ddt, dA, dB, dC) of ``<y, dy> + <h_final, dh>``
+    through ``fn``."""
     leaves = [t.detach().clone().requires_grad_(True) for t in inp]
     y, h = fn(*leaves, chunk)
     loss = (y * dy).sum() + ((h * dh).sum() if dh is not None else 0.0)
-    return torch.autograd.grad(loss, leaves)
+    return (y.detach(), h.detach()) + torch.autograd.grad(loss, leaves)
+
+
+SSD_OUT_NAMES = ("y", "h_final", "dx", "ddt", "dA", "dB", "dC")
+
+
+def ssd_f64_gate(case, dtype, steep, gen, dev, tag) -> dict:
+    """The SSD forward and backward kernels at ``case`` against the plain
+    version run in float64: y, h_final and the five gradients of ``<y,
+    dy>``, each within SSD_F64_SLACK times the f32 plain version's own error
+    plus SSD_F64_FLOOR of its largest value; two runs bitwise equal.
+    ``steep`` takes the model's decay, else the unit shapes' shallow one.
+    Returns max|kernel - f32 plain| by name."""
+    from repro_torch.kernels.ssd_scan import ops as ssd, ref
+    L = case[-1]
+    decay = "steep" if steep else "shallow"
+    inp = ssd_inputs(case, dtype, gen, dev, serving=steep)
+    dy = torch.randn(inp[0].shape, generator=gen, device=dev)
+    got = _ssd_outs_grads(ssd.ssd_chunked, inp, L, dy)
+    again = _ssd_outs_grads(ssd.ssd_chunked, inp, L, dy)
+    plain = _ssd_outs_grads(ref.ssd_chunked_ref, inp, L, dy)
+    exact = _ssd_outs_grads(ref.ssd_chunked_ref, [t.double() for t in inp],
+                            L, dy.double())
+    gaps = {}
+    for name, g, a, p, e in zip(SSD_OUT_NAMES, got, again, plain, exact):
+        err_k = (g.double() - e).abs().max().item()
+        err_p = (p.double() - e).abs().max().item()
+        bound = SSD_F64_SLACK * err_p + SSD_F64_FLOOR * e.abs().max().item()
+        check(err_k <= bound, f"ssd {tag} {case} {dtype} {decay} {name}: "
+              f"kernel off float64 by {err_k}, over {bound} (f32 plain off "
+              f"by {err_p})")
+        check(torch.equal(g, a), f"ssd {tag} {case} {dtype} {decay} {name}: "
+              f"two runs differ")
+        log(f"[ssd-bwd] {tag} {dtype} {decay} decay {name}: max|kernel - "
+            f"f64| {err_k:.3e}, max|plain f32 - f64| {err_p:.3e} (bound "
+            f"{bound:.3e})")
+        gaps[name] = (g.float() - p.float()).abs().max().item()
+    del got, again, plain, exact
+    _release()
+    return gaps
 
 
 def phase_ssd_bwd_kernel(dev, flush, bw) -> dict:
@@ -2479,14 +2535,15 @@ def phase_ssd_bwd_kernel(dev, flush, bw) -> dict:
     plain version) at the unit shapes (f32, the mma.sync route, and bf16,
     the wgmma route; per element, with and without a cotangent of h_final)
     and at the training shape (bf16 and f32, under the model's steep decay
-    and a shallow one, against the plain backward in float64), two runs
-    bitwise equal; timed at the training shape in bf16 beside the plain
+    and a shallow one, the forward's outputs and the gradients against the
+    plain version in float64: :func:`ssd_f64_gate`), two runs bitwise
+    equal; timed at the training shape in bf16 beside the plain
     backward and its bound (no PyTorch call computes the scan's gradient),
     its five kernels profiled.  ~13 s of the script's time; the bf16 unit
     shapes add under a second."""
     from repro_torch.kernels.ssd_scan import ops as ssd, ref
     gen = torch.Generator(device=dev).manual_seed(6)
-    names = ("dx", "ddt", "dA", "dB", "dC")
+    names = SSD_OUT_NAMES[2:]
     worst = 0.0
     for dtype, rtol in ((torch.float32, SSD_TOL),
                         (torch.bfloat16, SSD_BWD_BF16_RTOL)):
@@ -2497,9 +2554,10 @@ def phase_ssd_bwd_kernel(dev, flush, bw) -> dict:
             R, B, _, H, P, N, L = case
             dh = torch.randn((R, B, H, N, P), generator=gen, device=dev)
             for cot in (None, dh):
-                got = _ssd_grads(ssd.ssd_chunked, inp, L, dy, cot)
-                again = _ssd_grads(ssd.ssd_chunked, inp, L, dy, cot)
-                want = _ssd_grads(ref.ssd_chunked_ref, inp, L, dy, cot)
+                got, again, want = (
+                    _ssd_outs_grads(fn, inp, L, dy, cot)[2:]
+                    for fn in (ssd.ssd_chunked, ssd.ssd_chunked,
+                               ref.ssd_chunked_ref))
                 for name, g, a, w in zip(names, got, again, want):
                     diff = (g.float() - w.float()).abs()
                     err = diff.max().item()
@@ -2517,30 +2575,10 @@ def phase_ssd_bwd_kernel(dev, flush, bw) -> dict:
         worst = max(worst, unit)
     L = SSD_TRAIN[-1]
     for dtype in (torch.bfloat16, torch.float32):
-        for decay, steep in (("steep", True), ("shallow", False)):
-            inp = ssd_inputs(SSD_TRAIN, dtype, gen, dev, serving=steep)
-            dy = torch.randn(inp[0].shape, generator=gen, device=dev)
-            got = _ssd_grads(ssd.ssd_chunked, inp, L, dy)
-            again = _ssd_grads(ssd.ssd_chunked, inp, L, dy)
-            plain = _ssd_grads(ref.ssd_chunked_ref, inp, L, dy)
-            exact = _ssd_grads(ref.ssd_chunked_ref,
-                               [t.double() for t in inp], L, dy.double())
-            for name, g, a, p, e in zip(names, got, again, plain, exact):
-                err_k = (g.double() - e).abs().max().item()
-                err_p = (p.double() - e).abs().max().item()
-                bound = (SSD_F64_SLACK * err_p
-                         + SSD_F64_FLOOR * e.abs().max().item())
-                check(err_k <= bound, f"ssd backward training shape {dtype} "
-                      f"{decay} {name}: kernel off float64 by {err_k}, over "
-                      f"{bound} (f32 plain off by {err_p})")
-                check(torch.equal(g, a), f"ssd backward training shape "
-                      f"{dtype} {decay} {name}: two runs differ")
-                log(f"[ssd-bwd] training shape {dtype} {decay} decay {name}: "
-                    f"max|kernel - f64| {err_k:.3e}, max|plain f32 - f64| "
-                    f"{err_p:.3e} (bound {bound:.3e})")
-                worst = max(worst, (g.float() - p.float()).abs().max().item())
-            del got, again, plain, exact
-            _release()
+        for steep in (True, False):
+            gaps = ssd_f64_gate(SSD_TRAIN, dtype, steep, gen, dev,
+                                "training shape")
+            worst = max([worst] + [gaps[n] for n in names])
     times = {}
     for decay, steep in (("steep", True), ("shallow", False)):
         inp = ssd_inputs(SSD_TRAIN, torch.bfloat16, gen, dev, serving=steep)
@@ -2749,6 +2787,228 @@ def phase_train_ssm(dev) -> dict:
     import shutil
     shutil.rmtree(root, ignore_errors=True)
     return out
+
+
+# ----------------------------------------------------------------------
+# The disk plan store and the pod axis
+# ----------------------------------------------------------------------
+
+# the sweep CLI's plan-store check: cold, then warm in the same process
+# (program hits, warm <= 0.7 x cold), then a fresh process that must replay
+# every plan from disk
+PLAN_SWEEP_ARGV = ["--fast", "--ranks", "8", "--collectives",
+                   "sendrecv,all_reduce,hierarchical_all_reduce", "--sizes",
+                   "small", "--warm-check", "--device", "cuda"]
+# hierarchical_all_reduce on (inner 4, outer 2): 1 MiB of f32 a rank,
+# against the float64 sum (the f32 sums' rounding, 8 rows of randn)
+HIER_BYTES = 1 << 20
+HIER_ATOL = 1e-5
+HIER_RUNS = 30
+# mamba2-130m at full width and depth on (pod 2, data 2, model 2) against
+# (data 4, model 2): 8 stacked ranks, bf16, ZeRO-1, remat, 8 x 2048 tokens
+# a step, the exact wire.  Both meshes have tp 2 and give each data rank
+# the same rows: the step-1 forward is the same, so its loss agrees within
+# 1e-6 of itself and its gradient norm (the same mean gradient, summed in
+# another order) within 1e-4; later steps within 1e-2 (random-weight mamba2
+# amplifies rounding with depth, ROADMAP.md Queue 3)
+POD_STEPS = 4
+POD_LOSS1_REL, POD_NORM1_REL, POD_LOSS_REL = 1e-6, 1e-4, 1e-2
+# the SSD kernels' shape on both of those meshes (8 ranks, 8 rows over dp 4,
+# 24 heads over tp 2), which no other phase holds against the plain
+# version: held there in bf16 under both decays by ssd_f64_gate, since the
+# yardstick run launches the same kernels at the same shape
+SSD_POD = (8, 2, 2048, 12, 64, 128, 128)
+
+
+def _run_script(argv, env=None, timeout=600) -> str:
+    """``python argv`` from the repository root; its stdout, or a failed
+    check with its tail."""
+    root = Path(__file__).resolve().parent
+    proc = subprocess.run(
+        [sys.executable, *argv], capture_output=True, text=True,
+        timeout=timeout, cwd=str(root),
+        env=dict(os.environ, PYTHONPATH=str(root / "src"), **(env or {})))
+    check(proc.returncode == 0,
+          f"{' '.join(argv[:3])} exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def _line(text: str, prefix: str) -> str:
+    return next(l for l in text.splitlines() if l.startswith(prefix))
+
+
+def phase_plans_and_pods(dev) -> dict:
+    """The plan store: the sweep CLI's ``--plan-dir --warm-check`` (cold,
+    warm and fresh-process seconds, the child's disk counts) and the SWE
+    example run twice on one ``--plan-dir`` (equal final-state digests,
+    disk hits the second time); the pod axis: ``hierarchical_all_reduce``
+    at 1 MiB on 8 ranks against the plain sum and the flat ring all-reduce,
+    and mamba2-130m's steps on ``(pod 2, data 2, model 2)`` against ``(data
+    4, model 2)`` (the SSD kernels first held against the plain version at
+    those meshes' shape, :data:`SSD_POD`; their counts zeroed just before
+    the pod run and read just after).  Returns those counts and the step times."""
+    import re
+    import shutil
+    import tempfile
+    from repro_torch.core import collectives
+    from repro_torch.core.communicator import Communicator
+    from repro_torch.core.config import CommConfig
+    from repro_torch.data.pipeline import SyntheticLM, DataConfig
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.launch import mesh as mesh_mod, setup
+    from repro_torch.models.ssm import ssm_dims
+    from repro_torch.optim import adamw
+    from repro_torch.tune import sweep
+
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_plans_"))
+
+    # -- the sweep's plan store and warm checks ---------------------------
+    out = _run_script(["-m", "repro_torch.tune.sweep", *PLAN_SWEEP_ARGV,
+                       "--plan-dir", str(root / "sweep"),
+                       "--out", str(root / "db.json")])
+    warm = _line(out, "plan-cache warm check")
+    cross = _line(out, "plan-store cross-process check")
+    cold_s, warm_s = (float(v) for v in re.findall(r"([\d.]+)s", warm)[:2])
+    fresh_s = float(re.findall(r"([\d.]+)s", cross)[1])
+    hits, misses, corrupt = (int(v) for v in re.findall(
+        r"(\d+) disk hits / (\d+) misses / (\d+) corrupt", cross)[0])
+    check(hits > 0 and misses == 0 and corrupt == 0,
+          f"the fresh-process sweep's disk counts: {cross}")
+    log(f"[plans] sweep (8 ranks, sendrecv, all_reduce, "
+        f"hierarchical_all_reduce, 16 KiB and 1 MiB, fast axes): cold "
+        f"{cold_s:.3f} s, warm {warm_s:.3f} s ({warm_s / cold_s:.3f} of "
+        f"cold, bar 0.7), fresh process {fresh_s:.3f} s "
+        f"({fresh_s / cold_s:.3f} of cold, no bar); the child's disk: "
+        f"{hits} hits, {misses} misses, {corrupt} corrupt; "
+        f"{_line(out, 'warm sweep wall clock').split(' — ')[1]}")
+
+    # -- the SWE example twice on one plan directory ------------------------
+    runs = []
+    for i in range(2):
+        text = _run_script(["examples/swe_simulation_torch.py",
+                            "--plan-dir", str(root / "swe")])
+        digest = _line(text, "final state digest").split()[-1]
+        disk = re.findall(r"plan store: (\d+) disk hits / (\d+) misses / "
+                          r"(\d+) writes", text)[0]
+        runs.append((digest, [int(v) for v in disk],
+                     _line(text, "ran ").split(", ")[1]))
+    (d1, (_, m1, w1), us1), (d2, (h2, m2, _), us2) = runs
+    check(d1 == d2, f"the SWE example's final states differ: {d1}, {d2}")
+    check(w1 > 0 and h2 > 0 and m2 == 0,
+          f"the SWE example's plan store: first run {runs[0][1]}, second "
+          f"{runs[1][1]} (hits, misses, writes)")
+    log(f"[plans] SWE example (2000 elements, 8 ranks, 200 steps) twice on "
+        f"one --plan-dir: digest {d1} both times; first run {m1} disk "
+        f"misses, {w1} writes ({us1}); second run {h2} disk hits, {m2} "
+        f"misses ({us2})")
+
+    # -- hierarchical_all_reduce at 1 MiB on 8 ranks ------------------------
+    io = sweep._BenchMesh(("inner", "outer"), (4, 2))
+    inner, outer = (Communicator.from_mesh(io, "inner"),
+                    Communicator.from_mesh(io, "outer"))
+    flat = Communicator.from_mesh(sweep._BenchMesh(("x",), (8,)), "x")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((8, HIER_BYTES // 4), generator=gen, device=dev)
+    want = x.double().sum(0).float()
+    hier = {}
+    for algo in ("ring", "native"):
+        cfg = CommConfig(algorithm=algo)
+        for label, fn in (
+                ("hierarchical", lambda: collectives.hierarchical_all_reduce(
+                    x, inner, outer, cfg)),
+                ("flat", lambda: collectives.all_reduce(x, flat, cfg))):
+            y = fn()
+            err = (y - want).abs().max().item()
+            check(err <= HIER_ATOL, f"{label} {algo} all-reduce vs the plain "
+                  f"sum: {err}")
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                fn()
+            hier[f"{label} {algo}"] = (time_cuda(graph.replay, HIER_RUNS),
+                                       err)
+            del graph
+    log("[pods] all-reduce of 1 MiB a rank on 8 ranks, captured, median of "
+        f"{HIER_RUNS} (CUDA events), hierarchical on (inner 4, outer 2) "
+        "against the flat ring: "
+        + "; ".join(f"{k} {ms * 1e3:.2f} us (max|y - sum| {e:.2e})"
+                    for k, (ms, e) in hier.items()))
+    _release()
+
+    # -- mamba2-130m on (pod, data, model) against (data, model) ------------
+    ex = load_example("train_lm_torch")
+    args = ex.parser().parse_args(SSM_TRAIN_ARGV)
+    cfg = ex.model_config(args)
+    src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                                 global_batch=args.batch))
+    oc = adamw.OptConfig(lr=args.lr, warmup_steps=20, total_steps=POD_STEPS,
+                         zero1=True)
+    L = cfg.n_layers
+    meshes = (("flat", mesh_mod.make_test_mesh(4, 2)),
+              ("pod", mesh_mod.make_test_mesh(2, 2, pod=2)))
+    for label, mesh in meshes:
+        shape = (mesh.n_ranks, args.batch // mesh.dp, args.seq,
+                 ssm_dims(cfg, mesh.tp)[0], cfg.ssm_head_dim, cfg.ssm_state,
+                 cfg.ssm_chunk)
+        check(shape == SSD_POD, f"the {label} mesh's SSD shape {shape}, "
+              f"gated at {SSD_POD}")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for steep in (True, False):
+        ssd_f64_gate(SSD_POD, torch.bfloat16, steep, gen, dev, "pod shape")
+    res = {}
+    for label, mesh in meshes:
+        sess = setup.build_session(cfg, mesh, CommConfig(), oc=oc, seed=0,
+                                   device=dev)
+        step = setup.make_sharded_train_step(sess)
+        p, o = sess.params, sess.opt_state
+        losses, norms, ms = [], [], []
+        if label == "pod":
+            ssd.launches = ssd.bwd_launches = 0
+        for i in range(POD_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, m = step(p, o, src.batch_at(i))
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if label == "pod":
+            counts = dict(fwd=ssd.launches, bwd=ssd.bwd_launches)
+            glob = adamw.global_slices(o["m_slice"], sess.rt)
+            rows = o["m_slice"].view(2, 4, -1)
+            check(torch.equal(rows[0], rows[1]),
+                  "the pods' ZeRO-1 slices differ")
+            check(tuple(glob.shape) == (2, 2, o["m_slice"].shape[1]),
+                  f"the pod session's global slices {tuple(glob.shape)}")
+        res[label] = dict(losses=losses, norms=norms,
+                          ms=statistics.median(ms[1:]))
+        del p, o, step, sess
+        _release()
+    a, b = res["pod"], res["flat"]
+    rel = [abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"])]
+    norm1 = abs(a["norms"][0] - b["norms"][0]) / b["norms"][0]
+    check(all(math.isfinite(v) for v in a["losses"] + b["losses"]),
+          f"non-finite losses: pod {a['losses']}, flat {b['losses']}")
+    check(rel[0] <= POD_LOSS1_REL and norm1 <= POD_NORM1_REL
+          and max(rel[1:]) <= POD_LOSS_REL,
+          f"pod vs flat mamba2 steps: losses {rel}, step-1 norm {norm1}")
+    check(counts["fwd"] == POD_STEPS * L * 2
+          and counts["bwd"] == POD_STEPS * L,
+          f"pod-mesh SSD launches {counts}, want {POD_STEPS * L * 2} forward "
+          f"and {POD_STEPS * L} backward")
+    log(f"[pods] mamba2-130m {L} layers, ZeRO-1, 8 x {args.seq} tokens, "
+        f"{POD_STEPS} steps: (pod 2, data 2, model 2) {a['ms']:.1f} ms/step "
+        f"against (data 4, model 2) {b['ms']:.1f} (median of steps 2-"
+        f"{POD_STEPS}); losses pod {[round(v, 6) for v in a['losses']]}, "
+        f"flat {[round(v, 6) for v in b['losses']]} (step 1 {rel[0]:.2e} "
+        f"of itself, bound {POD_LOSS1_REL}; later {max(rel[1:]):.2e}, bound "
+        f"{POD_LOSS_REL}); step-1 gradient norm {a['norms'][0]:.6g} against "
+        f"{b['norms'][0]:.6g} ({norm1:.2e}, bound {POD_NORM1_REL}); SSD "
+        f"launches on the pod mesh: forward {counts['fwd']}, backward "
+        f"{counts['bwd']}")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[pods] phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(counts=counts, ms=a["ms"], flat_ms=b["ms"], hier=hier)
 
 
 def main() -> int:
@@ -2974,7 +3234,11 @@ def main() -> int:
     train_ssm = phase_train_ssm(dev)
     ssm_counts = train_ssm["counts"]
 
-    # -- 10. summary ---------------------------------------------------
+    # -- 10. the plan store and the pod axis ------------------------------
+    pods = phase_plans_and_pods(dev)
+    pod_counts = pods["counts"]
+
+    # -- 11. summary ---------------------------------------------------
     log(f"kernels: swe_step launches={main_launches} "
         + " ".join(f"{k}={v}" for k, v in launches_by_mode.items())
         + f"; swe_step launches={elastic_launches} (elastic runs)"
@@ -2989,7 +3253,9 @@ def main() -> int:
         + "".join(f"; {k} launches={train['int8']['counts'][k]} (training, "
                   f"int8 gradient wire)" for k in ("quantize", "dequantize"))
         + f"; ssd_scan launches={ssm_counts['fwd']} (mamba2 training), "
-        f"ssd_scan_bwd launches={ssm_counts['bwd']} (mamba2 training)")
+        f"ssd_scan_bwd launches={ssm_counts['bwd']} (mamba2 training)"
+        + f"; ssd_scan launches={pod_counts['fwd']} (pod-mesh training), "
+        f"ssd_scan_bwd launches={pod_counts['bwd']} (pod-mesh training)")
     full, boundary = timings["full pass"], timings["boundary rows"]
     rows = [{
         "name": "swe_step", "route": "cuda",
@@ -3026,7 +3292,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:74",
         "launches": ssd_launches, "training_launches": ssm_counts["fwd"],
-        **ssd_timing})
+        "pod_training_launches": pod_counts["fwd"], **ssd_timing})
     rows.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -3043,7 +3309,8 @@ def main() -> int:
                     "gradient; the JAX package differentiates its jnp "
                     "reference, src/repro/models/ssm.py:72, having no "
                     "backward kernel)",
-        "launches": ssm_counts["bwd"], "ptxas": ssd_bwd_ptxas,
+        "launches": ssm_counts["bwd"],
+        "pod_training_launches": pod_counts["bwd"], "ptxas": ssd_bwd_ptxas,
         **ssd_bwd_timing})
     log(json.dumps({"kernels": rows}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -2,7 +2,8 @@
 application, §4), all partitions stacked on one CUDA card.
 
 Run:  PYTHONPATH=src python examples/swe_simulation_torch.py [--elements 2000]
-      (add --device cpu to run the plain PyTorch path on the CPU)
+      (add --device cpu to run the plain PyTorch path on the CPU; add
+      --plan-dir DIR to persist the exchange's plans: a rerun replays them)
 
 Simulates tidal flow in a synthetic bight over ``--partitions`` ranks with
 the ACCL-X halo exchange and reports the step time and mass conservation,
@@ -11,12 +12,13 @@ H100's constants.  ``--comm auto`` takes the halo exchange's config from the
 TuneDB that ``python -m repro_torch.tune.sweep`` wrote for this device.
 """
 import argparse
+import hashlib
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.core import latmodel
+from repro_torch.core import latmodel, planstore, plans
 from repro_torch.core.config import (BASELINE_CONFIG, H100, OVERLAPPED_CONFIG,
                                      CommConfig)
 from repro_torch.core.topology import TorusSpec
@@ -51,7 +53,18 @@ def main():
                          "partitions")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--plan-dir", default=None,
+                    help="persist CommPlans to this directory (or set "
+                         "REPRO_PLAN_DIR): a rerun of the same simulation "
+                         "replays its schedules from disk")
     args = ap.parse_args()
+
+    if args.plan_dir is not None:
+        planstore.configure(args.plan_dir)
+    store = planstore.active()
+    if store is not None:
+        print(f"plan store: {store.root} "
+              f"({store.entry_count()} entries on disk)")
 
     cfg = {"streaming": CommConfig(), "overlapped": OVERLAPPED_CONFIG,
            "baseline": BASELINE_CONFIG, "auto": "auto"}[args.comm]
@@ -115,6 +128,13 @@ def main():
     if sim.comm_cfg.scheduling.value != "host":
         print(f"watchdog: median segment {watchdog.median_step*1e3:.1f}ms, "
               f"{len(watchdog.events)} straggler(s)")
+    digest = hashlib.sha256(state.detach().cpu().numpy().tobytes())
+    print(f"final state digest: {digest.hexdigest()[:16]}")
+    if store is not None:
+        st = plans.cache_stats()
+        print(f"plan store: {st['disk_hits']} disk hits / "
+              f"{st['disk_misses']} misses / {st['disk_writes']} writes "
+              f"-> {store.root} ({store.entry_count()} entries)")
 
     # Eq. 2/3 model (with the overlap term) on the H100's constants
     w = driver.build_workload(sim)

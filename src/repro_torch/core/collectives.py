@@ -432,3 +432,31 @@ def broadcast(x: torch.Tensor, root: int, comm: Communicator,
         (-1,) + (1,) * (x.dim() - 1))
     masked = torch.where(is_root, x, torch.zeros_like(x))
     return all_reduce(masked, comm, cfg, op="sum")
+
+
+def hierarchical_all_reduce(x: torch.Tensor, inner: Communicator,
+                            outer: Communicator,
+                            cfg: CommConfig) -> torch.Tensor:
+    """Cross-pod all-reduce: reduce-scatter in-pod → all-reduce across pods
+    → all-gather in-pod.
+
+    Moves 1/n_inner of the data over the slow outer links — the torus
+    version of the paper's switch-topology tuning.  ``inner`` and ``outer``
+    are groups of one stacked mesh (``Communicator.from_mesh`` of each
+    axis); each rank's message is flattened and zero-padded to a multiple
+    of the inner size."""
+    with obs_trace.span("hierarchical_all_reduce", cat="collective",
+                        nbytes=_nbytes(x), inner=inner.size,
+                        outer=outer.size, mode=cfg.mode,
+                        transport=cfg.transport,
+                        scheduling=cfg.scheduling,
+                        reliability=cfg.reliability):
+        flat = x.reshape(x.shape[0], -1)
+        size = flat.shape[1]
+        n = inner.size
+        if size % n:
+            flat = F.pad(flat, (0, (-size) % n))
+        seg = reduce_scatter(flat, inner, cfg)
+        seg = all_reduce(seg, outer, cfg)
+        full = all_gather(seg, inner, cfg, axis=0, tiled=True)
+        return full[:, :size].reshape(x.shape)

@@ -18,13 +18,25 @@ execution are bitwise-identical by construction.  Keys are full value
 tuples, so a change to the config, the communicator, the payload shape or
 dtype, or the pattern produces a different key.
 
-Cache control (the in-memory half of the JAX package's API; the JAX
-package's disk tier has no counterpart yet):
+Host-level entry points (the sweep engine) also cache their timed
+*program* here (:func:`captured_program`): on the card a captured CUDA
+graph with its static input, on the CPU the built op, so a warm sweep in
+the same process replays instead of re-capturing.  The caller that looks
+a program up owns it and lets it go with :func:`drop_programs`.
+
+Cache control:
 
 - ``REPRO_PLAN_CACHE=0`` bypasses the cache (every call re-derives);
-- :func:`clear_cache` empties it;
-- :func:`cache_stats` reports the hit/miss counters and the size;
-  :func:`reset_stats` zeroes the counters.
+- :func:`clear_cache` empties it (programs included);
+- :func:`cache_stats` reports the hit/miss counters, split by plan vs
+  program, the size, and the disk tier's counts; :func:`reset_stats`
+  zeroes the counters;
+- ``REPRO_PLAN_DIR=/path`` (or :func:`repro_torch.core.planstore.configure`)
+  adds the disk tier: plan entries persist as versioned JSON in the JAX
+  package's layout, so a *fresh process* starts warm — lookups go memory →
+  disk → build for the kinds in ``planstore.DISK_KINDS``, and every disk
+  outcome lands on the ``plans.disk_*`` counters.  Programs stay in memory
+  (:mod:`repro_torch.core.planstore` says why).
 
 The device index tensors (``pinned=True``: rope tables, permute indices,
 destination masks, ring shifts) are the exception to all three: a captured
@@ -42,6 +54,7 @@ import os
 import threading
 from typing import Any, Callable, Optional, Sequence
 
+from repro_torch.core import planstore
 from repro_torch.obs import metrics as obs_metrics
 
 _LOCK = threading.RLock()
@@ -49,7 +62,7 @@ _CACHE: dict[tuple, Any] = {}
 _PINNED: dict[tuple, Any] = {}
 # Lookup sentinel: a cached value may legitimately be falsy or None.
 _MISSING = object()
-_STAT_NAMES = ("plan_hits", "plan_misses")
+_STAT_NAMES = ("plan_hits", "plan_misses", "program_hits", "program_misses")
 _STATS = {k: obs_metrics.registry().counter(f"plans.{k}")
           for k in _STAT_NAMES}
 
@@ -69,12 +82,21 @@ def _comm_key(comm) -> tuple:
     return (tuple(comm), ())
 
 
+# Bump when the _cfg_key encoding changes shape: the stamp rides every
+# persisted key, so old disk entries turn into misses instead of aliasing.
+# The JAX package stamps the same value: both packages' keys of one config
+# canonicalize to the same JSON.
+CFG_KEY_SCHEMA = "cfg-v2"
+
+
 def _cfg_key(cfg) -> tuple:
-    """Canonical identity of a CommConfig: ``(name, primitive)`` pairs with
-    enum members folded to their string values."""
+    """Canonical, stably serializable identity of a CommConfig: the
+    :data:`CFG_KEY_SCHEMA` stamp, then ``(name, primitive)`` pairs with enum
+    members folded to their string values (JSON carries no enum objects,
+    and a field reorder must not silently alias old keys)."""
     if cfg is None:
         return ()
-    out: list = []
+    out: list = [CFG_KEY_SCHEMA]
     for f in dataclasses.fields(cfg):
         v = getattr(cfg, f.name)
         if isinstance(v, enum.Enum):
@@ -98,24 +120,28 @@ def clear_cache() -> None:
 def reset_stats() -> None:
     for c in _STATS.values():
         c.reset()
+    planstore.reset_disk_stats()
 
 
 def cache_stats() -> dict:
-    """``{plan_hits, plan_misses}`` from the :mod:`repro_torch.obs.metrics`
-    registry, plus ``size`` (cached plans) and ``pinned`` (device
-    tensors)."""
+    """``{plan,program}_{hits,misses}`` from the
+    :mod:`repro_torch.obs.metrics` registry, ``size`` (cached entries),
+    ``pinned`` (device tensors), and the disk tier's
+    ``disk_{hits,misses,writes,corrupt}``."""
     with _LOCK:
         out = {k: int(c.value) for k, c in _STATS.items()}
         out["size"] = len(_CACHE)
         out["pinned"] = len(_PINNED)
+        out.update(planstore.disk_stats())
         return out
 
 
 def _memo(kind: str, key: tuple, build: Callable[[], Any],
-          pinned: bool = False):
+          pinned: bool = False, hit_ctr: str = "plan_hits",
+          miss_ctr: str = "plan_misses"):
     full = (kind,) + key
     if not pinned and not cache_enabled():
-        _STATS["plan_misses"].inc()
+        _STATS[miss_ctr].inc()
         return build()
     table = _PINNED if pinned else _CACHE
     # Hold the (reentrant) lock across lookup AND build so concurrent
@@ -123,11 +149,21 @@ def _memo(kind: str, key: tuple, build: Callable[[], Any],
     with _LOCK:
         cached = table.get(full, _MISSING)
         if cached is not _MISSING:
-            _STATS["plan_hits"].inc()
+            _STATS[hit_ctr].inc()
             return cached
+        store = None if pinned else planstore.active()
+        persistable = store is not None and kind in planstore.DISK_KINDS
+        if persistable:
+            value = store.get(kind, key)
+            if value is not planstore.MISSING:
+                _STATS[hit_ctr].inc()
+                table[full] = value
+                return value
         value = build()
-        _STATS["plan_misses"].inc()
+        _STATS[miss_ctr].inc()
         table[full] = value
+        if persistable:
+            store.put(kind, key, value)
         return value
 
 
@@ -282,3 +318,27 @@ def get_plan(collective: str, comm, cfg, shape: Sequence[int], dtype,
                         shape=shape, dtype=dt, chunks=chunks, perms=rk)
 
     return _memo("plan", key, build)
+
+
+# ----------------------------------------------------------------------
+# Program cache (host-level entry points)
+# ----------------------------------------------------------------------
+
+def captured_program(key: Sequence, build: Callable[[], Any]) -> Any:
+    """Cache a host-level program under a value key (the JAX package's
+    ``jitted_program``): the sweep engine routes every candidate's timed
+    program through this, so a warm sweep in the same process (same
+    collective, config, size and bench mesh) replays it with zero rebuild
+    and zero re-capture.  Counted on ``plans.program_{hits,misses}``;
+    memory only (a captured CUDA graph cannot be serialized), and dropped
+    by :func:`drop_programs` or :func:`clear_cache`."""
+    return _memo("program", tuple(key), build, hit_ctr="program_hits",
+                 miss_ctr="program_misses")
+
+
+def drop_programs(keys: Sequence[Sequence]) -> None:
+    """Drop the programs cached under ``keys`` (their owner is done with
+    them; a key not cached is skipped)."""
+    with _LOCK:
+        for key in keys:
+            _CACHE.pop(("program",) + tuple(key), None)

@@ -1,7 +1,8 @@
 """Launcher glue: build a session (config, runtime, parameters on the
-device) for a stacked ``(data, model)`` mesh, and — given an ``OptConfig`` —
-the training session of the JAX package: specs, gradient masks, optimizer
-state and the step functions that take a global batch.
+device) for a stacked ``(data, model)`` or ``(pod, data, model)`` mesh,
+and — given an ``OptConfig`` — the training session of the JAX package:
+specs, gradient masks, optimizer state and the step functions that take a
+global batch.
 
 ``build_session(cfg, tp, comm)`` keeps the serving call form: an int mesh
 is ``(data=1, model=tp)``, and without ``oc`` no optimizer state is built.
@@ -136,8 +137,9 @@ def stacked_opt_state(sess: Session, state):
 def shard_batch(sess: Session, batch: dict) -> dict:
     """A global batch ``{"tokens", "labels"}`` of ``(B, S)`` (numpy or
     tensors) -> the stacked ``(P, B / dp, S)`` long tensors on the
-    session's device: data rank ``r`` takes rows ``[r B/dp, (r+1) B/dp)``,
-    repeated over its model group."""
+    session's device: data rank ``r`` (row-major over the data axes, pods
+    included, as the JAX package's ``P(("pod", "data"))``) takes rows ``[r
+    B/dp, (r+1) B/dp)``, repeated over its model group."""
     dp, tp = sess.mesh.dp, sess.mesh.tp
     out = {}
     for k in ("tokens", "labels"):

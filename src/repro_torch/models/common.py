@@ -169,9 +169,10 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshContext:
-    """Static view of the stacked ``(data, model)`` mesh: ``dp · tp`` ranks
-    on the leading dimension of every tensor, row-major over
-    ``(*data_axes, axis_model)``."""
+    """Static view of the stacked ``(data, model)`` mesh, or ``(pod, data,
+    model)`` with two data axes: ``dp · tp`` ranks on the leading dimension
+    of every tensor, row-major over ``(*data_axes, axis_model)``; ``dp`` is
+    the product of the data axes."""
     axis_model: str = "model"
     data_axes: Tuple[str, ...] = ("data",)
     model_size: int = 1

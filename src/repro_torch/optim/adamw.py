@@ -11,19 +11,22 @@ Two modes, as in the JAX package:
   ``oc.grad_comm or rt.comm`` — where the paper's ring reduce-scatter and
   its int8 wire plug in.  Each data rank owns ``1/dp`` of every model
   shard's optimizer state, runs Adam on its slice, and the delta is
-  all-gathered back.
+  all-gathered back.  On a ``(pod, data, model)`` mesh the slices are cut
+  over the last data axis only and summed over the pod axes
+  (``pod_reduce``, a flat all-reduce) between the reduce-scatter and the
+  update, so every pod holds the same slices.
 
 Stacked layout: a parameter leaf holds every rank on its rank dimension
 (``(P, ...)``, or ``(n_layers, P, ...)`` under ``layers``); the zero1
-moments are ``(P, k)``, row ``p`` the slice of data rank ``p // tp`` of
-model shard ``p % tp`` (the JAX package's global ``(tp, dp, k)``, see
-:func:`global_slices`).  Every per-rank scalar (the gradient norm, the clip
-scale) is a ``(P,)`` vector, equal across the ranks that share it.
+moments are ``(P, k)``, row ``p`` the slice of data rank ``(p // tp) %
+dp`` of model shard ``p % tp``, ``dp`` the last data axis's size (the JAX
+package's global ``(tp, dp, k)``, replicated over pods, see
+:func:`global_slices`).  Every per-rank scalar (the gradient norm, the
+clip scale) is a ``(P,)`` vector, equal across the ranks that share it.
 
 Divisions by a Python scalar are written tensor by tensor: PyTorch divides
 by a scalar as a multiply by its reciprocal on the card, which rounds
-differently from the JAX package's division.  FSDP leaves and the pod axis
-(``hierarchical_all_reduce``) are not ported.
+differently from the JAX package's division.  FSDP leaves are not ported.
 """
 from __future__ import annotations
 
@@ -201,15 +204,19 @@ def init_state(params, oc: OptConfig, rt: Runtime, fsdp_plan=None):
 
 def global_slices(x: torch.Tensor, rt: Runtime) -> torch.Tensor:
     """Stacked zero1 slices ``(P, k)`` -> the JAX package's global ``(tp,
-    dp, k)`` (``P('model', 'data', None)``)."""
-    tp, dp = rt.mesh.tp, rt.mesh.dp
-    return x.reshape(dp, tp, -1).transpose(0, 1).contiguous()
+    dp, k)`` (``P('model', 'data', None)``, ``dp`` the last data axis's
+    size).  The slices are replicated over the pod axes: pod 0's copy is
+    taken."""
+    tp, dp = rt.mesh.tp, rt.mesh.data_sizes[-1]
+    return x.reshape(-1, dp, tp, x.shape[-1])[0].transpose(0, 1).contiguous()
 
 
 def stacked_slices(x: torch.Tensor, rt: Runtime) -> torch.Tensor:
-    """Inverse of :func:`global_slices`."""
-    tp, dp = rt.mesh.tp, rt.mesh.dp
-    return x.reshape(tp, dp, -1).transpose(0, 1).reshape(tp * dp, -1)
+    """Inverse of :func:`global_slices`: every pod gets the same slices."""
+    tp, dp = rt.mesh.tp, rt.mesh.data_sizes[-1]
+    pods = rt.mesh.dp // dp
+    x = x.transpose(0, 1).reshape(1, dp * tp, -1)
+    return x.expand(pods, -1, -1).reshape(pods * dp * tp, -1).contiguous()
 
 
 def state_specs(param_spec_tree, oc: OptConfig, rt: Runtime,
@@ -250,6 +257,16 @@ def rt_comm_data(rt: Runtime) -> Communicator:
     return Communicator.from_mesh(rt.mesh, rt.mesh.data_axes[-1])
 
 
+def pod_reduce(x: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """The sum of a stacked ``(P, ...)`` value over the pod axes (every data
+    axis but the last), through ``rt.comm``; the identity without pods."""
+    pod_axes = rt.mesh.data_axes[:-1]
+    if not pod_axes:
+        return x
+    return collectives.all_reduce(
+        x, Communicator.from_mesh(rt.mesh, pod_axes), rt.comm)
+
+
 def sharded_global_norm(grads, ms_mask, rt: Runtime) -> torch.Tensor:
     """Every rank's global gradient norm ``(P,)`` (plain mode): the squared
     norms of model-sharded leaves summed over the model axis, replicated
@@ -275,10 +292,6 @@ def apply_updates(params, grads, state, oc: OptConfig, rt: Runtime,
     the same values, without a second copy of the moments."""
     if fsdp_plan is not None:
         raise NotImplementedError("FSDP is not ported; see ROADMAP.md Queue 1")
-    if len(rt.mesh.data_axes) > 1:
-        raise NotImplementedError(
-            "the pod axis (hierarchical_all_reduce) is not ported yet; see "
-            "ROADMAP.md Queue 1")
     step = state["step"]
     lr = schedule(step, oc)
     if "m_slice" not in state:
@@ -324,15 +337,17 @@ def _segments(tree) -> list:
     return out
 
 
-def _owned(tree, r: int, k: int, tp: int) -> torch.Tensor:
-    """Columns ``[r k, (r + 1) k)`` of the flat f32 vectors of the rows of
-    data rank ``r`` -> ``(tp, k)`` (zeros past the end)."""
+def _owned(tree, g: int, r: int, k: int, tp: int) -> torch.Tensor:
+    """Columns ``[r k, (r + 1) k)`` (the slice of data rank ``r`` of the
+    last data axis) of the flat f32 vectors of the rows of data group ``g``
+    (the ``g``-th block of ``tp`` rows) -> ``(tp, k)`` (zeros past the
+    end)."""
     lo, hi = r * k, (r + 1) * k
     pieces = []
     for names, leaf, a, b in _segments(tree):
         if b <= lo or a >= hi:
             continue
-        x = rows(leaf, names)[r * tp:(r + 1) * tp]
+        x = rows(leaf, names)[g * tp:(g + 1) * tp]
         pieces.append(x[:, max(lo, a) - a:min(hi, b) - a].float())
     got = sum(p.shape[1] for p in pieces)
     if got < k:
@@ -353,28 +368,34 @@ def _apply_zero1(params, grads, state, oc, rt, ms_mask, step, lr, donate):
                        + ([torch.zeros((rt.mesh.n_ranks, dp * k - n),
                                        device=segs[0][1].device)]
                           if dp * k > n else []), dim=1)
+    # the mean over every data rank, pods included: the slice of the last
+    # data axis's reduce-scatter, summed over the pods
     dpf = _f32(float(rt.mesh.dp), flat_g)
     g_slice = collectives.reduce_scatter(flat_g, rt_comm_data(rt), gcfg) / dpf
     del flat_g
+    g_slice = pod_reduce(g_slice, rt)
 
     # Global grad norm: weight 1 for model-sharded leaves (disjoint shards,
     # summed over the model axis), 1/tp for replicated ones (equal on every
     # model rank: counted once after the model-axis sum); slices summed
-    # over data.
+    # over data (pods hold equal slices after pod_reduce: not summed).
     flags = ([m for _, m in leaves_with_names(ms_mask)] if ms_mask
              is not None else [1] * len(segs))
-    gv = g_slice.view(dp, tp, k)
+    pods = rt.mesh.dp // dp
+    gv = g_slice.view(pods, dp, tp, k)
     sq_rows = []
     for r in range(dp):
-        sq = torch.zeros(tp, dtype=torch.float32, device=g_slice.device)
+        sq = torch.zeros((pods, tp), dtype=torch.float32,
+                         device=g_slice.device)
         for (_, _, a, b), m in zip(segs, flags):
             lo, hi = max(a, r * k), min(b, (r + 1) * k)
             if hi <= lo:
                 continue
-            part = _sq(gv[r, :, lo - r * k:hi - r * k])
+            part = torch.stack([_sq(gv[q, r, :, lo - r * k:hi - r * k])
+                                for q in range(pods)])
             sq = sq + (part if m else part * _f32(1.0 / tp, part))
         sq_rows.append(sq)
-    sq = torch.stack(sq_rows).reshape(-1)
+    sq = torch.stack(sq_rows, dim=1).reshape(-1)
     if dp > 1:
         sq = collectives.all_reduce(sq, rt_comm_data(rt), rt.comm)
     if tp > 1:
@@ -385,7 +406,8 @@ def _apply_zero1(params, grads, state, oc, rt, ms_mask, step, lr, donate):
     # Adam on the owned slice, column chunk by chunk (a full-width slice
     # is GBs per temporary); the moments go to new buffers, or are updated
     # in place when the caller donates the state
-    p_slice = torch.cat([_owned(params, r, k, tp) for r in range(dp)])
+    p_slice = torch.cat([_owned(params, g, g % dp, k, tp)
+                         for g in range(pods * dp)])
     m_old, v_old = state["m_slice"], state["v_slice"]
     m2 = m_old if donate else torch.empty_like(m_old)
     v2 = v_old if donate else torch.empty_like(v_old)

@@ -10,7 +10,8 @@ batch so).  Communication per step, as in the JAX package:
   grad model-sum     sum over 'model' for replicated-storage/sharded-use
                      leaves (sharding.grad_model_sum_mask)
   grad data-sync     ZeRO-1 flat reduce-scatter over 'data' (optional int8
-                     ring wire), or an all-reduce in plain mode
+                     ring wire) and a sum over 'pod', or an all-reduce
+                     over ('pod', 'data') in plain mode
   param update       Adam on the owned slice, all-gather of the delta
 
 The backward is autograd of the sum of every row's loss: row by row the

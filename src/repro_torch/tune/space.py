@@ -73,6 +73,11 @@ _RELEVANT_FIELDS: dict[str, frozenset[str]] = {
     "all_to_all": frozenset(
         {"mode", "scheduling", "transport", "window", "chunk_bytes",
          "compression"}),
+    # hierarchical (cross-pod) all-reduce: composed of RS/AR/AG, same
+    # surface as all_reduce.
+    "hierarchical_all_reduce": frozenset(
+        {"mode", "scheduling", "transport", "window", "chunk_bytes",
+         "compression", "algorithm"}),
 }
 
 _DEFAULTS = CommConfig()

@@ -13,6 +13,16 @@ Scheduling is honoured the way the runtime honours it:
 - on the CPU (``device="cpu"``, the tests) both run eagerly under
   ``time.perf_counter``.
 
+Every candidate's timed program goes through the plan cache's program memo
+(``plans.captured_program``): the built op, and on the card the CUDA graph
+captured from it with its static input.  A sweep drops the programs it
+looked up when it ends, unless it was asked to keep them
+(``keep_programs``): then the next sweep in the same process (same
+collective, config, size and bench mesh) replays instead of re-building
+and re-capturing, and drops them in turn.  ``--plan-dir`` adds the disk tier of the
+plan cache, so a fresh process re-derives no schedule; ``--warm-check``
+guards both (see :func:`main`).
+
 CLI (the card by default; ``--device cpu`` for the plain path)::
 
     PYTHONPATH=src python -m repro_torch.tune.sweep --fast --calibrate
@@ -21,20 +31,29 @@ CLI (the card by default; ``--device cpu`` for the plain path)::
     # virtual 4x4 torus, per-edge hop-distance axis (TuneEntry.hops)
     PYTHONPATH=src python -m repro_torch.tune.sweep --ranks 16 \\
         --topology 4x4 --hop-distances 1,2,4 --collectives sendrecv
+    # plan store + warm checks (in-process, then a fresh process)
+    PYTHONPATH=src python -m repro_torch.tune.sweep --fast --sizes small \\
+        --collectives sendrecv,all_reduce,hierarchical_all_reduce \\
+        --plan-dir /tmp/plans --warm-check
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 import sys
 import time
+import weakref
 from contextlib import nullcontext
+from pathlib import Path
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core import collectives, reliable, streaming
+from repro_torch.core import (collectives, planstore, plans, reliable,
+                              streaming)
 from repro_torch.core.communicator import Communicator
 from repro_torch.core.config import (H100, CommConfig, CommMode, Reliability,
                                      Scheduling)
@@ -55,7 +74,7 @@ FAST_SIZES = (1 << 10, 1 << 14)
 NAMED_SIZES = {"small": (1 << 14, 1 << 20), "full": FULL_SIZES}
 
 SWEEPABLE = ("sendrecv", "all_reduce", "all_gather", "reduce_scatter",
-             "multi_neighbor", "all_to_all")
+             "multi_neighbor", "all_to_all", "hierarchical_all_reduce")
 
 # Collectives with end-to-end consumer-loop benchmarks (the hideable-compute
 # consumers of the paper's §5 argument), one tuple per collective.
@@ -128,6 +147,28 @@ def _payload_elems(msg_bytes: int, n: int) -> int:
     return elems + (-elems) % n
 
 
+@dataclasses.dataclass(frozen=True)
+class _BenchMesh:
+    """The stacked ranks a sweep benches on, as a mesh shape: enough surface
+    (``axis_names`` and a ``shape`` mapping) for ``Communicator.from_mesh``.
+    The hierarchical all-reduce benches on ``(n // 2, 2)`` ``("inner",
+    "outer")``, every other collective on one ``"x"`` axis."""
+    axis_names: tuple
+    sizes: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def _mesh_key(mesh) -> tuple:
+    """Program-cache key component for the bench mesh's STRUCTURE: two
+    factorizations of one rank count (an 8-rank axis vs a 4x2 inner/outer
+    mesh) build different programs and must never replay each other's."""
+    return (tuple(mesh.axis_names),
+            tuple(mesh.shape[a] for a in mesh.axis_names))
+
+
 def _multi_neighbor_rounds(comm) -> list:
     """The 4-neighbor halo pattern (ring distance ±1, ±2) — the SWE
     exchange."""
@@ -160,9 +201,11 @@ def _per_rank_total(y: torch.Tensor) -> torch.Tensor:
 
 
 def _build_op(collective: str, comm, cfg: CommConfig,
-              hop_distance: int | None = None) -> Callable:
+              subcomms=None, hop_distance: int | None = None) -> Callable:
     """Stacked ``(n, elems)`` -> same-shaped tensor exercising one
-    collective op.  ``hop_distance`` (virtual torus only) replaces the
+    collective op.  ``subcomms`` is the (inner, outer) communicator pair of
+    the hierarchical (cross-pod) all-reduce, which runs over a 2-axis
+    bench mesh.  ``hop_distance`` (virtual torus only) replaces the
     hop-patterned collectives' default edge list with a translation perm at
     exactly that many torus hops."""
     if hop_distance is not None and collective not in HOP_PATTERNED:
@@ -200,6 +243,12 @@ def _build_op(collective: str, comm, cfg: CommConfig,
             y = collectives.all_to_all(x.reshape(x.shape[0], comm.size, -1),
                                        comm, cfg)
             return x + 0.0 * _per_rank_total(y)
+    elif collective == "hierarchical_all_reduce":
+        inner, outer = subcomms
+
+        def op(x):
+            return collectives.hierarchical_all_reduce(
+                x, inner, outer, cfg) / (inner.size * outer.size)
     else:
         raise ValueError(f"unknown collective {collective!r} "
                          f"(sweepable: {SWEEPABLE})")
@@ -317,11 +366,63 @@ def _build_consumer_op(collective: str, comm, cfg: CommConfig,
 _LAST_SAMPLES: list[float] = []
 
 
+@dataclasses.dataclass
+class SweepProgram:
+    """One candidate's timed program, as the plan cache's program memo
+    holds it: the built op and, once timed on the card under device
+    scheduling, the CUDA graph of ``inner`` chained ops with the static
+    input it reads, by ``(inner, whole stacked shape)``.  ``shape`` is a
+    consumer loop's per-rank payload shape (None: the collective's own
+    message)."""
+    op: Callable
+    shape: tuple | None = None
+    graphs: dict = dataclasses.field(default_factory=dict)
+
+
+# One graph memory pool per device for every captured sweep program: a
+# graph's outputs are never read and no two replay at once, so the
+# intermediates of one may reuse another's blocks, and the programs the
+# memo keeps cost one graph's footprint, not the sum of all.
+_POOLS: dict = {}
+# The static inputs: one zero tensor per (shape, device), which no op
+# writes, shared by the graphs that hold it and freed with the last.
+_ZEROS: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
+
+
+def _zeros(shape: tuple, device) -> torch.Tensor:
+    key = (shape, str(device))
+    x = _ZEROS.get(key)
+    if x is None:
+        x = _ZEROS[key] = torch.zeros(shape, dtype=torch.float32,
+                                      device=device)
+    return x
+
+
+def _capture(op: Callable, x: torch.Tensor, warmup: int, inner: int,
+             device) -> torch.cuda.CUDAGraph:
+    """``warmup`` eager ops on ``x`` (they build the kernels and fill the
+    plan caches, pinned index tensors included), then ``inner`` chained ops
+    captured as one graph that reads ``x``."""
+    for _ in range(warmup):
+        op(x)
+    torch.cuda.synchronize(device)
+    if str(device) not in _POOLS:
+        _POOLS[str(device)] = torch.cuda.graph_pool_handle()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=_POOLS[str(device)]):
+        y = x
+        for _ in range(inner):
+            y = op(y)
+    del y
+    return graph
+
+
 def _time_program(op: Callable, n_ranks: int, msg_bytes: int,
                   cfg: CommConfig, device=None, warmup: int = 1,
                   reps: int = 3, inner: int = 8,
                   per_dev_shape: tuple | None = None,
-                  hops: int = 1) -> float:
+                  hops: int = 1, program: SweepProgram | None = None
+                  ) -> float:
     """Seconds per collective op under the config's scheduling discipline,
     on ``n_ranks`` stacked ranks of a zero f32 message on ``device``.
 
@@ -332,31 +433,32 @@ def _time_program(op: Callable, n_ranks: int, msg_bytes: int,
     clock.  On the CPU every op runs eagerly under ``perf_counter``.  Each
     rep's per-op seconds go to :data:`_LAST_SAMPLES`.  ``hops`` (the
     pattern's hop distance) is for model timers; the clock needs none, the
-    routed permutes pay it.
+    routed permutes pay it.  With ``program`` (the sweep's memo entry for
+    this candidate) a graph captured once is replayed by every later
+    timing of the same shape.
     """
     device = resolve_device(device)
     if per_dev_shape is None:
         per_dev_shape = (_payload_elems(msg_bytes, n_ranks),)
-    x = torch.zeros((n_ranks,) + tuple(per_dev_shape), dtype=torch.float32,
-                    device=device)
+    shape = (n_ranks,) + tuple(per_dev_shape)
     cuda = device.type == "cuda"
 
     def sync():
         if cuda:
             torch.cuda.synchronize(device)
 
-    for _ in range(warmup):
-        x = op(x)
-    sync()
     del _LAST_SAMPLES[:]
     if cuda and cfg.scheduling != Scheduling.HOST:
         # fused and overlapped are both device-scheduled: one graph launch
         # amortized over `inner` ops
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            y = x
-            for _ in range(inner):
-                y = op(y)
+        gkey = (inner, shape)
+        graph, x = (program.graphs.get(gkey, (None, None))
+                    if program is not None else (None, None))
+        if graph is None:
+            x = _zeros(shape, device)
+            graph = _capture(op, x, warmup, inner, device)
+            if program is not None:
+                program.graphs[gkey] = (graph, x)
         graph.replay()
         sync()
         for _ in range(reps):
@@ -370,6 +472,10 @@ def _time_program(op: Callable, n_ranks: int, msg_bytes: int,
         return sum(_LAST_SAMPLES) / len(_LAST_SAMPLES)
     # Host scheduling (and the CPU): one op at a time, the host waits for
     # each before issuing the next.
+    x = torch.zeros(shape, dtype=torch.float32, device=device)
+    for _ in range(warmup):
+        x = op(x)
+    sync()
     t0 = time.perf_counter()
     for _ in range(reps):
         t1 = time.perf_counter()
@@ -380,13 +486,18 @@ def _time_program(op: Callable, n_ranks: int, msg_bytes: int,
     return (time.perf_counter() - t0) / (reps * inner)
 
 
+def _config_items(cfg: CommConfig) -> tuple:
+    return tuple(sorted(tune_space.config_to_dict(cfg).items()))
+
+
 # ----------------------------------------------------------------------
 # Sweep driver
 # ----------------------------------------------------------------------
 
-def _seed_calibration(comm, db: TuneDB, topo: str, sizes: Sequence[int],
-                      reps: int, inner: int, log: Callable[[str], None],
-                      timer, device, torus: str = ""):
+def _seed_calibration(mesh, comm, db: TuneDB, topo: str,
+                      sizes: Sequence[int], reps: int, inner: int,
+                      log: Callable[[str], None], timer, device,
+                      program: Callable, torus: str = ""):
     """Cold-cache calibration seed: measure the sendrecv corner configs so
     the Eq. 1 fit has points on THIS substrate before pruning starts.  The
     seed measurements are real TuneDB entries (they also serve selection)."""
@@ -395,9 +506,12 @@ def _seed_calibration(comm, db: TuneDB, topo: str, sizes: Sequence[int],
     hops = _pattern_hops("sendrecv", comm)
     for msg_bytes in sizes:
         for cfg in tune_space.enumerate_configs("sendrecv", fast=True):
-            op = _build_op("sendrecv", comm, cfg)
-            sec = timer(op, comm.size, msg_bytes, cfg, device=device,
-                        reps=reps, inner=inner, hops=hops)
+            prog = program(
+                ("sweep", topo, torus, 0, _mesh_key(mesh), "sendrecv",
+                 _config_items(cfg), int(msg_bytes)),
+                lambda: SweepProgram(_build_op("sendrecv", comm, cfg)))
+            sec = timer(prog.op, comm.size, msg_bytes, cfg, device=device,
+                        reps=reps, inner=inner, hops=hops, program=prog)
             db.add(TuneEntry(
                 topo=topo, collective="sendrecv", msg_bytes=int(msg_bytes),
                 config=tune_space.config_to_dict(cfg),
@@ -420,7 +534,7 @@ def run_sweep(n_ranks: int = 8, collectives: Sequence[str] = SWEEPABLE,
               hop_distances: Sequence[int] | None = None,
               loss_rate: float = 0.0,
               timer: Callable | None = None,
-              device=None) -> TuneDB:
+              device=None, keep_programs: bool = False) -> TuneDB:
     """Measure every candidate config on ``n_ranks`` stacked ranks of
     ``device`` (default: the card) and return the populated TuneDB.
 
@@ -457,6 +571,13 @@ def run_sweep(n_ranks: int = 8, collectives: Sequence[str] = SWEEPABLE,
     :func:`_time_program`) — deterministic model-driven timers make the
     selection pipeline testable end to end without a clock.  A measurement
     that raises fails the sweep.
+
+    Every candidate's program (its op, and on the card its CUDA graphs)
+    goes through the plan cache's program memo, and this sweep owns the
+    programs it looks up: they are dropped when it returns or raises,
+    unless ``keep_programs``, which hands them to the next sweep that looks
+    them up (the CLI's ``--warm-check`` keeps the cold run's for the warm
+    one).
     """
     if objective not in OBJECTIVES:
         raise ValueError(f"objective must be one of {OBJECTIVES}, "
@@ -465,6 +586,7 @@ def run_sweep(n_ranks: int = 8, collectives: Sequence[str] = SWEEPABLE,
         raise ValueError(f"loss_rate must be in [0, 1), got {loss_rate}")
     wire = (reliable.WireFaults(seed=17, drop=loss_rate)
             if loss_rate > 0.0 else None)
+    losskey: tuple = (("loss", loss_rate),) if wire is not None else ()
     device = resolve_device(device)
     if sizes is None:
         sizes = FAST_SIZES if fast else FULL_SIZES
@@ -479,156 +601,199 @@ def run_sweep(n_ranks: int = 8, collectives: Sequence[str] = SWEEPABLE,
     reg = obs_metrics.registry()
     reg.counter("sweep.runs").inc()
     cache_ctrs = {k: reg.counter(f"plans.{k}")
-                  for k in ("plan_hits", "plan_misses")}
+                  for k in ("plan_hits", "plan_misses", "program_hits",
+                            "program_misses", "disk_hits", "disk_misses",
+                            "disk_corrupt")}
     cache_before = {k: int(c.value) for k, c in cache_ctrs.items()}
     t_start = time.perf_counter()
 
-    comm = Communicator(("x",), (n_ranks,), topo=topology)
-    topo = topology_key(n_ranks, device)
-    torus = topology.name if topology is not None else ""
-    if hop_distances is not None:
-        if topology is None:
-            raise ValueError("--hop-distances requires --topology "
-                             "(hop distances live on a virtual torus)")
-        bad = [d for d in hop_distances
-               if not 1 <= d <= topology.diameter]
-        if bad:
-            raise ValueError(f"hop distances {bad} outside this torus's "
-                             f"[1, {topology.diameter}]")
+    owned: list = []
 
-    if prune and calibration is None:
-        calibration = tune_prune.calibration_from_db(db, topo)
-        if calibration is None:
-            # Seed wall clock is calibration overhead, not sweep time.
-            t_seed = time.perf_counter()
-            calibration = _seed_calibration(comm, db, topo, sizes, reps,
-                                            inner, log, timer, device,
-                                            torus=torus)
-            stats["seed_s"] = time.perf_counter() - t_seed
-        if calibration is None:
-            log("[prune] calibration unavailable — sweeping exhaustively")
-        else:
-            log(f"[prune] {calibration.summary()}")
+    def program(key, build):
+        owned.append(key)
+        return plans.captured_program(key, build)
 
-    for coll in collectives:
-        cands = tune_space.enumerate_configs(coll, fast=fast,
-                                             objective=objective)
-        if wire is not None:
-            # Best-effort candidates cannot deliver under chunk loss:
-            # promote everything to GUARANTEED and dedup (promotion can
-            # collide candidates that differed only in reliability).
-            forced = []
-            for c in cands:
-                g = dataclasses.replace(c,
-                                        reliability=Reliability.GUARANTEED)
-                if g not in forced:
-                    forced.append(g)
-            cands = forced
-        if max_configs is not None:
-            cands = cands[:max_configs]
-        if hop_distances is not None and coll in HOP_PATTERNED:
-            distances: list[int | None] = list(hop_distances)
-        else:
-            distances = [None]
-        consumers = CONSUMERS.get(coll, ()) if objective == "e2e" else ()
-        for hop_d in distances:
-            hops = hop_d if hop_d is not None else _pattern_hops(coll, comm)
-            log(f"[{topo}{'/' + torus if torus else ''}] {coll}: "
-                f"{len(cands)} configs x {len(sizes)} sizes "
-                f"(pattern hops={hops}"
-                + (f", e2e consumers={','.join(consumers)}"
-                   if consumers else "") + ")")
-            for msg_bytes in sizes:
-                stats["total"] += len(cands)
-                to_measure = cands
-                if prune and calibration is not None:
-                    compute_s = (consumer_flops(coll, msg_bytes)
-                                 / H100.peak_flops if consumers else 0.0)
-                    to_measure, skipped = tune_prune.prune_candidates(
-                        cands, msg_bytes, calibration, prune_ratio,
-                        collective=coll,
-                        objective="e2e" if consumers else "latency",
-                        compute_s=compute_s, hops=hops, loss=loss_rate)
-                    stats["pruned"] += len(skipped)
-                    reg.counter("sweep.pruned").inc(len(skipped))
-                    if skipped:
-                        log(f"  prune {coll}/{msg_bytes}B: measuring "
-                            f"{len(to_measure)}/{len(cands)} (model skipped "
-                            f"{len(skipped)})")
-                for i, cfg in enumerate(to_measure):
-                    op = _build_op(coll, comm, cfg, hop_distance=hop_d)
-                    del _LAST_SAMPLES[:]
-                    with obs_trace.span("sweep.candidate", cat="sweep",
-                                        collective=coll,
-                                        msg_bytes=int(msg_bytes),
-                                        hops=hops, cfg=i) as sp, (
-                            reliable.inject(wire) if wire is not None
-                            else nullcontext()):
-                        sec = timer(op, n_ranks, msg_bytes, cfg,
-                                    device=device, reps=reps, inner=inner,
-                                    hops=hops)
-                        sp.set(us_per_call=sec * 1e6)
-                    # Per-rep samples feed both the aggregate series and
-                    # this candidate's tail estimate; timers that report
-                    # only a mean contribute that single point.
-                    samples = [s * 1e6 for s in _LAST_SAMPLES]
-                    hist = reg.histogram("sweep.us", collective=coll)
-                    for v in (samples or [sec * 1e6]):
-                        hist.observe(v)
-                    p95_us = obs_metrics.percentile_of(samples, 95.0)
-                    consumer_e2e: dict[str, float] = {}
+    try:
+        mesh = _BenchMesh(("x",), (n_ranks,))
+        comm = Communicator.from_mesh(mesh, "x", topo=topology)
+        topo = topology_key(n_ranks, device)
+        torus = topology.name if topology is not None else ""
+        if hop_distances is not None:
+            if topology is None:
+                raise ValueError("--hop-distances requires --topology "
+                                 "(hop distances live on a virtual torus)")
+            bad = [d for d in hop_distances
+                   if not 1 <= d <= topology.diameter]
+            if bad:
+                raise ValueError(f"hop distances {bad} outside this torus's "
+                                 f"[1, {topology.diameter}]")
+
+        if prune and calibration is None:
+            calibration = tune_prune.calibration_from_db(db, topo)
+            if calibration is None:
+                # Seed wall clock is calibration overhead, not sweep time.
+                t_seed = time.perf_counter()
+                calibration = _seed_calibration(
+                    mesh, comm, db, topo, sizes, reps, inner, log, timer,
+                    device, program, torus=torus)
+                stats["seed_s"] = time.perf_counter() - t_seed
+            if calibration is None:
+                log("[prune] calibration unavailable — sweeping "
+                    "exhaustively")
+            else:
+                log(f"[prune] {calibration.summary()}")
+
+        for coll in collectives:
+            bench_mesh, subcomms = mesh, None
+            if coll == "hierarchical_all_reduce":
+                if n_ranks < 4 or n_ranks % 2:
+                    log(f"[{topo}] {coll}: skipped (needs an even rank count "
+                        f">= 4, have {n_ranks})")
+                    continue
+                # inner (in-pod) x outer (cross-pod) factorization, inner major
+                bench_mesh = _BenchMesh(("inner", "outer"), (n_ranks // 2, 2))
+                subcomms = (Communicator.from_mesh(bench_mesh, "inner"),
+                            Communicator.from_mesh(bench_mesh, "outer"))
+            cands = tune_space.enumerate_configs(coll, fast=fast,
+                                                 objective=objective)
+            if wire is not None:
+                # Best-effort candidates cannot deliver under chunk loss:
+                # promote everything to GUARANTEED and dedup (promotion can
+                # collide candidates that differed only in reliability).
+                forced = []
+                for c in cands:
+                    g = dataclasses.replace(c,
+                                            reliability=Reliability.GUARANTEED)
+                    if g not in forced:
+                        forced.append(g)
+                cands = forced
+            if max_configs is not None:
+                cands = cands[:max_configs]
+            if hop_distances is not None and coll in HOP_PATTERNED:
+                distances: list[int | None] = list(hop_distances)
+            else:
+                distances = [None]
+            consumers = CONSUMERS.get(coll, ()) if objective == "e2e" else ()
+            for hop_d in distances:
+                hops = (hop_d if hop_d is not None
+                        else _pattern_hops(coll, comm))
+                log(f"[{topo}{'/' + torus if torus else ''}] {coll}: "
+                    f"{len(cands)} configs x {len(sizes)} sizes "
+                    f"(pattern hops={hops}"
+                    + (f", e2e consumers={','.join(consumers)}"
+                       if consumers else "") + ")")
+                for msg_bytes in sizes:
+                    stats["total"] += len(cands)
+                    to_measure = cands
+                    if prune and calibration is not None:
+                        compute_s = (consumer_flops(coll, msg_bytes)
+                                     / H100.peak_flops if consumers else 0.0)
+                        to_measure, skipped = tune_prune.prune_candidates(
+                            cands, msg_bytes, calibration, prune_ratio,
+                            collective=coll,
+                            objective="e2e" if consumers else "latency",
+                            compute_s=compute_s, hops=hops, loss=loss_rate)
+                        stats["pruned"] += len(skipped)
+                        reg.counter("sweep.pruned").inc(len(skipped))
+                        if skipped:
+                            log(f"  prune {coll}/{msg_bytes}B: measuring "
+                                f"{len(to_measure)}/{len(cands)} (model "
+                                f"skipped "
+                                f"{len(skipped)})")
+                    for i, cfg in enumerate(to_measure):
+                        prog = program(
+                            ("sweep", topo, torus, hop_d or 0,
+                             _mesh_key(bench_mesh), coll, _config_items(cfg),
+                             int(msg_bytes)) + losskey,
+                            lambda: SweepProgram(_build_op(
+                                coll, comm, cfg, subcomms=subcomms,
+                                hop_distance=hop_d)))
+                        del _LAST_SAMPLES[:]
+                        with obs_trace.span("sweep.candidate", cat="sweep",
+                                            collective=coll,
+                                            msg_bytes=int(msg_bytes),
+                                            hops=hops, cfg=i) as sp, (
+                                reliable.inject(wire) if wire is not None
+                                else nullcontext()):
+                            sec = timer(prog.op, n_ranks, msg_bytes, cfg,
+                                        device=device, reps=reps, inner=inner,
+                                        hops=hops, program=prog)
+                            sp.set(us_per_call=sec * 1e6)
+                        # Per-rep samples feed both the aggregate series and
+                        # this candidate's tail estimate; timers that report
+                        # only a mean contribute that single point.
+                        samples = [s * 1e6 for s in _LAST_SAMPLES]
+                        hist = reg.histogram("sweep.us", collective=coll)
+                        for v in (samples or [sec * 1e6]):
+                            hist.observe(v)
+                        p95_us = obs_metrics.percentile_of(samples, 95.0)
+                        consumer_e2e: dict[str, float] = {}
+                        for consumer in consumers:
+                            cprog = program(
+                                ("sweep_e2e", topo, torus, hop_d or 0,
+                                 _mesh_key(bench_mesh), coll, consumer,
+                                 _config_items(cfg), int(msg_bytes)) + losskey,
+                                lambda: SweepProgram(*_build_consumer_op(
+                                    coll, comm, cfg, msg_bytes,
+                                    hop_distance=hop_d, consumer=consumer,
+                                    device=device)))
+                            with (reliable.inject(wire) if wire is not None
+                                  else nullcontext()):
+                                e2e_sec = timer(cprog.op, n_ranks, msg_bytes,
+                                                cfg, device=device, reps=reps,
+                                                inner=inner,
+                                                per_dev_shape=cprog.shape,
+                                                hops=hops, program=cprog)
+                            consumer_e2e[consumer] = e2e_sec * 1e6
+                            stats["e2e_measured"] += 1
+                            reg.histogram("sweep.e2e_us", collective=coll
+                                      ).observe(e2e_sec * 1e6)
+                        stats["measured"] += 1
+                        for consumer, e2e_us in (consumer_e2e.items()
+                                                 or ((None, 0.0),)):
+                            db.add(TuneEntry(
+                                topo=topo, collective=coll,
+                                msg_bytes=int(msg_bytes),
+                                config=tune_space.config_to_dict(cfg),
+                                us_per_call=sec * 1e6,
+                                gbps=msg_bytes / sec / 1e9,
+                                hops=hops, e2e_us=e2e_us, torus=torus,
+                                p95_us=p95_us, loss=loss_rate,
+                                consumer=consumer or ""))
+                    best = db.best(coll, msg_bytes, topo, hops=hops)
+                    if best is not None:
+                        log(f"  {coll:15s} {msg_bytes:>8d}B h{hops} best "
+                            f"{best.us_per_call:9.1f} us  "
+                            f"({best.gbps:6.3f} GB/s)  "
+                            f"{best.config['mode']}/"
+                            f"{best.config['scheduling']}"
+                            f"/{best.config['algorithm']}")
                     for consumer in consumers:
-                        cop, shape = _build_consumer_op(
-                            coll, comm, cfg, msg_bytes, hop_distance=hop_d,
-                            consumer=consumer, device=device)
-                        with (reliable.inject(wire) if wire is not None
-                              else nullcontext()):
-                            e2e_sec = timer(cop, n_ranks, msg_bytes, cfg,
-                                            device=device, reps=reps,
-                                            inner=inner, per_dev_shape=shape,
-                                            hops=hops)
-                        consumer_e2e[consumer] = e2e_sec * 1e6
-                        stats["e2e_measured"] += 1
-                        reg.histogram("sweep.e2e_us",
-                                      collective=coll).observe(e2e_sec * 1e6)
-                    stats["measured"] += 1
-                    for consumer, e2e_us in (consumer_e2e.items()
-                                             or ((None, 0.0),)):
-                        db.add(TuneEntry(
-                            topo=topo, collective=coll,
-                            msg_bytes=int(msg_bytes),
-                            config=tune_space.config_to_dict(cfg),
-                            us_per_call=sec * 1e6,
-                            gbps=msg_bytes / sec / 1e9,
-                            hops=hops, e2e_us=e2e_us, torus=torus,
-                            p95_us=p95_us, loss=loss_rate,
-                            consumer=consumer or ""))
-                best = db.best(coll, msg_bytes, topo, hops=hops)
-                if best is not None:
-                    log(f"  {coll:15s} {msg_bytes:>8d}B h{hops} best "
-                        f"{best.us_per_call:9.1f} us  ({best.gbps:6.3f} GB/s)  "
-                        f"{best.config['mode']}/{best.config['scheduling']}"
-                        f"/{best.config['algorithm']}")
-                for consumer in consumers:
-                    be = db.best(coll, msg_bytes, topo, hops=hops,
-                                 objective="e2e", consumer=consumer)
-                    if be is not None and be.e2e_us > 0.0:
-                        log(f"  {coll:15s} {msg_bytes:>8d}B h{hops} best e2e "
-                            f"{be.e2e_us:9.1f} us/iter ({consumer}) "
-                            f"{be.config['mode']}/{be.config['scheduling']}")
-    stats["wall_s"] = time.perf_counter() - t_start
-    for k, c in cache_ctrs.items():
-        stats[k] = int(c.value) - cache_before[k]
-    stats["latency_hist"] = reg.find("sweep.us{")
-    if stats["measured"]:
-        sweep_s = stats["wall_s"] - stats.get("seed_s", 0.0)
-        stats["est_exhaustive_s"] = sweep_s * stats["total"] / stats["measured"]
-    return db
+                        be = db.best(coll, msg_bytes, topo, hops=hops,
+                                     objective="e2e", consumer=consumer)
+                        if be is not None and be.e2e_us > 0.0:
+                            log(f"  {coll:15s} {msg_bytes:>8d}B h{hops} "
+                                f"best e2e "
+                                f"{be.e2e_us:9.1f} us/iter ({consumer}) "
+                                f"{be.config['mode']}/"
+                                f"{be.config['scheduling']}")
+        stats["wall_s"] = time.perf_counter() - t_start
+        for k, c in cache_ctrs.items():
+            stats[k] = int(c.value) - cache_before[k]
+        stats["latency_hist"] = reg.find("sweep.us{")
+        if stats["measured"]:
+            sweep_s = stats["wall_s"] - stats.get("seed_s", 0.0)
+            stats["est_exhaustive_s"] = (sweep_s * stats["total"]
+                                         / stats["measured"])
+        return db
+    finally:
+        if not keep_programs:
+            plans.drop_programs(owned)
 
 
 def sweep_summary(stats: dict) -> str:
     """One-line wall-clock summary (exhaustive vs calibration-pruned), plus
-    the plan-cache hit/miss counts."""
+    the plan-cache hit/miss counts behind the warm-sweep win."""
     line = (f"sweep wall clock {stats.get('wall_s', 0.0):.1f}s: measured "
             f"{stats.get('measured', 0)}/{stats.get('total', 0)} candidate "
             f"configs")
@@ -637,8 +802,13 @@ def sweep_summary(stats: dict) -> str:
     if stats.get("pruned"):
         line += (f" — {stats['pruned']} pruned by the calibrated model "
                  f"(exhaustive est. ~{stats.get('est_exhaustive_s', 0.0):.1f}s)")
-    line += (f" — plan cache: {stats.get('plan_hits', 0)} plan hits / "
+    line += (f" — plan cache: {stats.get('program_hits', 0)} program hits"
+             f" / {stats.get('program_misses', 0)} misses, "
+             f"{stats.get('plan_hits', 0)} plan hits / "
              f"{stats.get('plan_misses', 0)} misses")
+    if stats.get("disk_hits", 0) or stats.get("disk_misses", 0):
+        line += (f" — plan store: {stats.get('disk_hits', 0)} disk hits / "
+                 f"{stats.get('disk_misses', 0)} disk misses")
     hists = stats.get("latency_hist") or {}
     for name, h in sorted(hists.items()):
         if h.get("count"):
@@ -651,7 +821,76 @@ def sweep_summary(stats: dict) -> str:
 # CLI
 # ----------------------------------------------------------------------
 
+STATS_ENV = "REPRO_SWEEP_STATS_JSON"
+
+
+def _dump_stats_json(stats: dict) -> None:
+    """Machine-readable stats channel: when ``REPRO_SWEEP_STATS_JSON`` names
+    a path, the (first) sweep's stats dict is written there — how the
+    cross-process warm check reads a child sweep's wall clock and disk
+    counts without parsing log lines."""
+    path = os.environ.get(STATS_ENV)
+    if not path:
+        return
+    payload = {k: v for k, v in stats.items() if k != "latency_hist"}
+    Path(path).write_text(json.dumps(payload))
+
+
+def _cross_process_warm_check(child_argv: Sequence[str],
+                              cold_s: float) -> int:
+    """The second half of ``--warm-check`` when a plan store is active:
+    rerun this exact sweep in a FRESH python process against the populated
+    plan directory.  It looks up exactly the plans the cold run wrote, so
+    the child must replay them all from disk: ``disk_hits`` > 0,
+    ``disk_misses`` == 0 and ``disk_corrupt`` == 0.  Its wall clock is
+    printed beside the cold run's and held to no bar: the JAX package's
+    30 % bar measures the trace and XLA compile a fresh JAX process skips,
+    and a torch process has neither (ROADMAP.md Queue 3)."""
+    import subprocess
+    import tempfile
+
+    argv = [a for a in child_argv if a != "--warm-check"]
+    fd, stats_path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    env = dict(os.environ)
+    env[STATS_ENV] = stats_path
+    env[planstore.ENV_VAR] = str(planstore.plan_dir())
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.tune.sweep", *argv],
+            capture_output=True, text=True, env=env)
+        if proc.returncode != 0:
+            print("CROSS-PROCESS WARM-CHECK FAILED: child sweep exited "
+                  f"{proc.returncode}\n{proc.stdout[-2000:]}"
+                  f"\n{proc.stderr[-2000:]}", file=sys.stderr)
+            return 5
+        try:
+            child = json.loads(Path(stats_path).read_text())
+        except (OSError, ValueError):
+            print("CROSS-PROCESS WARM-CHECK FAILED: child stats JSON "
+                  "missing or unreadable", file=sys.stderr)
+            return 5
+    finally:
+        try:
+            os.unlink(stats_path)
+        except OSError:
+            pass
+    warm_s = child.get("wall_s", float("inf"))
+    hits, misses, corrupt = (child.get(k, 0) for k in
+                             ("disk_hits", "disk_misses", "disk_corrupt"))
+    print(f"plan-store cross-process check: cold {cold_s:.3f}s -> "
+          f"fresh-process {warm_s:.3f}s ({warm_s / max(cold_s, 1e-9):.3f} "
+          f"of cold), {hits} disk hits / {misses} misses / {corrupt} "
+          f"corrupt")
+    if hits <= 0 or misses or corrupt:
+        print("CROSS-PROCESS WARM-CHECK FAILED: the fresh process did not "
+              "replay every plan from the disk store", file=sys.stderr)
+        return 5
+    return 0
+
+
 def main(argv: Sequence[str] | None = None) -> int:
+    raw_argv = list(argv) if argv is not None else sys.argv[1:]
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.tune.sweep",
         description="Measured CommConfig sweep on stacked ranks -> TuneDB "
@@ -699,7 +938,29 @@ def main(argv: Sequence[str] | None = None) -> int:
                     "and entries record TuneEntry.loss so "
                     "select_config(loss=...) can prefer lossy-wire "
                     "measurements")
+    ap.add_argument("--plan-dir", default=None,
+                    help="disk-backed plan store directory (also via "
+                    "REPRO_PLAN_DIR): plan schedules persist as versioned "
+                    "JSON, so a FRESH process rerunning this sweep "
+                    "re-derives none")
+    ap.add_argument("--warm-check", action="store_true",
+                    help="run the sweep twice in this process (cold, then "
+                    "warm against the populated plan cache) and exit "
+                    "non-zero unless the warm sweep replayed cached "
+                    "programs and its wall clock is at least 30%% lower; "
+                    "with a plan dir active, additionally rerun the sweep "
+                    "in a FRESH subprocess and require every plan it looks "
+                    "up to come from the disk store")
     args = ap.parse_args(argv)
+
+    if args.plan_dir:
+        # Through the env so the cross-process warm-check child inherits
+        # the same store.
+        os.environ[planstore.ENV_VAR] = args.plan_dir
+    store = planstore.active()
+    if store is not None:
+        print(f"plan store: {store.root} "
+              f"({store.entry_count()} entries on disk)", flush=True)
 
     if args.sizes in NAMED_SIZES:
         sizes = NAMED_SIZES[args.sizes]
@@ -738,16 +999,41 @@ def main(argv: Sequence[str] | None = None) -> int:
         print(f"device: {torch.cuda.get_device_name(device)}", flush=True)
     db = TuneDB.load(args.out)
     stats: dict = {}
-    db = run_sweep(n_ranks=args.ranks, collectives=colls, sizes=sizes,
-                   fast=args.fast, db=db, max_configs=args.max_configs,
-                   log=lambda s: print(s, flush=True), prune=args.prune,
-                   prune_ratio=args.prune_ratio, objective=args.objective,
-                   stats=stats, topology=topology,
-                   hop_distances=hop_distances, loss_rate=args.loss_rate,
-                   device=device)
+    kwargs = dict(n_ranks=args.ranks, collectives=colls, sizes=sizes,
+                  fast=args.fast, max_configs=args.max_configs,
+                  log=lambda s: print(s, flush=True), prune=args.prune,
+                  prune_ratio=args.prune_ratio, objective=args.objective,
+                  topology=topology, hop_distances=hop_distances,
+                  loss_rate=args.loss_rate, device=device)
+    db = run_sweep(db=db, stats=stats, keep_programs=args.warm_check,
+                   **kwargs)
     path = db.save(args.out)
     print(f"wrote {len(db)} entries -> {path}")
     print(sweep_summary(stats))
+    _dump_stats_json(stats)
+
+    if args.warm_check:
+        warm_stats: dict = {}
+        db = run_sweep(db=db, stats=warm_stats, **kwargs)
+        db.save(args.out)
+        print("warm " + sweep_summary(warm_stats))
+        cold_s = stats.get("wall_s", 0.0)
+        warm_s = warm_stats.get("wall_s", 0.0)
+        print(f"plan-cache warm check: cold {cold_s:.3f}s -> warm "
+              f"{warm_s:.3f}s ({warm_s / max(cold_s, 1e-9):.3f} of cold)")
+        if warm_stats.get("program_hits", 0) <= 0:
+            print("WARM-CHECK FAILED: the warm sweep replayed zero cached "
+                  "programs (plan cache broken?)", file=sys.stderr)
+            return 4
+        if warm_s > 0.7 * cold_s:
+            print("WARM-CHECK FAILED: warm sweep wall clock is not >= 30% "
+                  "lower than cold (plan cache ineffective)",
+                  file=sys.stderr)
+            return 4
+        if planstore.active() is not None:
+            rc = _cross_process_warm_check(raw_argv, cold_s)
+            if rc:
+                return rc
 
     if args.calibrate:
         from repro_torch.tune.calibrate import (calibrate_from_db,

@@ -152,7 +152,9 @@ def test_cache_stats_count_hits_and_misses():
     b = plans.chunk_plan((1000,), torch.float32, cfg)
     st = plans.cache_stats()
     assert a is b and st["plan_hits"] >= 1 and st["size"] >= 1
-    assert set(st) == {"plan_hits", "plan_misses", "size", "pinned"}
+    assert set(st) == {"plan_hits", "plan_misses", "program_hits",
+                       "program_misses", "size", "pinned", "disk_hits",
+                       "disk_misses", "disk_writes", "disk_corrupt"}
     plans.clear_cache()
     assert plans.cache_stats()["size"] == 0
     c = plans.chunk_plan((1000,), torch.float32, cfg)

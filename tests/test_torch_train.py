@@ -384,8 +384,10 @@ def test_launch_mesh_constructors():
     assert m.shape == {"data": 2, "model": 4}
     assert MeshContext.from_mesh(m) == m
     assert mesh_mod.make_production_mesh().n_ranks == 256
-    with pytest.raises(NotImplementedError):
-        mesh_mod.make_test_mesh(2, 2, pod=2)
+    pod = mesh_mod.make_test_mesh(2, 2, pod=2)
+    assert pod.axis_names == ("pod", "data", "model")
+    assert (pod.dp, pod.tp, pod.n_ranks) == (4, 2, 8)
+    assert MeshContext.from_mesh(pod) == pod
     with pytest.raises(NotImplementedError):
         setup.build_session(CFG, m, CommConfig(), oc=adamw.OptConfig(),
                             fsdp=True, device="cpu")

@@ -152,7 +152,7 @@ def test_candidate_counts():
     counts = {c: len(tune.enumerate_configs(c)) for c in sweep.SWEEPABLE}
     assert counts == {"sendrecv": 32, "all_reduce": 160, "all_gather": 160,
                       "reduce_scatter": 160, "multi_neighbor": 44,
-                      "all_to_all": 20}
+                      "all_to_all": 20, "hierarchical_all_reduce": 160}
 
 
 # ----------------------------------------------------------------------
@@ -306,20 +306,24 @@ class _FakeDev:
 
 
 class _FakeDevs:
-    def __init__(self, n):
-        self.shape = (n,)
-        self.size = n
-        self.flat = [_FakeDev()] * n
+    def __init__(self, shape):
+        self.shape = shape
+        self.size = math.prod(shape)
+        self.flat = [_FakeDev()] * self.size
 
 
 class _FakeMesh:
     """Just enough mesh surface for the JAX package's run_sweep with an
-    injected timer (no program is built)."""
+    injected timer (no program is built): ``n`` devices on one ``"x"``
+    axis, or a ``shape`` over ``names`` (the hierarchical all-reduce's
+    inner x outer bench mesh, which the sweep makes through
+    ``compat.make_mesh``)."""
 
-    def __init__(self, n):
-        self.axis_names = ("x",)
-        self.devices = _FakeDevs(n)
-        self.shape = {"x": n}
+    def __init__(self, n, names=("x",)):
+        shape = (n,) if isinstance(n, int) else tuple(n)
+        self.axis_names = tuple(names)
+        self.devices = _FakeDevs(shape)
+        self.shape = dict(zip(self.axis_names, shape))
 
 
 def _model_seconds(latm, hw, msg_bytes, cfg, hops, per_dev_shape):
@@ -377,6 +381,9 @@ def test_run_sweep_matches_reference(case, monkeypatch):
     from repro_torch.tune import calibrate
     monkeypatch.setattr(calibrate.CalibrationResult, "hop_latency",
                         V5E.ici_hop_latency)
+    # the JAX package's hierarchical bench mesh, without 8 devices
+    from repro import compat as jax_compat
+    monkeypatch.setattr(jax_compat, "make_mesh", _FakeMesh)
     kw = dict(SWEEP_CASES[case])
     hop_sweep = "hop_distances" in kw
     port_timer, jax_timer = _timers(hop_sweep)
