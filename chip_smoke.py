@@ -107,7 +107,7 @@ exits non-zero:
    profiled (before phase 3, beside the other kernels); then qwen3-8b at
    full width and 4 layers (bf16,
    random weights from seed 0, ``(data=2, model=4)`` stacked, ZeRO-1,
-   8 x 1024 tokens a step) trained 8 steps through
+   8 x 1024 tokens a step) trained 6 steps through
    ``examples/train_lm_torch.py`` (the loss falls; ms/step, tokens/s and
    peak memory; the flash forward and backward launches per step exact,
    every backward on the wgmma route; the backward's share of one
@@ -153,7 +153,22 @@ exits non-zero:
    model 2)`` against ``(data 4, model 2)`` (bf16, ZeRO-1, 8 x 2048 tokens: step
    1's loss within 1e-6 and gradient norm within 1e-4, later losses within
    1e-2; SSD launches exact; ms/step of both);
-11. a ``kernels:`` line, the kernel table as one JSON line, and as the
+11. FSDP, Megatron-SP and remat "dots": where phase 9's qwen3-8b step
+   holds its peak, replicated and under FSDP + SP + "dots" (the
+   allocator's trace at the peak, by category); qwen3-8b as phase 9
+   trains it, 4 steps each under FSDP, FSDP + SP and FSDP + SP + "dots"
+   (FSDP's step-1 loss bitwise the replicated run's and its gradient norm
+   within 1e-4; SP's step-1 loss within 5e-5 and norm within 1e-4; later
+   losses within 1e-2; flash launches exact, every backward on the wgmma
+   route; ms/step and peak beside phase 9's); the first step under FSDP +
+   SP + "dots" through the kernels against the plain attention; the
+   step-1 loss on three batches, replicated, through SP's bf16 combine
+   (within 5e-5) and with the combine rounded to 2 mantissa bits (a
+   control, beyond 5e-5); ``preempt@2`` under FSDP + SP resumed by a
+   fresh process, bitwise; mamba2-130m 4 steps under FSDP (step 1's loss
+   within 1e-6, norm within 1e-4; SSD launches exact) and its first step
+   through the kernels against the plain scan through the first layer;
+12. a ``kernels:`` line, the kernel table as one JSON line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and exits non-zero without one, or when the repository
@@ -2058,8 +2073,9 @@ FLASH_BWD_GRID = [
 ]
 # qwen3-8b at full width, 4 layers (1.39 B parameters; PERF.md section 4),
 # bf16, random weights from seed 0, (data=2, model=4) stacked, ZeRO-1,
-# global batch 8 x 1024 tokens of the synthetic corpus
-TRAIN_STEPS = 8
+# global batch 8 x 1024 tokens of the synthetic corpus; mamba2-130m below
+# trains SSM_TRAIN_STEPS (its loss falls slowly: step 4's is above step 1's)
+TRAIN_STEPS, SSM_TRAIN_STEPS = 6, 8
 TRAIN_ARGV = ["--arch", "qwen3-8b", "--full-size", "--layers", "4", "--dp",
               "2", "--tp", "4", "--seq", "1024", "--batch", "8", "--steps",
               str(TRAIN_STEPS), "--lr", "3e-4", "--seed", "0"]
@@ -2182,23 +2198,23 @@ def _leaf_gap(a_tree, b_tree, floor: float = 0.0) -> float:
     return gap
 
 
-def drain_and_resume(ex, argv, want, ckpt, tag, dev) -> None:
-    """``preempt@4`` through ``ex`` (examples/train_lm_torch.py) with
-    ``argv``: the run drains after 4 steps (an emergency save of params and
-    Adam moments into ``ckpt``), a fresh process resumes it to the end, and
-    the joined loss stream must equal ``want``, the uninterrupted run's,
-    bitwise."""
+def drain_and_resume(ex, argv, want, ckpt, tag, dev, at: int = 4) -> None:
+    """``preempt@<at>`` through ``ex`` (examples/train_lm_torch.py) with
+    ``argv``: the run drains after ``at`` steps (an emergency save of
+    params and Adam moments into ``ckpt``), a fresh process resumes it to
+    the end, and the joined loss stream must equal ``want``, the
+    uninterrupted run's, bitwise."""
     from repro_torch.runtime.faults import FaultInjector, FaultSchedule
     argv = argv + ["--ckpt-dir", str(ckpt), "--ckpt-every", "1000"]
     t0 = time.perf_counter()
     res = ex.run(ex.parser().parse_args(argv), log=lambda *_: None,
-                 faults=FaultInjector(FaultSchedule.parse("preempt@4")))
+                 faults=FaultInjector(FaultSchedule.parse(f"preempt@{at}")))
     part1 = res["history"]
     del res
     _release()
     drain_s = time.perf_counter() - t0
-    check(len(part1) == 4, f"[{tag}] preempt@4 drained after {len(part1)} "
-          f"steps")
+    check(len(part1) == at, f"[{tag}] preempt@{at} drained after "
+          f"{len(part1)} steps")
     gib = 2.0**30
     free = torch.cuda.mem_get_info(dev)[0] / gib
     log(f"[{tag}] before the resume: this process holds "
@@ -2221,9 +2237,10 @@ def drain_and_resume(ex, argv, want, ckpt, tag, dev) -> None:
     check(part1 + part2 == want,
           f"[{tag}] drain + resume {part1 + part2} differs from the "
           f"uninterrupted run {want}")
-    log(f"[{tag}] preempt@4: drained after 4 steps ({drain_s:.1f} s with the "
-        f"emergency save of params and Adam moments); a fresh process "
-        f"resumed and trained 4 more ({resume_s:.1f} s, peak "
+    log(f"[{tag}] preempt@{at}: drained after {at} steps ({drain_s:.1f} s "
+        f"with the emergency save of params and Adam moments); a fresh "
+        f"process resumed and trained {len(part2)} more ({resume_s:.1f} s, "
+        f"peak "
         f"{resumed['peak_bytes'] / 1e9:.2f} GB); the joined stream is "
         f"bitwise equal to the uninterrupted run")
 
@@ -2232,8 +2249,8 @@ def phase_train(dev, db_path) -> dict:
     """qwen3-8b training at full width through ``examples/train_lm_torch.py``
     (the main path: the flash kernels' counts are zeroed just before it and
     read just after), the int8 gradient wire, kernel vs plain attention on
-    the first step, preemption with a fresh-process resume, rank loss with
-    an elastic re-selection, and the smoke config against the CPU."""
+    the first step, a drain with a fresh-process resume, rank loss with an
+    elastic re-selection, and the smoke config against the CPU."""
     import tempfile
     from repro_torch.core.config import CommConfig
     from repro_torch.data.pipeline import DataConfig
@@ -2308,7 +2325,8 @@ def phase_train(dev, db_path) -> dict:
         want_q = 0 if wire == "same" else TRAIN_STEPS * args.tp * 2
         check(counts["quantize"] == want_q and counts["dequantize"] == want_q,
               f"training ({wire}): quant launches {counts}, want {want_q}")
-        out[wire] = dict(history=hist, ms=ms, counts=counts,
+        out[wire] = dict(history=hist, norms=res["grad_norms"], ms=ms,
+                         counts=counts,
                          peak=res["peak_bytes"], seconds=res["seconds"])
         log(f"[train] qwen3-8b {L} layers, (data=2, model=4), ZeRO-1, grad "
             f"wire {wire}: loss {hist[0]:.4f} -> {hist[-1]:.4f} over "
@@ -2448,7 +2466,8 @@ SSD_TRAIN = (8, 4, 2048, 6, 64, 128, 128)
 # a step: the Mamba2 paper's context
 SSM_TRAIN_ARGV = ["--arch", "mamba2-130m", "--full-size", "--layers", "24",
                   "--dp", "2", "--tp", "4", "--seq", "2048", "--batch", "8",
-                  "--steps", str(TRAIN_STEPS), "--lr", "3e-4", "--seed", "0"]
+                  "--steps", str(SSM_TRAIN_STEPS), "--lr", "3e-4", "--seed",
+                  "0"]
 # the first step's loss and every gradient leaf, through the kernels
 # against the plain version, through the model's first SSM_GATE_LAYERS
 # layer(s) of the same full-width weights (random-weight mamba2 is chaotic
@@ -2699,23 +2718,25 @@ def phase_train_ssm(dev) -> dict:
     hist = res["history"]
     del res["session"]
     _release()
-    check(len(hist) == TRAIN_STEPS and n_spans == TRAIN_STEPS,
+    check(len(hist) == SSM_TRAIN_STEPS and n_spans == SSM_TRAIN_STEPS,
           f"mamba2 training: {len(hist)} steps, {n_spans} spans")
     check(all(math.isfinite(x) for x in hist) and hist[-1] < hist[0],
           f"mamba2 training: loss {hist}")
-    check(counts["fwd"] == TRAIN_STEPS * L * 2
-          and counts["bwd"] == TRAIN_STEPS * L,
+    check(counts["fwd"] == SSM_TRAIN_STEPS * L * 2
+          and counts["bwd"] == SSM_TRAIN_STEPS * L,
           f"mamba2 training: SSD launches {counts}, want "
-          f"{TRAIN_STEPS * L * 2} forward (remat recomputes each block) and "
-          f"{TRAIN_STEPS * L} backward")
-    out = dict(history=hist, ms=ms, counts=counts, peak=res["peak_bytes"])
+          f"{SSM_TRAIN_STEPS * L * 2} forward (remat recomputes each block) "
+          f"and {SSM_TRAIN_STEPS * L} backward")
+    out = dict(history=hist, norms=res["grad_norms"], ms=ms, counts=counts,
+               peak=res["peak_bytes"])
     log(f"[train-ssm] mamba2-130m {L} layers, (data=2, model=4), ZeRO-1, "
         f"8 x {args.seq} tokens: loss {hist[0]:.4f} -> {hist[-1]:.4f} over "
         f"{len(hist)} steps; {ms:.1f} ms/step (median of steps 2-"
-        f"{TRAIN_STEPS}), {tokens / ms * 1e3:.0f} tokens/s; peak "
+        f"{SSM_TRAIN_STEPS}), {tokens / ms * 1e3:.0f} tokens/s; peak "
         f"{res['peak_bytes'] / 1e9:.2f} GB; {res['seconds']:.1f} s in all; "
-        f"SSD launches per step: forward {counts['fwd'] // TRAIN_STEPS}, "
-        f"backward {counts['bwd'] // TRAIN_STEPS}")
+        f"SSD launches per step: forward "
+        f"{counts['fwd'] // SSM_TRAIN_STEPS}, backward "
+        f"{counts['bwd'] // SSM_TRAIN_STEPS}")
 
     # -- where a step's device time goes: one profiled step after a warm one
     oc = adamw.OptConfig(lr=args.lr, warmup_steps=20, total_steps=args.steps,
@@ -3011,6 +3032,451 @@ def phase_plans_and_pods(dev) -> dict:
     return dict(counts=counts, ms=a["ms"], flat_ms=b["ms"], hier=hier)
 
 
+# ----------------------------------------------------------------------
+# FSDP, Megatron-SP and remat "dots" on the training path
+# ----------------------------------------------------------------------
+
+# allocations no training step makes, each allocated and freed at once:
+# where they stand in the allocator's trace marks the ends of the forward,
+# the cross-entropy, the backward and the model-axis gradient sum
+PEAK_MARKS = tuple((7 << 20) + k * 512 for k in (3, 5, 7, 9))
+PEAK_PARTS = ("stored weights", "gradients", "ZeRO-1 moments",
+              "f32 flat gradient and delta vectors", "saved activations",
+              "logits and cross-entropy", "backward temporaries", "other")
+# qwen3-8b as phase 9 trains it (TRAIN_ARGV), 4 steps a run, in three
+# runs, against phase 9's replicated run on the same weights (its first 4
+# steps: with 20 warm-up steps the schedule does not depend on the run's
+# length); mamba2-130m as phase 9 trains it (SSM_TRAIN_ARGV), 4 steps
+# under FSDP, against phase 9's mamba2 run
+FSDP_STEPS = 4
+FSDP_RUNS = (("fsdp", ["--fsdp"]),
+             ("fsdp+sp", ["--fsdp", "--seq-parallel"]),
+             ("fsdp+sp+dots", ["--fsdp", "--seq-parallel",
+                               "--remat-policy", "dots"]))
+# Under FSDP the step-1 loss is bitwise the replicated run's (each layer's
+# gathered weights are the replicated ones: the same products in the same
+# order) and its gradient norm within 1e-4 of itself (the FSDP leaves'
+# squares summed in another order); later losses within 1e-2 (phase 10's
+# bounds); mamba2 under FSDP (SP is a no-op for it): step 1's loss within
+# 1e-6 and its norm within 1e-4.
+# Under SP, with or without "dots", the norm within 1e-4 and the step-1
+# loss within SP_LOSS1_REL of itself, a bound set from readings on the
+# H100: SP's combine carries the partial sums in the activation dtype, as
+# the JAX package's does, and their bf16 rounding moved the step-1 loss
+# 5.54e-06 of itself in training, 7.3e-06 to 2.2e-05 on the corpus's
+# first SP_GATE_BATCHES batches; rounded to SP_CONTROL_BITS mantissa bits
+# (the control), 1.5e-04 to 4.4e-04.  The phase reads both on those
+# batches and checks that the bound parts them.
+FSDP_NORM1_REL = 1e-4
+SSM_LOSS1_REL = 1e-6
+SP_LOSS1_REL, SP_NORM1_REL = 5e-5, 1e-4
+SP_CONTROL_BITS, SP_GATE_BATCHES = 2, 3
+FSDP_LOSS_REL = 1e-2
+# preempt@2 under FSDP + SP; a fresh process resumes to step 4
+FSDP_DRAIN_AT = 2
+
+
+def coarse_sp_combine(fn, bits: int = SP_CONTROL_BITS):
+    """``fn()`` with SP's combine fed its partial sums rounded to ``bits``
+    mantissa bits (to nearest, ties away from zero): a planted loss of
+    precision on the wire, for the step-1 gate to reject."""
+    from repro_torch.models import layers
+    scatter_sum = layers.scatter_sum
+    drop = 23 - bits
+
+    def coarse(x, comm, cfg, axis=0):
+        b = x.float().view(torch.int32)
+        b = (b + (1 << (drop - 1))) & -(1 << drop)
+        return scatter_sum(b.view(torch.float32).to(x.dtype), comm, cfg,
+                           axis)
+    layers.scatter_sum = coarse
+    try:
+        return fn()
+    finally:
+        layers.scatter_sum = scatter_sum
+
+
+def _with_steps(argv, n: int) -> list:
+    i = argv.index("--steps")
+    return argv[:i + 1] + [str(n)] + argv[i + 2:]
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.optim import adamw
+    return sum(t.numel() * t.element_size()
+               for _, t in adamw.leaves_with_names(tree) if torch.is_tensor(t))
+
+
+def peak_breakdown(dev, extra=()) -> dict:
+    """Where phase 9's qwen3-8b step (TRAIN_ARGV: 4 layers, (2, 4),
+    ZeRO-1, 8 x 1024 tokens; replicated, or as the training example's
+    ``extra`` flags say) holds its peak: one step after a warm
+    one, run as ``train_step.make_train_step`` runs it (``loss_fn`` taken
+    apart into the forward and the cross-entropy), with the allocator's
+    trace on (no stacks: gathering them in the backward's thread fails);
+    the trace replayed to the peak, and every block live there put in a
+    category by the phase that allocated it (marker allocations split
+    them), whether it outlives the backward (the gradients) or the step
+    (the new parameters), and, for the logits, its address.  Blocks live
+    before the step: the parameters and the ZeRO-1 moments (the FSDP
+    leaves' too), by their tensors' sizes, and the rest."""
+    from repro_torch.core.config import CommConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.device import deterministic
+    from repro_torch.launch import mesh as mesh_mod, setup
+    from repro_torch.models import layers, transformer
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as ts
+
+    ex = load_example("train_lm_torch")
+    args = ex.parser().parse_args(TRAIN_ARGV + list(extra))
+    cfg = ex.model_config(args)
+    oc = adamw.OptConfig(lr=args.lr, warmup_steps=20, total_steps=args.steps,
+                         zero1=True)
+    _release()
+    sess = setup.build_session(cfg, mesh_mod.make_test_mesh(args.dp, args.tp),
+                               CommConfig(), oc=oc, seed=0, device=dev,
+                               fsdp=args.fsdp,
+                               seq_parallel=args.seq_parallel)
+    src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                 seq_len=args.seq, global_batch=args.batch))
+    step = setup.make_sharded_train_step(sess)
+    p, o, _ = step(sess.params, sess.opt_state, src.batch_at(0))
+    sess.params = sess.opt_state = None
+    del step
+    _release()
+    rt = sess.rt
+    stacked = setup.shard_batch(sess, src.batch_at(1))
+    w_bytes, m_bytes = _tree_bytes(p), _tree_bytes(o)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def mark(k):
+        torch.empty(PEAK_MARKS[k], dtype=torch.uint8, device=dev)
+    torch.cuda.memory._record_memory_history(max_entries=2_000_000,
+                                             context=None)
+    try:
+        with deterministic():
+            leaves = [t.detach().requires_grad_(True)
+                      for _, t in adamw.leaves_with_names(p)]
+            with torch.enable_grad():
+                logits = transformer.forward(adamw._unflatten(p, leaves),
+                                             stacked, rt, train=True).logits
+                logits_addr = logits.untyped_storage().data_ptr()
+                mark(0)
+                loss = layers.cross_entropy_vocab_sharded(
+                    logits, stacked["labels"], rt)
+                mark(1)
+                del logits
+                grads = torch.autograd.grad(loss.sum(), leaves)
+            del leaves, loss
+            mark(2)
+            grads = ts.grad_model_sync(adamw._unflatten(p, list(grads)),
+                                       sess.mask, rt)
+            mark(3)
+            p2, o2, _ = adamw.apply_updates(p, grads, o, oc, rt,
+                                            rt.fsdp_plan, sess.ms_mask,
+                                            donate=True)
+            del grads
+        torch.cuda.synchronize(dev)
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    peak = torch.cuda.max_memory_allocated(dev)
+    trace = snap["device_traces"][dev.index or 0]
+    # a block leaves memory_allocated when it is freed (requested)
+    freed = ("free_requested" if any(e["action"] == "free_requested"
+                                     for e in trace) else "free_completed")
+    recs, by_addr, marks = [], {}, []
+    cur, best, best_i, pre_freed, at_best = base, base, -1, 0, 0
+    for e in trace:
+        if e["action"] == "alloc":
+            i = len(recs)
+            recs.append({"size": e["size"], "free": math.inf,
+                         "logits": e["addr"] == logits_addr
+                         and not marks})
+            by_addr[e["addr"]] = i
+            cur += e["size"]
+            if len(marks) < len(PEAK_MARKS) and \
+                    e["size"] == PEAK_MARKS[len(marks)]:
+                marks.append(i)
+            if cur > best:
+                best, best_i, at_best = cur, i, pre_freed
+        elif e["action"] == freed:
+            i = by_addr.pop(e["addr"], None)
+            if i is None:
+                pre_freed += e["size"]
+            else:
+                recs[i]["free"] = len(recs)
+            cur -= e["size"]
+    check(len(marks) == len(PEAK_MARKS),
+          f"peak breakdown: marks {marks} in the trace")
+    fwd_end, ce_end, bwd_end, sync_end = marks
+    parts = dict.fromkeys(PEAK_PARTS, 0)
+    parts["stored weights"] += w_bytes
+    parts["ZeRO-1 moments"] += m_bytes
+    parts["other"] += base - w_bytes - m_bytes - at_best
+    for i, r in enumerate(recs[:best_i + 1]):
+        if r["free"] <= best_i:
+            continue
+        if r["logits"] or fwd_end < i < ce_end:
+            key = "logits and cross-entropy"
+        elif i < fwd_end:
+            key = "saved activations"
+        elif i < bwd_end:
+            key = "gradients" if r["free"] > bwd_end else \
+                "backward temporaries"
+        elif i < sync_end:
+            key = "gradients"
+        elif r["free"] == math.inf:
+            key = "stored weights"
+        else:
+            key = "f32 flat gradient and delta vectors"
+        parts[key] += r["size"]
+    where = ("forward" if best_i < fwd_end else "cross-entropy"
+             if best_i < ce_end else "backward" if best_i < bwd_end
+             else "gradient sum" if best_i < sync_end else "update")
+    del p, o, p2, o2, stacked, sess, snap, trace, recs
+    _release()
+    gb = 1e9
+    log(f"[peak] qwen3-8b {cfg.n_layers} layers, (data=2, model=4), "
+        f"ZeRO-1, {' '.join(extra) or 'replicated'}, 8 x {args.seq} "
+        f"tokens: the step's "
+        f"peak {best / gb:.2f} GB in the {where} (max_memory_allocated "
+        f"{peak / gb:.2f} GB); live there: "
+        + ", ".join(f"{k} {v / gb:.2f} GB" for k, v in parts.items()))
+    return dict(peak=best, max_allocated=peak, where=where, parts=parts)
+
+
+def _train_run(ex, argv, root, counters) -> dict:
+    """One run of ``ex`` (examples/train_lm_torch.py) with ``argv``, the
+    main path: the kernels' counts zeroed just before it (``counters``
+    zeroes them and returns them) and read just after; its losses,
+    gradient norms, ms/step, peak and counts."""
+    from repro_torch.obs import trace as obs_trace
+    step_ms = load_example("train_ab_torch").step_ms
+    _release()
+    obs_trace.configure("1")
+    counters(reset=True)
+    res = ex.run(ex.parser().parse_args(
+        argv + ["--ckpt-dir", str(root), "--ckpt-every", "1000"]),
+        log=lambda *_: None)
+    counts = counters()
+    ms, n_spans = step_ms(obs_trace.events())
+    obs_trace.configure("0")
+    del res["session"]
+    _release()
+    hist = res["history"]
+    check(len(hist) == FSDP_STEPS and n_spans == FSDP_STEPS
+          and all(math.isfinite(x) for x in hist),
+          f"{argv}: {len(hist)} steps, {n_spans} spans, losses {hist}")
+    return dict(history=hist, norms=res["grad_norms"], ms=ms,
+                peak=res["peak_bytes"], counts=counts,
+                seconds=res["seconds"])
+
+
+def _against(tag, run, ref, loss1_rel, norm1_rel, later_rel=None) -> str:
+    """Gate ``run``'s step-1 loss and gradient norm (and, with
+    ``later_rel``, its later losses) against ``ref``'s first steps; the
+    gaps as text.  ``loss1_rel`` 0 asks for the same bits."""
+    n = len(run["history"])
+    rel = [abs(a - b) / abs(b) for a, b in zip(run["history"],
+                                               ref["history"][:n])]
+    norm1 = abs(run["norms"][0] - ref["norms"][0]) / ref["norms"][0]
+    if loss1_rel == 0:
+        check(run["history"][0] == ref["history"][0],
+              f"[{tag}] step-1 loss {run['history'][0]!r} is not the "
+              f"replicated run's {ref['history'][0]!r}")
+    check(rel[0] <= loss1_rel and norm1 <= norm1_rel,
+          f"[{tag}] step 1 against the replicated run: loss {rel[0]}, "
+          f"norm {norm1}")
+    if later_rel is not None:
+        check(max(rel[1:]) <= later_rel,
+              f"[{tag}] later losses against the replicated run: {rel}")
+    return (f"step-1 loss {run['history'][0]:.6f} against "
+            f"{ref['history'][0]:.6f} ({rel[0]:.2e} of it), gradient norm "
+            f"{run['norms'][0]:.6g} against {ref['norms'][0]:.6g} "
+            f"({norm1:.2e}); later losses within {max(rel[1:]):.2e}")
+
+
+def phase_fsdp(dev, train, train_ssm) -> dict:
+    """Where the qwen3-8b step's peak lies, replicated and under FSDP + SP
+    + "dots" (:func:`peak_breakdown`); qwen3-8b trained 4 steps through
+    ``examples/train_lm_torch.py`` under FSDP, FSDP + SP and FSDP + SP +
+    "dots" against phase 9's replicated run (``train``), the flash
+    kernels' launches exact; the first step's loss and gradients under
+    FSDP + SP + "dots" through the kernels against the plain attention;
+    ``preempt@2`` under FSDP + SP resumed by a fresh process, bitwise; and
+    mamba2-130m 4 steps under FSDP against phase 9's run (``train_ssm``),
+    SSD launches exact, its first step through the kernels against the
+    plain scan through the first layer(s).  Returns the launch counts."""
+    import shutil
+    import tempfile
+    from repro_torch.core.config import CommConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.device import deterministic
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.launch import mesh as mesh_mod, setup
+    from repro_torch.models import transformer
+    from repro_torch.train import train_step as ts
+
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_fsdp_"))
+    ex = load_example("train_lm_torch")
+    probe = load_example("ssm_fault_probe_torch")
+    gb = 1e9
+
+    # -- where the step's peak lies: replicated, and FSDP + SP + "dots" ----
+    breakdown = {"replicated": peak_breakdown(dev),
+                 "fsdp+sp+dots": peak_breakdown(dev, FSDP_RUNS[-1][1])}
+
+    # -- qwen3-8b under FSDP, FSDP + SP, FSDP + SP + "dots" ----------------
+    def flash_counts(reset=False):
+        if reset:
+            fa.launches = fa.bwd_launches = 0
+            for k in fa.bwd_route_launches:
+                fa.bwd_route_launches[k] = 0
+        return dict(fwd=fa.launches, bwd=fa.bwd_launches,
+                    bwd_wgmma=fa.bwd_route_launches["wgmma"])
+
+    argv = _with_steps(TRAIN_ARGV, FSDP_STEPS)
+    args = ex.parser().parse_args(argv)
+    L = ex.model_config(args).n_layers
+    ref = train["same"]
+    runs = {}
+    for label, extra in FSDP_RUNS:
+        run = _train_run(ex, argv + extra, root / label, flash_counts)
+        c = run["counts"]
+        check(c["fwd"] == FSDP_STEPS * L * 2
+              and c["bwd"] == c["bwd_wgmma"] == FSDP_STEPS * L,
+              f"[fsdp] {label}: flash launches {c}, want "
+              f"{FSDP_STEPS * L * 2} forward and {FSDP_STEPS * L} "
+              f"backward, all on the wgmma route")
+        gaps = _against(label, run, ref, 0 if label == "fsdp"
+                        else SP_LOSS1_REL, FSDP_NORM1_REL if label == "fsdp"
+                        else SP_NORM1_REL, FSDP_LOSS_REL)
+        runs[label] = run
+        log(f"[fsdp] qwen3-8b {L} layers, (data=2, model=4), ZeRO-1, "
+            f"{label}: {run['ms']:.1f} ms/step (median of steps 2-"
+            f"{FSDP_STEPS}; replicated {ref['ms']:.1f} in phase 9), peak "
+            f"{run['peak'] / gb:.2f} GB (replicated "
+            f"{ref['peak'] / gb:.2f}); {gaps}; flash launches per step: "
+            f"forward {c['fwd'] // FSDP_STEPS}, backward "
+            f"{c['bwd'] // FSDP_STEPS} (wgmma {c['bwd_wgmma'] // FSDP_STEPS})")
+
+    # -- the first step through the kernels and the plain attention --------
+    cfg = dataclasses.replace(ex.model_config(args), remat_policy="dots")
+    mesh = mesh_mod.make_test_mesh(args.dp, args.tp)
+    src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                                 global_batch=args.batch))
+    _release()
+    sess = setup.build_session(cfg, mesh, CommConfig(), seed=0, device=dev,
+                               fsdp=True, seq_parallel=True)
+    stacked = setup.shard_batch(sess, src.batch_at(0))
+    lg = ts.make_loss_and_grad(sess.rt)
+    with deterministic():
+        loss_k, _, g_k = lg(sess.params, stacked)
+        loss_p, _, g_p = plain_attention(lambda: lg(sess.params, stacked))
+    gap_loss = (loss_k - loss_p).abs().max().item()
+    gap_grad = _leaf_gap(g_k, g_p)
+    check(gap_loss < 1e-2 * abs(loss_p[0].item()),
+          f"[fsdp] first-step loss through the kernels {loss_k} vs plain "
+          f"{loss_p}")
+    log(f"[fsdp] first step under FSDP + SP + dots through the kernels vs "
+        f"the plain attention: loss {loss_k[0].item():.6f} vs "
+        f"{loss_p[0].item():.6f} (gap {gap_loss:.3e}); gradients: largest "
+        f"leaf gap {gap_grad:.3e} of its max|grad|")
+    del g_k, g_p, stacked, lg
+    _release()
+
+    # -- SP's step-1 gate against its readings: the loss of replicated
+    # weights, of SP's bf16 combine and of its control, forward only ------
+    rep = setup.build_session(dataclasses.replace(cfg, remat_policy="full"),
+                              mesh, CommConfig(), seed=0, device=dev)
+    gaps = []
+    with torch.no_grad(), deterministic():
+        for b in range(SP_GATE_BATCHES):
+            batch = src.batch_at(b)
+            want = transformer.loss_fn(rep.params, setup.shard_batch(
+                rep, batch), rep.rt)[0][0].item()
+            st = setup.shard_batch(sess, batch)
+            sp_loss = transformer.loss_fn(sess.params, st,
+                                          sess.rt)[0][0].item()
+            ctl = coarse_sp_combine(lambda: transformer.loss_fn(
+                sess.params, st, sess.rt)[0][0].item())
+            gaps.append((abs(sp_loss - want) / abs(want),
+                         abs(ctl - want) / abs(want)))
+    log(f"[fsdp] step-1 loss against the replicated one, batches 0-"
+        f"{SP_GATE_BATCHES - 1}: SP's bf16 combine "
+        f"{', '.join(f'{a:.3e}' for a, _ in gaps)} of it; the combine at "
+        f"{SP_CONTROL_BITS} mantissa bits "
+        f"{', '.join(f'{c:.3e}' for _, c in gaps)} (gate {SP_LOSS1_REL})")
+    check(max(a for a, _ in gaps) <= SP_LOSS1_REL
+          < min(c for _, c in gaps),
+          f"[fsdp] SP's step-1 gate {SP_LOSS1_REL} does not part the bf16 "
+          f"combine from its {SP_CONTROL_BITS}-bit control: {gaps}")
+    del sess, rep
+    _release()
+
+    # -- preemption under FSDP + SP: drain at step 2, a fresh process resumes
+    drain_and_resume(ex, argv + ["--fsdp", "--seq-parallel"],
+                     runs["fsdp+sp"]["history"], root / "preempt", "fsdp",
+                     dev, at=FSDP_DRAIN_AT)
+
+    # -- mamba2-130m under FSDP ---------------------------------------------
+    def ssd_counts(reset=False):
+        if reset:
+            ssd.launches = ssd.bwd_launches = 0
+        return dict(fwd=ssd.launches, bwd=ssd.bwd_launches)
+
+    sargv = _with_steps(SSM_TRAIN_ARGV, FSDP_STEPS)
+    sargs = ex.parser().parse_args(sargv)
+    scfg = ex.model_config(sargs)
+    ssm_run = _train_run(ex, sargv + ["--fsdp"], root / "ssm", ssd_counts)
+    c = ssm_run["counts"]
+    SL = scfg.n_layers
+    check(c["fwd"] == FSDP_STEPS * SL * 2 and c["bwd"] == FSDP_STEPS * SL,
+          f"[fsdp-ssm] SSD launches {c}, want {FSDP_STEPS * SL * 2} forward "
+          f"and {FSDP_STEPS * SL} backward")
+    gaps = _against("fsdp-ssm", ssm_run, train_ssm, SSM_LOSS1_REL,
+                    FSDP_NORM1_REL)
+    log(f"[fsdp-ssm] mamba2-130m {SL} layers, (data=2, model=4), ZeRO-1, "
+        f"FSDP, 8 x {sargs.seq} tokens: {ssm_run['ms']:.1f} ms/step "
+        f"(median of steps 2-{FSDP_STEPS}; replicated "
+        f"{train_ssm['ms']:.1f} in phase 9), peak "
+        f"{ssm_run['peak'] / gb:.2f} GB (replicated "
+        f"{train_ssm['peak'] / gb:.2f}); {gaps}; SSD launches per step: "
+        f"forward {c['fwd'] // FSDP_STEPS}, backward "
+        f"{c['bwd'] // FSDP_STEPS}")
+    cut = dataclasses.replace(scfg, n_layers=SSM_GATE_LAYERS)
+    sess = setup.build_session(cut, mesh, CommConfig(), seed=0, device=dev,
+                               fsdp=True)
+    ssrc = SyntheticLM(DataConfig(vocab_size=scfg.vocab_size,
+                                  seq_len=sargs.seq,
+                                  global_batch=sargs.batch))
+    stacked = setup.shard_batch(sess, ssrc.batch_at(0))
+    lg = ts.make_loss_and_grad(sess.rt)
+    with deterministic():
+        loss_k, _, g_k = lg(sess.params, stacked)
+        loss_p, _, g_p = probe.through(lambda: lg(sess.params, stacked))
+    cl = (loss_k - loss_p).abs().max().item() / abs(loss_p[0].item())
+    cg = _leaf_gap(g_k, g_p)
+    check(cl <= SSM_TRAIN_LOSS_REL and cg <= SSM_TRAIN_GRAD_REL,
+          f"[fsdp-ssm] first step through the kernels vs plain: loss {cl}, "
+          f"gradients {cg}")
+    log(f"[fsdp-ssm] first step under FSDP through the SSD kernels vs the "
+        f"plain scan, the first {SSM_GATE_LAYERS} layer(s): loss "
+        f"{loss_k[0].item():.6f} vs {loss_p[0].item():.6f} ({cl:.3e} of "
+        f"it; bound {SSM_TRAIN_LOSS_REL}), largest gradient leaf gap "
+        f"{cg:.3e} (bound {SSM_TRAIN_GRAD_REL})")
+    del sess, stacked, lg, g_k, g_p
+    _release()
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[fsdp] phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(breakdown=breakdown, runs=runs, ssm=ssm_run)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a card",
@@ -3029,6 +3495,10 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+
+    def lap(phase: str) -> None:
+        log(f"[time] phase {phase} ends at "
+            f"{time.perf_counter() - t_start:.1f} s")
 
     # -- 1. the card and the build ------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3139,6 +3609,7 @@ def main() -> int:
     flash_bwd_timing = phase_flash_bwd_kernel(dev, flush, bw)
     ssd_bwd_timing = phase_ssd_bwd_kernel(dev, flush, bw)
     _release()
+    lap("2")
 
     # -- 3. main path at full size -------------------------------------
     # (label, config, swe_step launches of the eager warm-up step that
@@ -3192,6 +3663,8 @@ def main() -> int:
         profile_segment(driver, dataclasses.replace(sim, comm_cfg=cfg),
                         step_us[label], label)
 
+    lap("3")
+
     # -- 4. routing ----------------------------------------------------
     small = driver.build_simulation(1696, 8, CommConfig(), device=dev)
     for label, flat_sim, spec, flat_state in (
@@ -3207,38 +3680,52 @@ def main() -> int:
               f"{label}: torus state differs from flat")
         log(f"[routing] {label}: bitwise equal to flat ({us:.1f} us/step)")
 
+    lap("4")
+
     # -- 5. the int8 wire: gradient sync, sweep, autotuned SWE ----------
     quant_launches = phase_grad_sync(dev)
     db_path = Path(__file__).resolve().parent / ".repro_tune" / \
         "chip_smoke_tunedb.json"
     phase_sweep(dev, db_path)
     phase_auto(driver, sim, db_path, dev)
+    lap("5")
 
     # -- 6. the reliable wire and the elastic runtime ---------------------
     phase_reliable_wire(driver, sim, finals["fused"])
     reliable_quant = phase_reliable_checks(dev)
     elastic_launches = phase_elastic(driver, sim, db_path, dev)
     phase_lossy_sweep(dev)
+    lap("6")
 
     # -- 7. the LM serving path ------------------------------------------
     flash_launches = phase_serve(dev)
     phase_serve_smoke(dev, "qwen3-8b", 24, 4)
+    lap("7")
 
     # -- 8. the SSM serving path -----------------------------------------
     ssd_launches = phase_serve_ssm(dev)
     phase_serve_smoke(dev, "mamba2-130m", 16, 16)
+    lap("8")
 
     # -- 9. training ---------------------------------------------------
     train = phase_train(dev, db_path)
     train_counts = train["same"]["counts"]
     train_ssm = phase_train_ssm(dev)
     ssm_counts = train_ssm["counts"]
+    lap("9")
 
     # -- 10. the plan store and the pod axis ------------------------------
     pods = phase_plans_and_pods(dev)
     pod_counts = pods["counts"]
+    lap("10")
 
-    # -- 11. summary ---------------------------------------------------
+    # -- 11. FSDP, Megatron-SP and remat "dots" ---------------------------
+    fsdp = phase_fsdp(dev, train, train_ssm)
+    fsdp_counts = {k: r["counts"] for k, r in fsdp["runs"].items()}
+    fsdp_ssm_counts = fsdp["ssm"]["counts"]
+    lap("11")
+
+    # -- 12. summary ---------------------------------------------------
     log(f"kernels: swe_step launches={main_launches} "
         + " ".join(f"{k}={v}" for k, v in launches_by_mode.items())
         + f"; swe_step launches={elastic_launches} (elastic runs)"
@@ -3255,7 +3742,14 @@ def main() -> int:
         + f"; ssd_scan launches={ssm_counts['fwd']} (mamba2 training), "
         f"ssd_scan_bwd launches={ssm_counts['bwd']} (mamba2 training)"
         + f"; ssd_scan launches={pod_counts['fwd']} (pod-mesh training), "
-        f"ssd_scan_bwd launches={pod_counts['bwd']} (pod-mesh training)")
+        f"ssd_scan_bwd launches={pod_counts['bwd']} (pod-mesh training)"
+        + "".join(f"; flash_attention launches={c['fwd']} ({k} training), "
+                  f"flash_attention_bwd launches={c['bwd']} ({k} training, "
+                  f"{c['bwd_wgmma']} on the wgmma route)"
+                  for k, c in fsdp_counts.items())
+        + f"; ssd_scan launches={fsdp_ssm_counts['fwd']} (FSDP mamba2 "
+        f"training), ssd_scan_bwd launches={fsdp_ssm_counts['bwd']} (FSDP "
+        f"mamba2 training)")
     full, boundary = timings["full pass"], timings["boundary rows"]
     rows = [{
         "name": "swe_step", "route": "cuda",
@@ -3286,13 +3780,17 @@ def main() -> int:
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
         "launches": flash_launches,
-        "training_launches": train_counts["fwd"], **flash_timing})
+        "training_launches": train_counts["fwd"],
+        "fsdp_training_launches": {k: c["fwd"]
+                                   for k, c in fsdp_counts.items()},
+        **flash_timing})
     rows.append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:74",
         "launches": ssd_launches, "training_launches": ssm_counts["fwd"],
-        "pod_training_launches": pod_counts["fwd"], **ssd_timing})
+        "pod_training_launches": pod_counts["fwd"],
+        "fsdp_training_launches": fsdp_ssm_counts["fwd"], **ssd_timing})
     rows.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -3301,7 +3799,10 @@ def main() -> int:
                     " (its gradient; the JAX package differentiates its jnp "
                     "reference, having no backward kernel)",
         "launches": train_counts["bwd"],
-        "wgmma_launches": train_counts["bwd_wgmma"], **flash_bwd_timing})
+        "wgmma_launches": train_counts["bwd_wgmma"],
+        "fsdp_training_launches": {k: c["bwd"]
+                                   for k, c in fsdp_counts.items()},
+        **flash_bwd_timing})
     rows.append({
         "name": "ssd_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
@@ -3310,7 +3811,9 @@ def main() -> int:
                     "reference, src/repro/models/ssm.py:72, having no "
                     "backward kernel)",
         "launches": ssm_counts["bwd"],
-        "pod_training_launches": pod_counts["bwd"], "ptxas": ssd_bwd_ptxas,
+        "pod_training_launches": pod_counts["bwd"],
+        "fsdp_training_launches": fsdp_ssm_counts["bwd"],
+        "ptxas": ssd_bwd_ptxas,
         **ssd_bwd_timing})
     log(json.dumps({"kernels": rows}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

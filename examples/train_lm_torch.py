@@ -14,6 +14,12 @@ flash-attention kernels, forward and backward, and the step runs under
 deterministic algorithms (``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA
 starts).
 
+``--fsdp`` gathers each layer's data-sharded weights at use (ZeRO-3 over
+the data axis), ``--seq-parallel`` runs the dense blocks under
+Megatron-SP, and ``--remat-policy dots`` keeps the weight products'
+outputs for the backward (``build_session``'s own arguments and
+``ModelConfig.remat_policy``).
+
 ``--arch`` defaults to mamba2-130m, as the reference example does: on the
 card its SSD scan runs the hand-written CUDA forward and backward kernels
 (``--seq`` must be whole SSD chunks: 128 with ``--full-size``, 32
@@ -75,6 +81,16 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--grad-comm", default="same", choices=tuple(GRAD_COMMS),
                     help="the ZeRO-1 gradient wire: the TP config, or the "
                     "int8 ring")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="shard the layer weights over the data axis, "
+                    "gathered one layer at a time")
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="Megatron-SP: the residual stream sequence-sharded "
+                    "over the model axis (dense family)")
+    ap.add_argument("--remat-policy", default="full",
+                    choices=("full", "dots"),
+                    help="recompute whole blocks, or keep the weight "
+                    "products' outputs")
     ap.add_argument("--dp", type=int, default=4)
     ap.add_argument("--tp", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
@@ -87,7 +103,8 @@ def parser() -> argparse.ArgumentParser:
 
 
 def model_config(args):
-    cfg = get_config(args.arch)
+    cfg = dataclasses.replace(get_config(args.arch),
+                              remat_policy=args.remat_policy)
     if args.full_size:
         return dataclasses.replace(cfg, n_layers=args.layers)
     # ~100M-param variant of the same family, CPU-trainable
@@ -100,8 +117,9 @@ def model_config(args):
 
 
 def run(args, log=print, faults=None) -> dict:
-    """Train as the flags say -> the loss stream, the wall seconds and the
-    peak device memory, with the session.  ``faults`` (a
+    """Train as the flags say -> the loss and gradient-norm streams, the
+    wall seconds and the peak device memory, with the session.  ``faults``
+    (a
     :class:`repro_torch.runtime.faults.FaultInjector`) is polled at every
     step boundary."""
     cfg = model_config(args)
@@ -111,7 +129,9 @@ def run(args, log=print, faults=None) -> dict:
     oc = adamw.OptConfig(lr=args.lr, warmup_steps=20, total_steps=args.steps,
                          zero1=True, grad_comm=GRAD_COMMS[args.grad_comm])
     sess = setup.build_session(cfg, mesh, COMMS[args.comm], oc=oc,
-                               seed=args.seed, device=args.device)
+                               seed=args.seed, device=args.device,
+                               fsdp=args.fsdp,
+                               seq_parallel=args.seq_parallel)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                           global_batch=args.batch)
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_ckpt_")
@@ -124,15 +144,16 @@ def run(args, log=print, faults=None) -> dict:
     if cuda:
         torch.cuda.reset_peak_memory_stats(sess.device)
     t0 = time.perf_counter()
+    norms = []
     history = loop_mod.train(
         sess, data_cfg,
         loop_mod.LoopConfig(n_steps=args.steps - start,
                             ckpt_every=args.ckpt_every
                             or max(args.steps // 2, 1),
                             ckpt_dir=ckpt_dir, log_every=10), log=log,
-        faults=faults)
+        faults=faults, grad_norms=norms)
     seconds = time.perf_counter() - t0
-    return {"history": history, "seconds": seconds,
+    return {"history": history, "grad_norms": norms, "seconds": seconds,
             "peak_bytes": (torch.cuda.max_memory_allocated(sess.device)
                            if cuda else None),
             "ckpt_dir": ckpt_dir, "session": sess}
@@ -147,8 +168,8 @@ def main():
           f"{out['ckpt_dir']}")
     if args.json:
         with open(args.json, "w") as f:
-            json.dump({k: out[k] for k in ("history", "seconds",
-                                           "peak_bytes")}, f)
+            json.dump({k: out[k] for k in ("history", "grad_norms",
+                                           "seconds", "peak_bytes")}, f)
     if not args.resume:
         assert history[-1] < history[0], "loss should decrease"
 

@@ -42,13 +42,15 @@ class Session:
 def build_session(cfg: ModelConfig, mesh, comm: CommConfig | str,
                   oc: Optional[adamw.OptConfig] = None, seed: int = 0,
                   device=None, tune_db_path=None, objective: str = "latency",
-                  fsdp: bool = False) -> Session:
+                  fsdp: bool = False, seq_parallel: bool = False) -> Session:
     """Initialise ``cfg``'s parameters from ``seed`` on the device (the card
     unless ``device`` names another) as stacked per-rank shards over the
     ``mesh`` (a ``MeshContext``, or the tensor-parallel size for ``(data=1,
-    model=tp)``); each data rank holds a copy.  With ``oc`` the session
-    trains: it carries the spec trees, the gradient masks and the
-    optimizer state.
+    model=tp)``); each data rank holds a copy, or with ``fsdp`` its slice
+    of every layer-stack weight (``sharding.build_fsdp_plan``, over the
+    last data axis).  ``seq_parallel`` runs the dense blocks under
+    Megatron-SP.  With ``oc`` the session trains: it carries the spec
+    trees, the gradient masks and the optimizer state.
 
     ``comm="auto"`` asks the autotuner for the fastest measured config for
     the LM path's dominant collective — the per-layer row-parallel TP
@@ -56,10 +58,6 @@ def build_session(cfg: ModelConfig, mesh, comm: CommConfig | str,
     microbatch — on ``tp`` ranks of the device's platform, falling back to
     ``OPTIMIZED_CONFIG`` on a cold TuneDB.  ``objective="e2e"`` ranks by
     the measured ``row_parallel`` consumer-loop time."""
-    if fsdp:
-        raise NotImplementedError(
-            "FSDP (build_fsdp_plan / apply_fsdp) is not ported yet; see "
-            "ROADMAP.md Queue 1")
     mesh = (MeshContext.stacked(int(mesh)) if isinstance(mesh, int)
             else MeshContext.from_mesh(mesh))
     tp, dp = mesh.tp, mesh.dp
@@ -71,24 +69,32 @@ def build_session(cfg: ModelConfig, mesh, comm: CommConfig | str,
                               objective=objective, consumer="row_parallel",
                               device=dev)
     full = transformer.init_model(seed, cfg, tp, dev)
-    params = sharding.shard_params(full, cfg, tp, dp=dp)
-    rt = Runtime(cfg=cfg, mesh=mesh, comm=comm)
-    sess = Session(cfg=cfg, tp=tp, rt=rt, params=params, mesh=mesh,
+    plan = sharding.build_fsdp_plan(full, cfg, mesh) if fsdp else None
+    rt = Runtime(cfg=cfg, mesh=mesh, comm=comm, fsdp_plan=plan,
+                 seq_parallel=seq_parallel)
+    sess = Session(cfg=cfg, tp=tp, rt=rt, params=None, mesh=mesh,
                    device=dev)
+    sess.params = stacked_params(sess, full)
     if oc is None:
         return sess
     sess.oc = oc
-    sess.param_spec = sharding.param_specs(full, cfg, mesh)
+    sess.param_spec = sharding.param_specs(full, cfg, mesh, fsdp=fsdp)
     del full
-    sess.mask = sharding.grad_model_sum_mask(params, cfg, tp)
+    sess.mask = sharding.grad_model_sum_mask(sess.params, cfg, tp,
+                                             seq_parallel=seq_parallel)
     sess.ms_mask = sharding.model_sharded_mask(sess.param_spec)
-    sess.opt_spec = adamw.state_specs(sess.param_spec, oc, rt)
+    sess.opt_spec = adamw.state_specs(sess.param_spec, oc, rt, plan)
     sess.opt_state = init_opt_state(sess)
     return sess
 
 
 def init_opt_state(sess: Session):
-    return adamw.init_state(sess.params, sess.oc, sess.rt)
+    return adamw.init_state(sess.params, sess.oc, sess.rt, sess.rt.fsdp_plan)
+
+
+def _fsdp_dp(sess: Session) -> int:
+    """The FSDP data factor: the last data axis's size, 1 without FSDP."""
+    return 1 if sess.rt.fsdp_plan is None else sess.mesh.data_sizes[-1]
 
 
 # ----------------------------------------------------------------------
@@ -99,22 +105,26 @@ def global_params(sess: Session, params=None):
     """The full parameter arrays (the JAX package's global values) of the
     stacked shards."""
     return sharding.unshard_params(sess.params if params is None else params,
-                                   sess.cfg, sess.tp)
+                                   sess.cfg, sess.tp, sess.rt.fsdp_plan,
+                                   _fsdp_dp(sess))
 
 
 def stacked_params(sess: Session, full):
     """Full arrays -> the session's stacked shards on its device."""
     return sharding.shard_params(full, sess.cfg, sess.tp, sess.device,
-                                 dp=sess.mesh.dp)
+                                 dp=sess.mesh.dp, fsdp_dp=_fsdp_dp(sess))
 
 
 def global_opt_state(sess: Session, state=None):
     """The optimizer state in the JAX package's global layout: moment trees
-    unsharded like the parameters, or zero1 slices ``(tp, dp, k)``."""
+    unsharded like the parameters, or zero1 slices ``(tp, dp, k)`` and the
+    FSDP leaves' moments unsharded."""
     state = sess.opt_state if state is None else state
     if "m_slice" in state:
         return {"m_slice": adamw.global_slices(state["m_slice"], sess.rt),
                 "v_slice": adamw.global_slices(state["v_slice"], sess.rt),
+                "m_fsdp": global_params(sess, state["m_fsdp"]),
+                "v_fsdp": global_params(sess, state["v_fsdp"]),
                 "step": state["step"]}
     return {"m": global_params(sess, state["m"]),
             "v": global_params(sess, state["v"]), "step": state["step"]}
@@ -125,7 +135,9 @@ def stacked_opt_state(sess: Session, state):
     step = state["step"].to(device=sess.device, dtype=torch.int32)
     if "m_slice" in state:
         return {k: adamw.stacked_slices(state[k].to(sess.device), sess.rt)
-                for k in ("m_slice", "v_slice")} | {"step": step}
+                for k in ("m_slice", "v_slice")} | {
+                    k: stacked_params(sess, state[k])
+                    for k in ("m_fsdp", "v_fsdp")} | {"step": step}
     return {"m": stacked_params(sess, state["m"]),
             "v": stacked_params(sess, state["v"]), "step": step}
 

@@ -101,20 +101,27 @@ def _sdpa(q, k, v, softcap: Optional[float], causal: bool,
 
 def attention(params, x: torch.Tensor, positions: torch.Tensor, rt: Runtime,
               window: Optional[int] = None, causal: Optional[bool] = None,
-              return_kv: bool = False):
-    """Full self-attention (prefill).  x: (P, B, S, D) replicated;
-    positions (B, S).
+              return_kv: bool = False, sp: bool = False):
+    """Full self-attention (training, prefill).  x: (P, B, S, D)
+    replicated; positions (B, S).
 
     ``return_kv`` additionally returns post-rope full-head (P, B, S, KV, hd)
     k/v for cache construction (all-gathered if kv was TP-sharded).
-    Returns (P, B, S, D) replicated (row-parallel combine via ACCL-X)."""
+    Returns (P, B, S, D) replicated (row-parallel combine via ACCL-X).
+    ``sp=True`` (Megatron-SP): x arrives and the result leaves
+    sequence-sharded, (P, B, S/tp, D); all-gather in, reduce-scatter out,
+    so the kernel sees the same full-sequence, head-sharded shapes."""
     cfg, mesh = rt.cfg, rt.mesh
     dims = attn_dims(cfg, mesh.tp)
     causal = cfg.causal if causal is None else causal
-    P, B, S, _ = x.shape
     hd = dims.head_dim
 
-    x = layers.tp_grad_sum(x, rt, dims.q_sharded)
+    if sp and dims.q_sharded:
+        # the all-gather's backward performs the f operator's sum
+        x = layers.sp_all_gather(x, rt)
+    else:
+        x = layers.tp_grad_sum(x, rt, dims.q_sharded)
+    P, B, S, _ = x.shape
     q = layers.col_parallel(x, params["wq"]).reshape(P, B, S, -1, hd)
     k = layers.col_parallel(x, params["wk"]).reshape(P, B, S, -1, hd)
     v = layers.col_parallel(x, params["wv"]).reshape(P, B, S, -1, hd)
@@ -147,7 +154,10 @@ def attention(params, x: torch.Tensor, positions: torch.Tensor, rt: Runtime,
     # (the JAX package also zeroes their outputs, which only gradients see)
     out = _sdpa(q, k, v, cfg.attn_logit_softcap, causal, window)
     out = out.reshape(P, B, S, -1)
-    if dims.q_sharded:
+    if dims.q_sharded and sp:
+        y = layers.sp_reduce_scatter(layers.matmul_f32(out, params["wo"]),
+                                     rt).to(x.dtype)
+    elif dims.q_sharded:
         y = layers.row_parallel(out, params["wo"], rt)
     else:
         # replicated attention: wo applied fully on every rank, no combine

@@ -225,14 +225,19 @@ class Runtime:
 
     The JAX package's ``use_pallas`` has no counterpart: the attention
     kernel is chosen by the tensors' device (the CUDA kernel on the card,
-    its plain version on the CPU).  ``fsdp_plan`` is always ``None``: the
-    port materialises every parameter per its tensor-parallel spec."""
+    its plain version on the CPU)."""
     cfg: ModelConfig
     mesh: MeshContext
     comm: CommConfig
     # Decode KV-timeline shard axes: the model axis (the data axis is 1).
     seq_axes: tuple = ("model",)
+    # FSDP gather plan from sharding.build_fsdp_plan (None = params fully
+    # materialized per their TP spec; no per-layer gathers).
     fsdp_plan: Any = None
+    # Megatron-SP: the residual stream sequence-sharded over the model axis
+    # between blocks (norms on shards; all-gather before QKV/MLP-in,
+    # reduce-scatter after the row-parallel matmul). Dense family.
+    seq_parallel: bool = False
 
     def _axis_comm(self, axes) -> Communicator:
         return Communicator.from_mesh(self.mesh, tuple(axes))

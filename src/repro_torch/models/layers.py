@@ -25,6 +25,8 @@ rank from ``comm.rank()``: one value per row of the rank dimension.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional
 
 import torch
@@ -34,8 +36,36 @@ from repro_torch.core import collectives, plans, streaming
 from repro_torch.core.config import CommMode, Scheduling
 from repro_torch.models.common import Runtime
 
-rank_matmul = streaming.rank_matmul
-matmul_f32 = streaming.matmul_f32
+# Set while a weight product runs: remat policy "dots" saves the matmuls
+# issued under it (the JAX package's dots_with_no_batch_dims_saveable; on
+# the stacked layout every product is batched over the rank dimension, so
+# the op type alone cannot tell a weight product from attention's).
+_WEIGHT_PRODUCT = contextvars.ContextVar("weight_product", default=False)
+
+
+@contextlib.contextmanager
+def weight_product():
+    token = _WEIGHT_PRODUCT.set(True)
+    try:
+        yield
+    finally:
+        _WEIGHT_PRODUCT.reset(token)
+
+
+def in_weight_product() -> bool:
+    return _WEIGHT_PRODUCT.get()
+
+
+def rank_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`repro_torch.core.streaming.rank_matmul`, a weight product."""
+    with weight_product():
+        return streaming.rank_matmul(x, w)
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`repro_torch.core.streaming.matmul_f32`, a weight product."""
+    with weight_product():
+        return streaming.matmul_f32(x, w)
 
 
 def per_rank(w: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -173,12 +203,115 @@ def row_parallel(x_shard: torch.Tensor, w_shard: torch.Tensor,
             or rt.comm.scheduling == Scheduling.OVERLAPPED):
         lead = x_shard.shape[:-1]
         h2 = x_shard.reshape(x_shard.shape[0], -1, x_shard.shape[-1])
-        out = streaming.overlapped_matmul_allreduce(
-            h2, w_shard, rt.tp_comm(), rt.comm)
+        with weight_product():
+            out = streaming.overlapped_matmul_allreduce(
+                h2, w_shard, rt.tp_comm(), rt.comm)
         return out.reshape(*lead, w_shard.shape[-1]).to(x_shard.dtype)
     partial = matmul_f32(x_shard, w_shard)
     out = collectives.all_reduce(partial, rt.tp_comm(), rt.comm)
     return out.to(x_shard.dtype)
+
+
+# ----------------------------------------------------------------------
+# Megatron-SP: the residual stream sequence-sharded over the model axis
+# ----------------------------------------------------------------------
+
+def scatter_sum(x: torch.Tensor, comm, cfg, axis: int = 0) -> torch.Tensor:
+    """The sum reduce-scatter of stacked ``x`` along message dim ``axis``
+    (``lax.psum_scatter(..., scatter_dimension=axis, tiled=True)``)."""
+    if axis == 0:
+        return collectives.reduce_scatter(x, comm, cfg)
+    out = collectives.reduce_scatter(x.movedim(axis + 1, 1), comm, cfg)
+    return out.movedim(1, axis + 1).contiguous()
+
+
+def _seq_shard(x: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """Each row's sequence shard of ``x (P, B, S, ...)``: its model rank's
+    ``S / tp`` positions."""
+    L = x.shape[2] // rt.mesh.tp
+    return rank_slice(x, rank_index(rt, x.device) * L, L, dim=1)
+
+
+def _seq_gather(x: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    return collectives.all_gather(x, rt.tp_comm(), rt.comm, axis=1)
+
+
+class _ShardSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rt):
+        ctx.rt = rt
+        return _seq_shard(x, rt)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _seq_gather(ct, ctx.rt), None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rt):
+        ctx.rt = rt
+        return _seq_gather(x, rt)
+
+    @staticmethod
+    def backward(ctx, ct):
+        rt = ctx.rt
+        return scatter_sum(ct, rt.tp_comm(), rt.comm, axis=1), None
+
+
+class _UnshardSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rt):
+        ctx.rt = rt
+        return _seq_gather(x, rt)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _seq_shard(ct, ctx.rt), None
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, partial, rt):
+        ctx.rt = rt
+        return scatter_sum(partial, rt.tp_comm(), rt.comm, axis=1)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _seq_gather(ct, ctx.rt), None
+
+
+def sp_shard_seq(x: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """Slice each row's sequence shard (the SP stack entry).  Backward: the
+    shards' cotangents are disjoint in time, so the full-sequence
+    cotangent is their all-gather."""
+    return x if rt.mesh.tp == 1 else _ShardSeq.apply(x, rt)
+
+
+def sp_all_gather(x_s: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """Megatron-SP's *g*: all-gather the sequence-sharded activation to
+    full; backward, the sum reduce-scatter of the rank-partial cotangents
+    (the *f* operator's sum, so no tp_grad_sum on SP branches).  Only where
+    the gathered value feeds rank-local sharded branches."""
+    return x_s if rt.mesh.tp == 1 else _GatherSeq.apply(x_s, rt)
+
+
+def sp_unshard_seq(x_s: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """The SP stack exit: an all-gather whose output is consumed
+    replicated (final norm, cross-entropy), so its cotangent is already
+    equal on every rank and the backward takes each row's slice."""
+    return x_s if rt.mesh.tp == 1 else _UnshardSeq.apply(x_s, rt)
+
+
+def sp_reduce_scatter(partial: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """The row-parallel combine in SP form: a sum reduce-scatter over the
+    sequence dim (in place of the all-reduce: a sharded result), its wire
+    in the activation dtype (a bf16 model's: half the bytes of the f32
+    partials; the matmul accumulated in f32 already); backward, the
+    all-gather."""
+    if rt.mesh.tp == 1:
+        return partial
+    return _ReduceScatterSeq.apply(partial.to(rt.cfg.dtype), rt)
 
 
 # ----------------------------------------------------------------------
@@ -194,16 +327,23 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, mlp_type: str,
     return p
 
 
-def mlp(params, x: torch.Tensor, rt: Runtime, mlp_type: str
-        ) -> torch.Tensor:
+def mlp(params, x: torch.Tensor, rt: Runtime, mlp_type: str,
+        sp: bool = False) -> torch.Tensor:
+    """``sp=True``: x arrives sequence-sharded; all-gather in,
+    reduce-scatter out (Megatron-SP).  Otherwise x is replicated and the
+    *f* operator applies."""
     sharded = bool(rt.cfg.d_ff) and rt.cfg.d_ff % rt.mesh.tp == 0
-    x = tp_grad_sum(x, rt, sharded)
+    sp = sp and sharded and rt.mesh.tp > 1
+    x = sp_all_gather(x, rt) if sp else tp_grad_sum(x, rt, sharded)
     up = col_parallel(x, params["w_up"])
     if mlp_type == "swiglu":
         gate = col_parallel(x, params["w_gate"])
         h = F.silu(gate.float()).to(x.dtype) * up
     else:
         h = F.gelu(up.float(), approximate="tanh").to(x.dtype)
+    if sp:
+        return sp_reduce_scatter(matmul_f32(h, params["w_down"]),
+                                 rt).to(x.dtype)
     return row_parallel(h, params["w_down"], rt)
 
 

@@ -3,19 +3,23 @@ initialisation, the full forward pass (training and prefill logits) and the
 training loss, on stacked ranks.
 
 The JAX package scans its stacked layers with ``lax.scan``; here the
-per-layer loop is a Python loop over views of the stacked weights.
+per-layer loop is a Python loop over views of the stacked weights.  Under
+FSDP each layer's weights are gathered inside the recomputed block, so
+one layer is materialized at a time in the forward and again in the
+backward.
 The other families (local/global attention, MoE, MLA, hybrid, VLM,
 audio) come with later slices and raise here.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import torch
 import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers, ssm
+from repro_torch.models import attention, layers, sharding, ssm
 from repro_torch.models.common import ModelConfig, Runtime
 
 
@@ -110,6 +114,19 @@ def dense_block(p, x, positions, rt: Runtime, window=None):
     return x + layers.mlp(p["mlp"], h, rt, rt.cfg.mlp_type)
 
 
+def dense_block_sp(p, x_s, positions, rt: Runtime, window=None):
+    """The Megatron-SP dense block: ``x_s (P, B, S/tp, D)`` sequence-sharded.
+    The norms run on the shard; attention and the MLP all-gather in and
+    reduce-scatter out (the wire volume of the all-reduce they replace,
+    and a residual tp times smaller between blocks)."""
+    cfg = rt.cfg
+    h = layers.rms_norm(x_s, p["ln1"], cfg.norm_eps)
+    x_s = x_s + attention.attention(p["attn"], h, positions, rt,
+                                    window=window, sp=True)
+    h = layers.rms_norm(x_s, p["ln2"], cfg.norm_eps)
+    return x_s + layers.mlp(p["mlp"], h, rt, cfg.mlp_type, sp=True)
+
+
 def ssm_block(p, x, rt: Runtime):
     return x + ssm.ssm_forward(p["ssm"], layers.rms_norm(x, p["ln"],
                                                          rt.cfg.norm_eps), rt)
@@ -124,21 +141,49 @@ def positions_for(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, device=tokens.device)[None, :].expand(B, S)
 
 
+_DOTS = (torch.ops.aten.mm, torch.ops.aten.bmm)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Policy "dots": keep the matmuls of weight products
+    (:func:`layers.weight_product`), recompute everything else, the flash
+    and SSD kernels included."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if layers.in_weight_product() and op.overloadpacket in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
 def _maybe_remat(fn, rt: Runtime, train: bool):
     """``cfg.remat`` in training: the block's activations are recomputed in
     the backward pass (``torch.utils.checkpoint``, the JAX package's
-    ``jax.checkpoint`` with the "full" policy)."""
+    ``jax.checkpoint``).  Policy "full" recomputes the whole block;
+    "dots" keeps the weight products' outputs
+    (``dots_with_no_batch_dims_saveable``)."""
     if not (rt.cfg.remat and train):
         return fn
-    if rt.cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy {rt.cfg.remat_policy!r}: the port recomputes "
-            f"whole blocks only (policy 'full')")
+    policy = rt.cfg.remat_policy
+    if policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy {policy!r}: 'full' or 'dots'")
+    kw = {"context_fn": _dots_context} if policy == "dots" else {}
 
     def remat(*args):
         return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False)
+                                                 use_reentrant=False, **kw)
     return remat
+
+
+def use_seq_parallel(rt: Runtime, seq_len: int) -> bool:
+    """Megatron-SP applies to the dense family with sharded q heads and a
+    sequence that divides by ``tp`` (otherwise the plain block runs)."""
+    cfg, tp = rt.cfg, rt.mesh.tp
+    return (rt.seq_parallel and cfg.family == "dense" and tp > 1
+            and seq_len % tp == 0 and attention.attn_dims(cfg, tp).q_sharded)
 
 
 def forward(params, batch: dict, rt: Runtime, train: bool = False
@@ -146,19 +191,32 @@ def forward(params, batch: dict, rt: Runtime, train: bool = False
     """Logits of every position of ``batch["tokens"]``: ``(B, S)`` the same
     on every row, or ``(P, B, S)`` per row (a batch cut over the data
     ranks).  ``train=True`` recomputes each block in the backward pass
-    when ``cfg.remat`` is set."""
+    when ``cfg.remat`` is set; an FSDP layer's weights are gathered
+    inside the recomputed block."""
     cfg = rt.cfg
     require_ported_family(cfg)
     tokens = batch["tokens"]
     x = layers.embed(params["embed"], tokens, rt)
     positions = positions_for(tokens[0] if tokens.dim() == 3 else tokens)
+    plan = sharding.subplan(rt.fsdp_plan, "layers")
+    use_sp = use_seq_parallel(rt, x.shape[2])
     if cfg.family == "ssm":
-        blk = _maybe_remat(lambda p, h: ssm_block(p, h, rt), rt, train)
+        def block(p, h):
+            return ssm_block(sharding.apply_fsdp(p, plan, rt), h, rt)
     else:
-        blk = _maybe_remat(lambda p, h: dense_block(
-            p, h, positions, rt, window=cfg.sliding_window), rt, train)
+        body = functools.partial(dense_block_sp if use_sp else dense_block,
+                                 positions=positions, rt=rt,
+                                 window=cfg.sliding_window)
+
+        def block(p, h):
+            return body(sharding.apply_fsdp(p, plan, rt), h)
+    blk = _maybe_remat(block, rt, train)
+    if use_sp:
+        x = layers.sp_shard_seq(x, rt)
     for i in range(cfg.n_layers):
         x = blk(layer_params(params["layers"], i), x)
+    if use_sp:
+        x = layers.sp_unshard_seq(x, rt)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return ForwardOut(logits=layers.logits_shard(params["embed"], x, rt))
 

@@ -4,7 +4,8 @@ port, stacked ranks).
 Two modes, as in the JAX package:
 
 - **plain**: full fp32 moments per rank; gradients averaged over the data
-  axis with an ACCL-X all-reduce.
+  axis with an ACCL-X all-reduce.  It refuses FSDP leaves whose data
+  ranks hold different slices (the JAX package's plain route sums them).
 - **zero1**: every rank's gradients are flattened into one vector (leaves
   in sorted-key order, as ``jax.tree.flatten`` orders them), padded to a
   multiple of ``dp`` and reduce-scattered over the ``data`` axis through
@@ -24,9 +25,16 @@ package's global ``(tp, dp, k)``, replicated over pods, see
 :func:`global_slices`).  Every per-rank scalar (the gradient norm, the
 clip scale) is a ``(P,)`` vector, equal across the ranks that share it.
 
+FSDP leaves (``fsdp_plan`` code >= 0) stay out of the flat vector: their
+gradients arrive already summed over the last data axis (the backward of
+the FSDP all-gather is the sum reduce-scatter), are summed over the pods
+and divided by the data-rank count once, here, and each rank's shard keeps
+its own moments (``m_fsdp``/``v_fsdp``, trees of the FSDP leaves only) and
+updates in place: ZeRO-3 naturally.
+
 Divisions by a Python scalar are written tensor by tensor: PyTorch divides
 by a scalar as a multiply by its reciprocal on the card, which rounds
-differently from the JAX package's division.  FSDP leaves are not ported.
+differently from the JAX package's division.
 """
 from __future__ import annotations
 
@@ -106,6 +114,36 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def partition_params(tree, fsdp_plan):
+    """Split ``tree`` into ``(regular, fsdp)`` by the plan's codes: two
+    trees of the same nesting, each holding only its own leaves (the JAX
+    package's ``None`` leaves are left out, as ``jax.tree.leaves`` skips
+    them)."""
+    if fsdp_plan is None:
+        return tree, {}
+    reg, fs = {}, {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            r, f = partition_params(v, fsdp_plan[k])
+            if r:
+                reg[k] = r
+            if f:
+                fs[k] = f
+        elif fsdp_plan[k] >= 0:
+            fs[k] = v
+        else:
+            reg[k] = v
+    return reg, fs
+
+
+def _merge(reg, fs):
+    """Inverse of :func:`partition_params`."""
+    out = dict(reg)
+    for k, v in fs.items():
+        out[k] = _merge(reg.get(k, {}), v) if isinstance(v, dict) else v
+    return out
+
+
 def _unflatten(tree, values: list):
     it = iter(values)
 
@@ -178,27 +216,41 @@ def _flat_size(params) -> int:
     return sum(rows(l, n).shape[1] for n, l in leaves_with_names(params))
 
 
+def refuse_plain_fsdp(fsdp_plan) -> None:
+    """The plain route all-reduces every gradient over the data axis; on a
+    data-sharded FSDP leaf that would add the gradients of different
+    slices together, so it is refused (FSDP trains under ZeRO-1)."""
+    if fsdp_plan is not None and any(
+            c >= 0 for _, c in leaves_with_names(fsdp_plan)):
+        raise ValueError("FSDP with data-sharded leaves needs the ZeRO-1 "
+                         "route (OptConfig(zero1=True)): the plain route's "
+                         "data all-reduce would sum different slices")
+
+
 def init_state(params, oc: OptConfig, rt: Runtime, fsdp_plan=None):
     """Optimizer state: plain — moment trees shaped like ``params``; zero1
     (``dp > 1``) — ``m_slice``/``v_slice`` ``(P, ceil(n / dp))``, ``n`` a
-    rank's parameter count."""
-    if fsdp_plan is not None:
-        raise NotImplementedError("FSDP is not ported; see ROADMAP.md Queue 1")
+    rank's count of regular (non-FSDP) parameters, and ``m_fsdp``/
+    ``v_fsdp`` shaped like the FSDP leaves' shards."""
     dp = rt.mesh.data_sizes[-1]
     any_leaf = leaves_with_names(params)[0][1]
     step = torch.zeros((), dtype=torch.int32, device=any_leaf.device)
+
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=oc.moment_dtype, device=p.device)
     if not oc.zero1 or dp == 1:
-        def zeros(p):
-            return torch.zeros(p.shape, dtype=oc.moment_dtype, device=p.device)
+        refuse_plain_fsdp(fsdp_plan)
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
                 "step": step}
-    n = _flat_size(params)
+    reg, fs = partition_params(params, fsdp_plan)
+    n = _flat_size(reg)
     k = (n + (-n) % dp) // dp
     P = rt.mesh.n_ranks
     return {"m_slice": torch.zeros((P, k), dtype=oc.moment_dtype,
                                    device=any_leaf.device),
             "v_slice": torch.zeros((P, k), dtype=oc.moment_dtype,
                                    device=any_leaf.device),
+            "m_fsdp": tree_map(zeros, fs), "v_fsdp": tree_map(zeros, fs),
             "step": step}
 
 
@@ -227,7 +279,9 @@ def state_specs(param_spec_tree, oc: OptConfig, rt: Runtime,
     if not oc.zero1 or dp == 1:
         return {"m": param_spec_tree, "v": param_spec_tree, "step": ()}
     sl = (rt.mesh.axis_model, rt.mesh.data_axes[-1], None)
-    return {"m_slice": sl, "v_slice": sl, "step": ()}
+    fs = partition_params(param_spec_tree, fsdp_plan)[1]
+    return {"m_slice": sl, "v_slice": sl, "m_fsdp": fs, "v_fsdp": fs,
+            "step": ()}
 
 
 # ----------------------------------------------------------------------
@@ -290,14 +344,22 @@ def apply_updates(params, grads, state, oc: OptConfig, rt: Runtime,
     over the data axis per mode.  ``donate`` lets the zero1 update write
     the new moments into ``state``'s (the JAX package's buffer donation):
     the same values, without a second copy of the moments."""
-    if fsdp_plan is not None:
-        raise NotImplementedError("FSDP is not ported; see ROADMAP.md Queue 1")
     step = state["step"]
     lr = schedule(step, oc)
     if "m_slice" not in state:
+        refuse_plain_fsdp(fsdp_plan)
         return _apply_plain(params, grads, state, oc, rt, ms_mask, step, lr)
-    return _apply_zero1(params, grads, state, oc, rt, ms_mask, step, lr,
-                        donate)
+    reg_p, fs_p = partition_params(params, fsdp_plan)
+    reg_g, fs_g = partition_params(grads, fsdp_plan)
+    reg_ms, fs_ms = (partition_params(ms_mask, fsdp_plan)
+                     if ms_mask is not None else (None, None))
+    new_reg, m2, v2, fs_g, scale, gnorm = _apply_zero1(
+        reg_p, reg_g, state, oc, rt, reg_ms, step, lr, donate, fs_g, fs_ms)
+    new_fs, m_fs, v_fs = _apply_fsdp_leaves(fs_p, fs_g, state, scale, oc,
+                                            step, lr, donate)
+    return _reorder(_merge(new_reg, new_fs), params), \
+        {"m_slice": m2, "v_slice": v2, "m_fsdp": m_fs, "v_fsdp": v_fs,
+         "step": step + 1}, {"lr": lr, "grad_norm": gnorm}
 
 
 def _apply_plain(params, grads, state, oc, rt, ms_mask, step, lr):
@@ -357,7 +419,35 @@ def _owned(tree, g: int, r: int, k: int, tp: int) -> torch.Tensor:
     return torch.cat(pieces, dim=1)
 
 
-def _apply_zero1(params, grads, state, oc, rt, ms_mask, step, lr, donate):
+def _apply_fsdp_leaves(params, grads, state, scale, oc, step, lr, donate):
+    """Adam on each FSDP shard (``grads`` the data-mean gradients,
+    ``scale`` the global clip), layer by layer; ``donate`` writes the new
+    moments into ``state``'s."""
+    outs = []
+    for (names, p), (_, g), (_, m), (_, v) in zip(
+            leaves_with_names(params), leaves_with_names(grads),
+            leaves_with_names(state["m_fsdp"]),
+            leaves_with_names(state["v_fsdp"])):
+        p2 = torch.empty_like(p)
+        m2 = m if donate else torch.empty_like(m)
+        v2 = v if donate else torch.empty_like(v)
+        s = per_rank(scale, g, names)[0]    # FSDP leaves are layer stacks
+        for i in range(p.shape[0]):
+            # one layer at a time: a full-width leaf's f32 temporaries
+            # are GBs
+            new, m2[i], v2[i] = _adam_update(g[i] * s, m[i], v[i],
+                                             p[i].float(), lr, oc, step)
+            p2[i] = new.to(p.dtype)
+        outs.append((p2, m2, v2))
+    return tuple(_unflatten(params, [o[j] for o in outs]) for j in range(3))
+
+
+def _apply_zero1(params, grads, state, oc, rt, ms_mask, step, lr, donate,
+                 fs_g, fs_ms):
+    """The ZeRO-1 update of the regular leaves -> ``(params, m_slice,
+    v_slice, fsdp gradients, clip scale, gradient norm)``: the FSDP
+    leaves' gradients ``fs_g`` join the global norm and come back
+    pod-reduced and divided by the data-rank count."""
     tp, dp = rt.mesh.tp, rt.mesh.data_sizes[-1]
     gcfg = oc.grad_comm or rt.comm
     segs = _segments(grads)
@@ -396,6 +486,19 @@ def _apply_zero1(params, grads, state, oc, rt, ms_mask, step, lr, donate):
             sq = sq + (part if m else part * _f32(1.0 / tp, part))
         sq_rows.append(sq)
     sq = torch.stack(sq_rows, dim=1).reshape(-1)
+    # FSDP leaves: summed over the last data axis already (the gather's
+    # backward); summed over the pods and divided by every data rank
+    # here, once; each row's shard adds its own squares
+    fs_named = leaves_with_names(fs_g)
+    fs_flags = ([m for _, m in leaves_with_names(fs_ms)] if fs_ms
+                else [1] * len(fs_named))
+    fs_out = []
+    for (names, g), m in zip(fs_named, fs_flags):
+        r = rank_dim(names)
+        g = pod_reduce(g.float().movedim(r, 0), rt).movedim(0, r) / dpf
+        part = _sq(rows(g, names))
+        sq = sq + (part if m else part * _f32(1.0 / tp, part))
+        fs_out.append(g)
     if dp > 1:
         sq = collectives.all_reduce(sq, rt_comm_data(rt), rt.comm)
     if tp > 1:
@@ -431,6 +534,5 @@ def _apply_zero1(params, grads, state, oc, rt, ms_mask, step, lr, donate):
     for names, p, a, b in _segments(params):
         x = (rows(p, names).float() + delta_full[:, a:b]).to(p.dtype)
         new.append(from_rows(x, p, names).contiguous())
-    new_p = _unflatten(params, new)
-    return new_p, {"m_slice": m2, "v_slice": v2, "step": step + 1}, \
-        {"lr": lr, "grad_norm": gnorm}
+    return (_unflatten(params, new), m2, v2, _unflatten(fs_g, fs_out), scale,
+            gnorm)

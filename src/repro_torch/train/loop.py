@@ -37,8 +37,9 @@ def _drain(sess, loop: LoopConfig, step: int, params, opt_state=None
 def train(sess: setup_mod.Session, data_cfg: DataConfig, loop: LoopConfig,
           log: Callable[[str], None] = print,
           guard: Optional[PreemptionGuard] = None,
-          faults=None) -> list:
-    """Run the training loop -> the loss of every step taken.
+          faults=None, grad_norms: Optional[list] = None) -> list:
+    """Run the training loop -> the loss of every step taken (and each
+    step's global gradient norm appended to ``grad_norms`` when given).
 
     ``guard`` lets a caller share one :class:`PreemptionGuard` (or pre-arm
     a software drain with ``guard.request()``); by default the loop
@@ -106,6 +107,8 @@ def train(sess: setup_mod.Session, data_cfg: DataConfig, loop: LoopConfig,
                 log(f"[straggler] step {ev.step}: {ev.duration*1e3:.1f}ms "
                     f"(threshold {ev.threshold*1e3:.1f}ms)")
             history.append(loss)
+            if grad_norms is not None:
+                grad_norms.append(float(metrics["grad_norm"]))
             if i % loop.log_every == 0:
                 log(f"step {i}: loss={loss:.4f} "
                     f"gnorm={float(metrics['grad_norm']):.3f} "

@@ -388,9 +388,21 @@ def test_launch_mesh_constructors():
     assert pod.axis_names == ("pod", "data", "model")
     assert (pod.dp, pod.tp, pod.n_ranks) == (4, 2, 8)
     assert MeshContext.from_mesh(pod) == pod
-    with pytest.raises(NotImplementedError):
-        setup.build_session(CFG, m, CommConfig(), oc=adamw.OptConfig(),
-                            fsdp=True, device="cpu")
+    # FSDP builds, with the JAX package's plan (shapes only, in-process)
+    import functools
+    import jax
+    from repro.configs.registry import get_smoke_config as jax_smoke
+    from repro.models import sharding as jax_sharding, transformer as jax_tf
+    from repro.models.common import MeshContext as JaxMesh
+    sess = setup.build_session(CFG, m, CommConfig(), oc=adamw.OptConfig(),
+                               fsdp=True, device="cpu")
+    jcfg = jax_smoke("qwen3-8b")
+    shapes = jax.eval_shape(functools.partial(jax_tf.init_model, cfg=jcfg,
+                                              tp=4), jax.random.PRNGKey(0))
+    want = jax_sharding.build_fsdp_plan(shapes, jcfg, JaxMesh(
+        model_size=4, data_sizes=(2,)))
+    assert sess.rt.fsdp_plan == jax.tree_util.tree_map(int, want)
+    assert any(c >= 0 for _, c in adamw.leaves_with_names(sess.rt.fsdp_plan))
 
 
 def test_ssd_scan_autograd_on_the_cpu_is_the_plain_version():
