@@ -168,7 +168,24 @@ exits non-zero:
    fresh process, bitwise; mamba2-130m 4 steps under FSDP (step 1's loss
    within 1e-6, norm within 1e-4; SSD launches exact) and its first step
    through the kernels against the plain scan through the first layer;
-12. a ``kernels:`` line, the kernel table as one JSON line, and as the
+12. the rest of the dense family: gemma3-1b at full width and depth (26
+   layers: 4 super-blocks of 5 windowed local layers and a global one,
+   then 2 trailing local layers; window 512, head dim 256, bf16, tp 4,
+   random weights from seed 0) serving 8 requests in waves of 4 x 1024
+   tokens through ``examples/serve_lm_torch.py``, captured (flash launches
+   exact: one a layer a wave), its prefill logits through the kernel
+   against the plain version; gemma3-1b trained 4 steps at ``(data=2,
+   model=4)``, ZeRO-1, remat (one unit a super-block) through
+   ``examples/train_lm_torch.py`` (flash launches a step exact: 26 + 24
+   recomputed forward, 26 backward on the fp32-FMA route; ms/step, peak),
+   its first step through the kernels against the plain attention;
+   command-r-plus-104b and deepseek-coder-33b (56 heads padded to 64) at
+   full width and 4 layers serving one wave of 4 x 1024 tokens, captured,
+   the same gates; the three smoke configs (f32) on the card against the
+   CPU.  The flash forward and backward are also held against their plain
+   versions at gemma3's shapes (bf16, d 256, window 512) in phase 2 and
+   timed there beside SDPA given the window as a boolean mask;
+13. a ``kernels:`` line, the kernel table as one JSON line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and exits non-zero without one, or when the repository
@@ -1286,6 +1303,9 @@ BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 (tensor cores)
 # (N, S, T, H, KV, d, causal, window, softcap): the serving shape, then a
 # grid over the options, ragged and cross lengths and every head dim
 FLASH_SERVE = (16, 1024, 1024, 8, 2, 128, True, None, None)
+# gemma3-1b's serving shape: 4 q heads over 1 kv head on every rank (the
+# attention replicated at tp 4), d 256 (bf16 runs fp32 FMA), window 512
+FLASH_SERVE_GEMMA3 = (16, 1024, 1024, 4, 1, 256, True, 512, None)
 FLASH_GRID = [
     (2, 64, 64, 4, 2, 16, True, None, None),
     (2, 100, 77, 4, 4, 32, False, None, None),
@@ -1323,18 +1343,72 @@ def flash_inputs(case, dtype, gen, dev):
             torch.randn((N, T, KV, d), generator=gen, device=dev).to(dtype))
 
 
+def library_attention(case, q, k, v):
+    """``scaled_dot_product_attention`` on ``case``'s inputs (the library
+    yardstick; heads-major copies of q, k, v): ``is_causal`` without a
+    window, the visible pairs as a boolean mask with one."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ref
+    S, T, causal, window = case[1], case[2], case[6], case[7]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if window is None:
+        return (qt, kt, vt), dict(is_causal=causal, enable_gqa=True)
+    mask = ref.visible(S, T, causal, window, q.device)
+    return (qt, kt, vt), dict(attn_mask=mask, enable_gqa=True)
+
+
+def work_bound(work, bw) -> dict:
+    """``bound_ms`` and ``bound_by`` of ``(FLOPs, bytes)`` on this card: the
+    larger of the bf16 tensor-core time and the memory time."""
+    flops, nbytes = work
+    ops_ms, bytes_ms = flops / BF16_FLOP_PER_S * 1e3, nbytes / bw * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def time_flash_gemma3(dev, flush, bw, gen) -> dict:
+    """The forward at gemma3-1b's serving shape (bf16, d 256: the fp32-FMA
+    kernel; window 512): kernel, plain version, and SDPA given the window
+    as a boolean mask, beside the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa, ref
+    case = FLASH_SERVE_GEMMA3
+    kw = dict(causal=True, window=case[7])
+    q, k, v = flash_inputs(case, torch.bfloat16, gen, dev)
+    lib_args, lib_kw = library_attention(case, q, k, v)
+    res = work_bound(flash_work(case), bw)
+    smi_sample("flash-gemma3")
+    res.update(
+        ms=time_ms(lambda: fa.flash_attention(q, k, v, **kw), flush),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                         flush),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            *lib_args, **lib_kw), flush))
+    log(f"[flash] gemma3-1b serving shape {case[:6]} bf16 causal, window "
+        f"{case[7]} (fp32-FMA kernel): kernel {res['ms'] * 1e3:.2f} us, "
+        f"plain {res['plain_ms'] * 1e3:.2f} us, "
+        f"scaled_dot_product_attention (window as a boolean mask) "
+        f"{res['library_ms'] * 1e3:.2f} us, bound "
+        f"{res['bound_ms'] * 1e3:.2f} us ({res['bound_by']}); kernel at "
+        f"{100 * res['bound_ms'] / res['ms']:.1f} % of its bound, "
+        f"{res['library_ms'] / res['ms']:.2f}x SDPA's speed")
+    return res
+
+
 def phase_flash_kernel(dev, flush, bw) -> dict:
     """The flash-attention kernel against its plain version on the grid and
-    at the serving shape, then timed at the serving shape beside its plain
-    version and scaled_dot_product_attention (the library yardstick)."""
+    at the serving shapes (qwen3-8b's, gemma3-1b's), then timed at each
+    serving shape beside its plain version and scaled_dot_product_attention
+    (the library yardstick)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa, ref
     gen = torch.Generator(device=dev).manual_seed(3)
     worst = {}
-    for case in FLASH_GRID + [FLASH_SERVE]:
+    for case in FLASH_GRID + [FLASH_SERVE, FLASH_SERVE_GEMMA3]:
         kw = dict(zip(("causal", "window", "softcap"), case[6:]))
         for dt in (torch.float32, torch.bfloat16):
-            if case is FLASH_SERVE and dt == torch.float32:
+            if case in (FLASH_SERVE, FLASH_SERVE_GEMMA3) \
+                    and dt == torch.float32:
                 continue
             q, k, v = flash_inputs(case, dt, gen, dev)
             want = ref.flash_attention_ref(q, k, v, **kw).float()
@@ -1346,7 +1420,7 @@ def phase_flash_kernel(dev, flush, bw) -> dict:
                   f"over {tol} + {tol} |plain|")
             worst[dt] = max(worst.get(dt, 0.0), err)
     log(f"[flash] kernel vs plain on {len(FLASH_GRID)} grid shapes and the "
-        f"serving shape: max|err| f32 {worst[torch.float32]:.3e} (tol 3e-5 "
+        f"two serving shapes: max|err| f32 {worst[torch.float32]:.3e} (tol 3e-5 "
         f"+ 3e-5 |plain|), bf16 {worst[torch.bfloat16]:.3e} (tol 2e-2 + "
         f"2e-2 |plain|)")
     q, k, v = flash_inputs(FLASH_SERVE, torch.bfloat16, gen, dev)
@@ -1363,7 +1437,6 @@ def phase_flash_kernel(dev, flush, bw) -> dict:
     del want
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     flops, nbytes = flash_work(FLASH_SERVE)
-    ops_ms, bytes_ms = flops / BF16_FLOP_PER_S * 1e3, nbytes / bw * 1e3
     smi_sample("flash")
     k_ms = time_ms(lambda: fa.flash_attention(q, k, v), flush)
     p_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v), flush)
@@ -1375,8 +1448,7 @@ def phase_flash_kernel(dev, flush, bw) -> dict:
     del qf, kf, vf
     smi_sample("flash")
     out = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-               bound_ms=max(ops_ms, bytes_ms),
-               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               **work_bound((flops, nbytes), bw),
                max_abs_err=max(worst.values()))
     log(f"[flash] serving shape {FLASH_SERVE[:6]} bf16 causal (wgmma + "
         f"TMA kernel): kernel "
@@ -1387,6 +1459,7 @@ def phase_flash_kernel(dev, flush, bw) -> dict:
         f"{bw / 1e12:.2f} TB/s: {out['bound_by']}); kernel at "
         f"{100 * out['bound_ms'] / k_ms:.1f} % of its bound; the fp32-FMA "
         f"path on f32 inputs of the same shape {f32_ms * 1e3:.2f} us")
+    out["gemma3_serving"] = time_flash_gemma3(dev, flush, bw, gen)
     return out
 
 
@@ -1918,7 +1991,6 @@ def phase_ssd_kernel(dev, flush, bw) -> dict:
         del got, plain, exact
     inp = ssd_inputs(SSD_SERVE, torch.bfloat16, gen, dev, serving=True)
     flops, nbytes = ssd_work(SSD_SERVE, 2)
-    ops_ms, bytes_ms = flops / BF16_FLOP_PER_S * 1e3, nbytes / bw * 1e3
     smi_sample("ssd")
     k_ms = time_ms(lambda: ssd.ssd_chunked(*inp, L), flush)
     p_ms = time_ms(lambda: ref.ssd_chunked_ref(*inp, L), flush)
@@ -1948,8 +2020,7 @@ def phase_ssd_kernel(dev, flush, bw) -> dict:
     shallow_ms = time_ms(lambda: ssd.ssd_chunked(*shallow, L), flush)
     smi_sample("ssd")
     out = dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
-               bound_ms=max(ops_ms, bytes_ms),
-               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               **work_bound((flops, nbytes), bw),
                max_abs_err=worst)
     log(f"[ssd] serving shape {SSD_SERVE} bf16: kernel {k_ms * 1e3:.2f} us, "
         f"plain {p_ms * 1e3:.2f} us, bound {out['bound_ms'] * 1e3:.2f} us "
@@ -2062,6 +2133,9 @@ FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # the training shape: 8 stacked ranks x 4 sequences, 8 q heads over 2 kv
 # heads per rank (qwen3-8b at tp 4), 1024 tokens, d 128, causal, bf16
 FLASH_TRAIN = (32, 1024, 1024, 8, 2, 128, True, None, None)
+# gemma3-1b's training shape: 8 stacked ranks x 4 sequences, 4 q heads over
+# 1 kv head, d 256 (the fp32-FMA route), window 512
+FLASH_TRAIN_GEMMA3 = (32, 1024, 1024, 4, 1, 256, True, 512, None)
 FLASH_BWD_GRID = [
     (2, 100, 100, 4, 2, 64, True, None, None),
     (1, 130, 200, 8, 2, 64, True, 37, None),
@@ -2107,10 +2181,11 @@ def phase_flash_bwd_kernel(dev, flush, bw) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa, ref
     gen = torch.Generator(device=dev).manual_seed(11)
     worst = {}
-    for case in FLASH_BWD_GRID + [FLASH_TRAIN]:
+    for case in FLASH_BWD_GRID + [FLASH_TRAIN, FLASH_TRAIN_GEMMA3]:
         kw = dict(zip(("causal", "window", "softcap"), case[6:]))
         for dt in (torch.float32, torch.bfloat16):
-            if case is FLASH_TRAIN and dt == torch.float32:
+            if case in (FLASH_TRAIN, FLASH_TRAIN_GEMMA3) \
+                    and dt == torch.float32:
                 continue
             q, k, v = flash_inputs(case, dt, gen, dev)
             dout = torch.randn(q.shape, generator=gen, device=dev).to(dt)
@@ -2133,7 +2208,7 @@ def phase_flash_bwd_kernel(dev, flush, bw) -> dict:
                 worst[key] = max(worst.get(key, 0.0), err)
             del got, again, want
     log(f"[flash-bwd] kernel vs plain backward on {len(FLASH_BWD_GRID)} grid "
-        f"shapes and the training shape: max|err| wgmma route (bf16, d <= "
+        f"shapes and the two training shapes: max|err| wgmma route (bf16, d <= "
         f"128) {worst[('wgmma', torch.bfloat16)]:.3e} (tol 2e-2 + 2e-2 "
         f"|plain|), fp32-FMA route f32 {worst[('fma', torch.float32)]:.3e} "
         f"(tol 1e-4 + 1e-4 |plain|) and bf16 d 256 "
@@ -2148,7 +2223,6 @@ def phase_flash_bwd_kernel(dev, flush, bw) -> dict:
                                              enable_gqa=True)
     dot = dout.transpose(1, 2).contiguous()
     flops, nbytes = flash_bwd_work(FLASH_TRAIN)
-    ops_ms, bytes_ms = flops / BF16_FLOP_PER_S * 1e3, nbytes / bw * 1e3
     route = fa.bwd_route(torch.bfloat16, FLASH_TRAIN[5])[0]
     smi_sample("flash-bwd")
     k_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse),
@@ -2161,8 +2235,7 @@ def phase_flash_bwd_kernel(dev, flush, bw) -> dict:
                                                retain_graph=True), flush)
     smi_sample("flash-bwd")
     res = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-               bound_ms=max(ops_ms, bytes_ms),
-               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               **work_bound((flops, nbytes), bw),
                max_abs_err=max(worst.values()), fma_ms=fma_ms)
     log(f"[flash-bwd] training shape {FLASH_TRAIN[:6]} bf16 causal ({route} "
         f"route: wgmma + TMA): kernel {k_ms * 1e3:.2f} us, the fp32-FMA "
@@ -2175,6 +2248,44 @@ def phase_flash_bwd_kernel(dev, flush, bw) -> dict:
         f"{l_ms / k_ms:.2f}x SDPA's speed")
     profile_device_time("flash-bwd", lambda: fa.flash_attention_bwd(
         q, k, v, out, dout, lse))
+    del q, k, v, out, dout, lse, qt, kt, vt, lib_out, dot
+    res["gemma3_training"] = time_flash_bwd_gemma3(dev, flush, bw, gen)
+    return res
+
+
+def time_flash_bwd_gemma3(dev, flush, bw, gen) -> dict:
+    """The backward at gemma3-1b's training shape (bf16, d 256: the
+    fp32-FMA route; window 512): kernel, plain backward and SDPA's backward
+    given the window as a boolean mask, beside the bound."""
+    from repro_torch.kernels.flash_attention import ops as fa, ref
+    import torch.nn.functional as F
+    case = FLASH_TRAIN_GEMMA3
+    kw = dict(causal=True, window=case[7])
+    q, k, v = flash_inputs(case, torch.bfloat16, gen, dev)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    out, lse = fa.flash_attention_lse(q, k, v, **kw)
+    (qt, kt, vt), lib_kw = library_attention(case, q, k, v)
+    qt, kt, vt = (t.requires_grad_(True) for t in (qt, kt, vt))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
+    dot = dout.transpose(1, 2).contiguous()
+    route = fa.bwd_route(torch.bfloat16, case[5])[0]
+    res = work_bound(flash_bwd_work(case), bw)
+    smi_sample("flash-bwd-gemma3")
+    res.update(
+        ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse,
+                                                  **kw), flush),
+        plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, dout,
+                                                             **kw), flush),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dot, retain_graph=True), flush))
+    log(f"[flash-bwd] gemma3-1b training shape {case[:6]} bf16 causal, "
+        f"window {case[7]} ({route} route): kernel {res['ms'] * 1e3:.2f} us, "
+        f"plain backward {res['plain_ms'] * 1e3:.2f} us, "
+        f"scaled_dot_product_attention's backward (window as a boolean "
+        f"mask) {res['library_ms'] * 1e3:.2f} us, bound "
+        f"{res['bound_ms'] * 1e3:.2f} us ({res['bound_by']}); kernel at "
+        f"{100 * res['bound_ms'] / res['ms']:.2f} % of its bound, "
+        f"{res['library_ms'] / res['ms']:.2f}x SDPA's speed")
     return res
 
 
@@ -2617,10 +2728,8 @@ def phase_ssd_bwd_kernel(dev, flush, bw) -> dict:
         del states, cum
         _release()
     flops, nbytes = ssd_bwd_work(SSD_TRAIN, 2)
-    ops_ms, bytes_ms = flops / BF16_FLOP_PER_S * 1e3, nbytes / bw * 1e3
     out = dict(ms=times["steep"], plain_ms=times["plain"], library_ms=None,
-               bound_ms=max(ops_ms, bytes_ms),
-               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               **work_bound((flops, nbytes), bw),
                max_abs_err=worst, shallow_ms=times["shallow"])
     log(f"[ssd-bwd] training shape {SSD_TRAIN} bf16, steep decay: kernel "
         f"{out['ms'] * 1e3:.2f} us, plain backward {out['plain_ms'] * 1e3:.2f}"
@@ -3248,11 +3357,13 @@ def peak_breakdown(dev, extra=()) -> dict:
     return dict(peak=best, max_allocated=peak, where=where, parts=parts)
 
 
-def _train_run(ex, argv, root, counters) -> dict:
-    """One run of ``ex`` (examples/train_lm_torch.py) with ``argv``, the
-    main path: the kernels' counts zeroed just before it (``counters``
-    zeroes them and returns them) and read just after; its losses,
-    gradient norms, ms/step, peak and counts."""
+def _train_run(ex, argv, root, counters, steps: int = None) -> dict:
+    """One run of ``ex`` (examples/train_lm_torch.py) with ``argv`` for
+    ``steps`` steps (FSDP_STEPS by default), the main path: the kernels'
+    counts zeroed just before it (``counters`` zeroes them and returns
+    them) and read just after; its losses, gradient norms, ms/step, peak
+    and counts."""
+    steps = FSDP_STEPS if steps is None else steps
     from repro_torch.obs import trace as obs_trace
     step_ms = load_example("train_ab_torch").step_ms
     _release()
@@ -3267,7 +3378,7 @@ def _train_run(ex, argv, root, counters) -> dict:
     del res["session"]
     _release()
     hist = res["history"]
-    check(len(hist) == FSDP_STEPS and n_spans == FSDP_STEPS
+    check(len(hist) == steps and n_spans == steps
           and all(math.isfinite(x) for x in hist),
           f"{argv}: {len(hist)} steps, {n_spans} spans, losses {hist}")
     return dict(history=hist, norms=res["grad_norms"], ms=ms,
@@ -3315,7 +3426,6 @@ def phase_fsdp(dev, train, train_ssm) -> dict:
     from repro_torch.core.config import CommConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.device import deterministic
-    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.ssd_scan import ops as ssd
     from repro_torch.launch import mesh as mesh_mod, setup
     from repro_torch.models import transformer
@@ -3332,14 +3442,6 @@ def phase_fsdp(dev, train, train_ssm) -> dict:
                  "fsdp+sp+dots": peak_breakdown(dev, FSDP_RUNS[-1][1])}
 
     # -- qwen3-8b under FSDP, FSDP + SP, FSDP + SP + "dots" ----------------
-    def flash_counts(reset=False):
-        if reset:
-            fa.launches = fa.bwd_launches = 0
-            for k in fa.bwd_route_launches:
-                fa.bwd_route_launches[k] = 0
-        return dict(fwd=fa.launches, bwd=fa.bwd_launches,
-                    bwd_wgmma=fa.bwd_route_launches["wgmma"])
-
     argv = _with_steps(TRAIN_ARGV, FSDP_STEPS)
     args = ex.parser().parse_args(argv)
     L = ex.model_config(args).n_layers
@@ -3475,6 +3577,203 @@ def phase_fsdp(dev, train, train_ssm) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     log(f"[fsdp] phase {time.perf_counter() - t_phase:.1f} s")
     return dict(breakdown=breakdown, runs=runs, ssm=ssm_run)
+
+
+# ----------------------------------------------------------------------
+# The rest of the dense family: gemma3-1b's local/global attention served
+# and trained, command-r-plus-104b and deepseek-coder-33b served
+# ----------------------------------------------------------------------
+
+# gemma3-1b at full width and depth (26 layers: 4 super-blocks of 5 local
+# layers and a global one, then 2 trailing local layers; bf16, random
+# weights from seed 0, tp 4), 8 requests in waves of 4 x 1024-token prompts
+# and up to 32 generated tokens: prompt and decode both pass the 512 window
+GEMMA3_SERVE_ARGV = ["--tp", "4", "--batch", "4", "--prompt-len", "1024",
+                     "--gen", "32", "--requests", "8", "--comm", "static"]
+# gemma3-1b trained at full width and depth, (data=2, model=4), ZeRO-1,
+# remat (one unit per super-block), 8 x 1024 tokens a step
+GEMMA3_TRAIN_STEPS = 4
+GEMMA3_TRAIN_ARGV = ["--arch", "gemma3-1b", "--full-size", "--layers", "26",
+                     "--dp", "2", "--tp", "4", "--seq", "1024", "--batch",
+                     "8", "--steps", str(GEMMA3_TRAIN_STEPS), "--lr", "3e-4",
+                     "--seed", "0"]
+# command-r-plus-104b and deepseek-coder-33b at full width, depth cut to
+# WIDE_LAYERS (64 command-r layers of ~3.1 GB do not fit one card, and 4
+# keep the phase in its time): one wave of 4 x 1024 tokens, up to 16
+# decode steps
+WIDE_LAYERS = 4
+WIDE_SERVE_ARGV = ["--layers", str(WIDE_LAYERS), "--tp", "4", "--batch",
+                   "4", "--prompt-len", "1024", "--gen", "16", "--requests",
+                   "4", "--comm", "static"]
+
+
+def flash_counts(reset: bool = False) -> dict:
+    """The flash kernels' launch counts (zeroed first with ``reset``)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    if reset:
+        fa.launches = fa.bwd_launches = 0
+        for k in fa.bwd_route_launches:
+            fa.bwd_route_launches[k] = 0
+    return dict(fwd=fa.launches, bwd=fa.bwd_launches,
+                **{f"bwd_{k}": v for k, v in fa.bwd_route_launches.items()})
+
+
+def serve_dense(dev, arch: str, argv: list) -> dict:
+    """``arch`` served through ``examples/serve_lm_torch.py`` with
+    ``argv``, captured (the main path: the flash counts zeroed just before
+    it and read just after; one launch a layer a prefill wave), then one
+    wave's prefill logits through the kernel against the plain version
+    (PREFILL_REL of max|logit|)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import input_specs as isp, setup
+    from repro_torch.models import transformer
+    from repro_torch.train import serve as serve_mod
+    ex = load_example("serve_lm_torch")
+    args = ex.parser().parse_args(["--arch", arch] + argv)
+    cfg = ex.model_config(args)
+    comm = ex.COMMS[args.comm]
+    _release()
+    t0 = time.perf_counter()
+    sess = setup.build_session(cfg, args.tp, comm, seed=args.seed,
+                               device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gb = 1e9
+    first, _ = transformer.dense_layers(sess.params, cfg)[0]
+    layer_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(first)) / gb
+    full_layers = get_config(arch).n_layers
+    cut = ("full depth" if cfg.n_layers == full_layers else
+           f"depth cut {full_layers} -> {cfg.n_layers} layers ({full_layers}"
+           f" x {layer_bytes:.2f} GB of bf16 layer weights do not fit one "
+           f"80 GB card beside the rest; {cfg.n_layers} keep the phase in "
+           f"its time)")
+    log(f"[dense] {arch}: full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} q heads"
+        + (f" padded to {cfg.padded_heads}" if cfg.padded_heads else "")
+        + f" over {cfg.n_kv_heads} kv, head dim {cfg.resolved_head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), {cut}; bf16 weights "
+        f"from seed {args.seed} initialised on the card in {init_s:.1f} s")
+    flash_counts(reset=True)
+    out = ex.run(args, log=lambda *_: None, sess=sess)
+    launches = flash_counts()["fwd"]
+    waves = len(out["prefill_ms"])
+    check(launches == out["flash_launches"] == cfg.n_layers * waves,
+          f"[dense] {arch}: flash launches {launches}, want {cfg.n_layers} "
+          f"x {waves} waves")
+    check(out["all_logits_finite"], f"[dense] {arch}: non-finite logits")
+    log(f"[dense] {arch} served captured: {out['requests']} requests, "
+        f"{out['generated_tokens']} tokens in {out['wall_s']:.2f} s; "
+        f"prefill ms per wave {[round(m, 2) for m in out['prefill_ms']]}; "
+        f"median decode {out['decode_ms_per_token_median']:.2f} ms/step over "
+        f"{out['decode_steps']} steps; peak {out['peak_mem_gb']:.2f} GB; "
+        f"flash launches {launches} = {cfg.n_layers} layers x {waves} "
+        f"wave(s)")
+    toks = np.random.RandomState(1).randint(0, cfg.vocab_size,
+                                            (args.batch, args.prompt_len))
+    _, pre = serve_mod.build_serve_fn(
+        cfg, args.tp, comm,
+        isp.ShapeSpec("wave", args.prompt_len, args.batch, "prefill"),
+        cache_capacity=args.prompt_len + args.gen, device=dev,
+        captured=False)
+    got = pre(sess.params, {"tokens": toks}).last_logits.clone()
+    want = plain_attention(lambda: pre(sess.params, {"tokens": toks})
+                           ).last_logits
+    gap = ((got - want).abs().max() / want.abs().max()).item()
+    check(bool(torch.isfinite(got).all()) and gap <= PREFILL_REL,
+          f"[dense] {arch}: prefill through the kernel vs the plain version "
+          f"{gap} of max|logit| (bound {PREFILL_REL})")
+    log(f"[dense] {arch}: one wave's prefill through the kernel vs the plain"
+        f" version: max|dlogit| {gap:.3e} of max|logit| (bound "
+        f"{PREFILL_REL})")
+    del sess, pre, got, want
+    _release()
+    return dict(launches=launches, waves=waves, gap=gap,
+                prefill_ms=out["prefill_ms"],
+                decode_ms=out["decode_ms_per_token_median"],
+                peak_gb=out["peak_mem_gb"])
+
+
+def train_gemma3(dev) -> dict:
+    """gemma3-1b trained through ``examples/train_lm_torch.py`` (the main
+    path, counts zeroed just before and read just after): flash launches a
+    step exact (forward: every layer once, each super-block's six again
+    in its recomputation; backward: every layer once, on the fp32-FMA
+    route), ms/step and peak; then the first step's loss and gradients
+    through the kernels against the plain attention (phase 9's gate)."""
+    import shutil
+    import tempfile
+    from repro_torch.core.config import CommConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.device import deterministic
+    from repro_torch.launch import mesh as mesh_mod, setup
+    from repro_torch.models import transformer
+    from repro_torch.train import train_step as ts
+    ex = load_example("train_lm_torch")
+    args = ex.parser().parse_args(GEMMA3_TRAIN_ARGV)
+    cfg = ex.model_config(args)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_gemma3_"))
+    nb, nt = transformer.local_global_counts(cfg)
+    r = cfg.local_global_ratio
+    run = _train_run(ex, GEMMA3_TRAIN_ARGV, root, flash_counts,
+                     GEMMA3_TRAIN_STEPS)
+    shutil.rmtree(root, ignore_errors=True)
+    c, n = run["counts"], GEMMA3_TRAIN_STEPS
+    want_fwd = cfg.n_layers + nb * (r + 1)
+    check(c["fwd"] == n * want_fwd and c["bwd"] == c["bwd_fma"]
+          == n * cfg.n_layers,
+          f"[gemma3] training: flash launches {c}, want {n} x {want_fwd} "
+          f"forward ({cfg.n_layers} layers and the {nb} super-blocks' "
+          f"{nb * (r + 1)} recomputed; the {nt} trailing layers are not) "
+          f"and {n} x {cfg.n_layers} backward, all on the fp32-FMA route")
+    tokens = args.batch * args.seq
+    hist = run["history"]
+    log(f"[gemma3] trained {cfg.n_layers} layers ({nb} super-blocks of {r} "
+        f"local + 1 global, {nt} trailing), (data=2, model=4), ZeRO-1, "
+        f"remat: loss {hist[0]:.4f} -> {hist[-1]:.4f} over {n} steps; "
+        f"{run['ms']:.1f} ms/step (median of steps 2-{n}), "
+        f"{tokens / run['ms'] * 1e3:.0f} tokens/s; peak "
+        f"{run['peak'] / 1e9:.2f} GB; flash launches per step: forward "
+        f"{c['fwd'] // n} = {cfg.n_layers} + {nb} x {r + 1} recomputed, "
+        f"backward {c['bwd'] // n} (fp32-FMA route {c['bwd_fma'] // n})")
+    mesh = mesh_mod.make_test_mesh(args.dp, args.tp)
+    src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                                 global_batch=args.batch))
+    _release()
+    sess = setup.build_session(cfg, mesh, CommConfig(), seed=0, device=dev)
+    stacked = setup.shard_batch(sess, src.batch_at(0))
+    lg = ts.make_loss_and_grad(sess.rt)
+    with deterministic():
+        loss_k, _, g_k = lg(sess.params, stacked)
+        loss_p, _, g_p = plain_attention(lambda: lg(sess.params, stacked))
+    gap_loss = (loss_k - loss_p).abs().max().item()
+    gap_grad = _leaf_gap(g_k, g_p)
+    check(gap_loss < 1e-2 * abs(loss_p[0].item()),
+          f"[gemma3] first-step loss through the kernels {loss_k} vs plain "
+          f"{loss_p}")
+    log(f"[gemma3] first step through the kernels vs the plain attention: "
+        f"loss {loss_k[0].item():.6f} vs {loss_p[0].item():.6f} (gap "
+        f"{gap_loss:.3e}, bound 1e-2 of it); gradients: largest leaf gap "
+        f"{gap_grad:.3e} of its max|grad|")
+    del sess, g_k, g_p, lg, stacked
+    _release()
+    return dict(run, gap_loss=gap_loss, gap_grad=gap_grad)
+
+
+def phase_dense_family(dev) -> dict:
+    """gemma3-1b served at full width and depth and trained; command-r-plus-
+    104b and deepseek-coder-33b served at full width and cut depth; the
+    three smoke configs on the card against the CPU.  Returns the flash
+    launch counts."""
+    out = {"gemma3-1b": serve_dense(dev, "gemma3-1b", GEMMA3_SERVE_ARGV)}
+    out["gemma3-1b training"] = train_gemma3(dev)
+    for arch in ("command-r-plus-104b", "deepseek-coder-33b"):
+        out[arch] = serve_dense(dev, arch, WIDE_SERVE_ARGV)
+    # gemma3's smoke prompt and decode pass its 16-token window
+    phase_serve_smoke(dev, "gemma3-1b", 24, 8)
+    phase_serve_smoke(dev, "command-r-plus-104b", 24, 4)
+    phase_serve_smoke(dev, "deepseek-coder-33b", 24, 4)
+    return out
 
 
 def main() -> int:
@@ -3725,7 +4024,12 @@ def main() -> int:
     fsdp_ssm_counts = fsdp["ssm"]["counts"]
     lap("11")
 
-    # -- 12. summary ---------------------------------------------------
+    # -- 12. the rest of the dense family ---------------------------------
+    dense = phase_dense_family(dev)
+    gemma3_train = dense.pop("gemma3-1b training")["counts"]
+    lap("12")
+
+    # -- 13. summary ---------------------------------------------------
     log(f"kernels: swe_step launches={main_launches} "
         + " ".join(f"{k}={v}" for k, v in launches_by_mode.items())
         + f"; swe_step launches={elastic_launches} (elastic runs)"
@@ -3749,7 +4053,13 @@ def main() -> int:
                   for k, c in fsdp_counts.items())
         + f"; ssd_scan launches={fsdp_ssm_counts['fwd']} (FSDP mamba2 "
         f"training), ssd_scan_bwd launches={fsdp_ssm_counts['bwd']} (FSDP "
-        f"mamba2 training)")
+        f"mamba2 training)"
+        + "".join(f"; flash_attention launches={d['launches']} ({k} "
+                  f"serving)" for k, d in dense.items())
+        + f"; flash_attention launches={gemma3_train['fwd']} (gemma3-1b "
+        f"training), flash_attention_bwd launches={gemma3_train['bwd']} "
+        f"(gemma3-1b training, {gemma3_train['bwd_fma']} on the fp32-FMA "
+        f"route)")
     full, boundary = timings["full pass"], timings["boundary rows"]
     rows = [{
         "name": "swe_step", "route": "cuda",
@@ -3783,6 +4093,9 @@ def main() -> int:
         "training_launches": train_counts["fwd"],
         "fsdp_training_launches": {k: c["fwd"]
                                    for k, c in fsdp_counts.items()},
+        "dense_family_serving_launches": {k: d["launches"]
+                                          for k, d in dense.items()},
+        "gemma3_training_launches": gemma3_train["fwd"],
         **flash_timing})
     rows.append({
         "name": "ssd_scan", "route": "cuda",
@@ -3802,6 +4115,7 @@ def main() -> int:
         "wgmma_launches": train_counts["bwd_wgmma"],
         "fsdp_training_launches": {k: c["bwd"]
                                    for k, c in fsdp_counts.items()},
+        "gemma3_training_launches": gemma3_train["bwd"],
         **flash_bwd_timing})
     rows.append({
         "name": "ssd_scan_bwd", "route": "cuda",

@@ -27,12 +27,19 @@ distinct consumers of the sweep, so they may pick different configs.
 Run:  PYTHONPATH=src python examples/serve_lm_torch.py            # card
       PYTHONPATH=src python examples/serve_lm_torch.py --arch mamba2-130m \
           --prompt-len 2048 --batch 8
+      PYTHONPATH=src python examples/serve_lm_torch.py --arch gemma3-1b \
+          --prompt-len 1024                # 5:1 local/global, window 512
+      PYTHONPATH=src python examples/serve_lm_torch.py \
+          --arch command-r-plus-104b --layers 4 --prompt-len 1024
       PYTHONPATH=src python examples/serve_lm_torch.py --smoke --device cpu
       PYTHONPATH=src python examples/serve_lm_torch.py --smoke --device cpu \
           --comm auto --tune-db db.json --expect-plan-hits
 
 Without ``--smoke`` the model is the full-width configuration (bf16,
-random weights from ``--seed``).  The ssm family's ``--prompt-len`` must
+random weights from ``--seed``), ``--layers`` deep when given (a 104B
+model does not fit one card: command-r-plus-104b's layers are ~3.1 GB
+each).  ``--arch`` takes every registered architecture whose family the
+port runs.  The ssm family's ``--prompt-len`` must
 be a multiple of its chunk (``ssm_chunk``: 128 at full width, 16 in the
 smoke config): the SSD scan takes whole chunks, and no padding is done.
 """
@@ -44,7 +51,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.core import plans
 from repro_torch.core.config import (BASELINE_CONFIG, OVERLAPPED_CONFIG,
                                      CommConfig)
@@ -52,6 +59,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch import input_specs as isp, setup
 from repro_torch.models import decode as dec
+from repro_torch.models.transformer import require_ported_family
 from repro_torch.train import serve as serve_mod
 
 COMMS = {"static": CommConfig(), "baseline": BASELINE_CONFIG,
@@ -82,12 +90,26 @@ class Wave:
     tokens: list = dataclasses.field(default_factory=list)  # (B,) per step
 
 
+def ported_archs() -> list[str]:
+    """The registered architectures whose family the port runs."""
+    out = []
+    for arch in list_archs():
+        try:
+            require_ported_family(get_config(arch))
+        except NotImplementedError:
+            continue
+        out.append(arch)
+    return out
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-8b",
-                    choices=["qwen3-8b", "mamba2-130m"])
+    ap.add_argument("--arch", default="qwen3-8b", choices=ported_archs())
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced smoke config in float32")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (default: the "
+                    "config's)")
     ap.add_argument("--tp", type=int, default=4,
                     help="tensor-parallel ranks, stacked on the device")
     ap.add_argument("--device", default=None,
@@ -130,6 +152,8 @@ def model_config(args):
                                   dtype=torch.float32)
     else:
         cfg = get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     return cfg
 
 

@@ -3,6 +3,8 @@
 
 Run:  PYTHONPATH=src python examples/train_lm_torch.py --steps 200   # card
       PYTHONPATH=src python examples/train_lm_torch.py --steps 20 --device cpu
+      PYTHONPATH=src python examples/train_lm_torch.py --arch gemma3-1b \
+          --full-size --layers 26 --dp 2 --tp 4 --seq 1024 --batch 8  # card
 
 The full production stack on stacked ranks: the train step over a
 ``(data, model)`` mesh (``--dp`` x ``--tp``, the reference's 8-device
@@ -26,7 +28,10 @@ card its SSD scan runs the hand-written CUDA forward and backward kernels
 without).  Without ``--full-size`` the model is a ~100M-parameter
 reduction of the family in float32, as in the reference; ``--full-size``
 takes the published widths in bf16 at ``--layers`` layers (mamba2-130m's
-24 fit one 80 GB card, full qwen3-8b does not).
+24 and gemma3-1b's 26 fit one 80 GB card, full qwen3-8b does not).
+gemma3-1b trains its 5:1 local/global stack: one recomputed unit per
+super-block of five windowed layers and a global one, the trailing layers
+windowed and not recomputed.
 """
 import os
 

@@ -3,7 +3,9 @@
 Each registered architecture has its exact public configuration plus a
 reduced smoke variant of the same family (small widths and depths, a tiny
 vocab) that the CPU tests use.  The port registers the architectures whose
-serving path it runs: ``qwen3-8b`` (dense) and ``mamba2-130m`` (ssm).
+serving and training paths it runs: the dense family (``qwen3-8b``,
+``command-r-plus-104b``, ``gemma3-1b`` with its local/global attention,
+``deepseek-coder-33b``) and the ssm family (``mamba2-130m``).
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from repro_torch.models.common import ModelConfig
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE: Dict[str, Callable[[], ModelConfig]] = {}
 
-_MODULES = ["qwen3_8b", "mamba2_130m"]
+_MODULES = ["qwen3_8b", "command_r_plus_104b", "gemma3_1b",
+            "deepseek_coder_33b", "mamba2_130m"]
 _LOADED = False
 
 
@@ -43,3 +46,7 @@ def get_smoke_config(name: str) -> ModelConfig:
     _load_all()
     return _SMOKE[name]()
 
+
+def list_archs():
+    _load_all()
+    return sorted(_REGISTRY)

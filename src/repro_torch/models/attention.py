@@ -99,6 +99,23 @@ def _sdpa(q, k, v, softcap: Optional[float], causal: bool,
     return out.reshape(q.shape)
 
 
+def _zero_padded_heads(out: torch.Tensor, dims: AttnDims, rt: Runtime
+                       ) -> torch.Tensor:
+    """Zero the zero-weight padded q heads' outputs ``(P, B, S, heads,
+    hd)``, each row's heads being its shard's (or all heads): the values
+    they add through wo's zero rows are nothing either way, but wo's pad
+    rows then get exactly zero gradient and stay zero in training, as in
+    the JAX package."""
+    if dims.n_heads == dims.n_real_heads:
+        return out
+    P, heads = out.shape[0], out.shape[3]
+    gidx = torch.arange(heads, device=out.device).expand(P, heads)
+    if heads != dims.n_heads:
+        gidx = gidx + layers.rank_index(rt, out.device).view(P, 1) * heads
+    keep = (gidx < dims.n_real_heads).to(out.dtype)
+    return out * keep.view(P, 1, 1, heads, 1)
+
+
 def attention(params, x: torch.Tensor, positions: torch.Tensor, rt: Runtime,
               window: Optional[int] = None, causal: Optional[bool] = None,
               return_kv: bool = False, sp: bool = False):
@@ -150,9 +167,8 @@ def attention(params, x: torch.Tensor, positions: torch.Tensor, rt: Runtime,
         k = layers.rank_slice(k, start, n_need, dim=2)
         v = layers.rank_slice(v, start, n_need, dim=2)
 
-    # zero-weight padded q heads meet zero rows of wo: they add nothing
-    # (the JAX package also zeroes their outputs, which only gradients see)
     out = _sdpa(q, k, v, cfg.attn_logit_softcap, causal, window)
+    out = _zero_padded_heads(out, dims, rt)
     out = out.reshape(P, B, S, -1)
     if dims.q_sharded and sp:
         y = layers.sp_reduce_scatter(layers.matmul_f32(out, params["wo"]),
@@ -332,6 +348,8 @@ def decode_attention(params, x: torch.Tensor, cache: KVCache, rt: Runtime,
     else:
         s, o = s_loc, o_loc
     out = o / torch.clamp_min(s[..., None], 1e-30)
+    out = _zero_padded_heads(out.reshape(P, B, 1, dims.n_heads, hd), dims,
+                             rt)
     out = out.reshape(P, B, 1, dims.n_heads * hd).to(x.dtype)
 
     if dims.q_sharded:

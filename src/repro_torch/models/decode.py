@@ -2,7 +2,11 @@
 single-token decode, on stacked tensor-parallel ranks.
 
 Caches carry a leading layer axis.  The dense family's are
-``KVCache(k (L, P, B, S_shard, KV, hd), ...)``, every cache
+``KVCache(k (L, P, B, S_shard, KV, hd), ...)`` in layer order
+(:func:`repro_torch.models.transformer.dense_layers`: under local/global
+attention each block's local layers, its global layer, then the trailing
+layers, all sharing one length; the JAX package nests them as
+``{"blocks": {"local", "global"}, "trailing"}``), every cache
 **sequence-sharded over the model axis**: row ``p`` holds positions
 ``[p·S_shard, (p+1)·S_shard)`` of every layer, and decode's partial
 attention combines via two small ACCL-X all-reduces (the LSE trick).  The
@@ -27,7 +31,8 @@ import torch
 
 from repro_torch.models import attention, layers, ssm
 from repro_torch.models.common import Runtime
-from repro_torch.models.transformer import (layer_params, positions_for,
+from repro_torch.models.transformer import (dense_layers, layer_params,
+                                            positions_for,
                                             require_ported_family)
 
 
@@ -130,10 +135,9 @@ def prefill(params, batch: dict, rt: Runtime, max_len: int,
             caches.h[i].copy_(hstate)
     else:
         positions = positions_for(tokens)
-        for i in range(cfg.n_layers):
-            x = _prefill_dense(layer_params(params["layers"], i), x,
-                               positions, rt, layer_cache(caches, i),
-                               cfg.sliding_window)
+        for i, (p, window) in enumerate(dense_layers(params, cfg)):
+            x = _prefill_dense(p, x, positions, rt, layer_cache(caches, i),
+                               window)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     last = layers.logits_shard(params["embed"], x[:, :, -1], rt)
     return _store(out, last, torch.full((), S, dtype=torch.long,
@@ -160,10 +164,8 @@ def decode_step(params, token: torch.Tensor, state: ServeState, rt: Runtime
             caches.conv[i].copy_(new.conv)
             caches.h[i].copy_(new.h)
     else:
-        for i in range(cfg.n_layers):
-            x, _ = _decode_dense(layer_params(params["layers"], i), x,
-                                 layer_cache(caches, i), rt,
-                                 cfg.sliding_window)
+        for i, (p, window) in enumerate(dense_layers(params, cfg)):
+            x, _ = _decode_dense(p, x, layer_cache(caches, i), rt, window)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = layers.logits_shard(params["embed"], x[:, :, -1], rt)
     return _store(state, logits, state.length + 1)

@@ -20,11 +20,13 @@ TP rules (model axis), with ``tp`` the stacked rank count:
   ssm w_out          (d_inner, D)   -> ('model', None) if ssm heads shard
   ssm w_B/w_C/w_dt                  -> replicated
   norms, A_log, D, dt_bias          -> replicated
-A leaf under ``layers`` carries one leading layer dimension; its shards
-are laid out ``(n_layers, P, ...)`` so that layer ``i``'s view is a
-stacked ``(P, ...)`` tensor.  On a ``(data, model)`` mesh ``P = dp · tp``
-and row ``p`` holds model shard ``p % tp``; every data rank holds a copy
-of the ``tp`` shards.
+A leaf under a stack key (``_STACK_KEYS``: ``layers``, and gemma3's
+``blocks`` and ``trailing``) carries its leading stack dimensions, one, or
+two under ``blocks/local`` (``(n_blocks, r, ...)``: ``r`` local layers a
+super-block); its shards are laid out ``(*stack, P, ...)`` so that layer
+``i``'s view is a stacked ``(P, ...)`` tensor.  On a ``(data, model)``
+mesh ``P = dp · tp`` and row ``p`` holds model shard ``p % tp``; every
+data rank holds a copy of the ``tp`` shards.
 
 FSDP (``build_fsdp_plan``, ``apply_fsdp``): each layer-stack weight takes
 a ``data`` factor on the first body dim that can carry it
@@ -49,12 +51,23 @@ from repro_torch.core.communicator import Communicator
 from repro_torch.models import attention, layers, ssm
 from repro_torch.models.common import MeshContext, ModelConfig, Runtime
 
-_STACK_KEYS = ("layers",)
+_STACK_KEYS = ("layers", "blocks", "groups", "trailing", "encoder",
+               "dense_layers")
 _MIN_FSDP_SHARD = 8   # don't data-shard below this many rows per rank
 
 
 def _n_stack_dims(names: list[str]) -> int:
-    return 1 if any(k in names for k in _STACK_KEYS) else 0
+    """Leading stack dims of a leaf: 1 under a stack key, 2 where a
+    super-block stacks its inner layers (``blocks/local``,
+    ``groups/ssm``)."""
+    n = 0
+    if any(k in names for k in _STACK_KEYS):
+        n = 1
+        if "blocks" in names and "local" in names:
+            n = 2
+        if "groups" in names and "ssm" in names:
+            n = 2
+    return n
 
 
 def _base_spec(names: list[str], cfg: ModelConfig, tp: int):
@@ -189,7 +202,10 @@ class _GatherFsdp(torch.autograd.Function):
 def apply_fsdp(layer_params: Any, plan: Any, rt: Runtime):
     """All-gather the 'data'-factored dims of one layer's stacked weights
     (``(P, *body_shard)`` leaves) back to their model shards, over the
-    last data axis through ``rt.comm``."""
+    last data axis through ``rt.comm``.  A leaf that keeps stack dims at
+    this site (a super-block's ``local`` leaves, ``(r, P, *body)``) is
+    gathered with its rank dimension moved first, its plan code offset by
+    the leftover dims."""
     if plan is None or rt.mesh.data_sizes[-1] == 1:
         return layer_params
 
@@ -200,7 +216,10 @@ def apply_fsdp(layer_params: Any, plan: Any, rt: Runtime):
             return leaf
         j, body_ndim = divmod(code, 100)
         extra = leaf.dim() - 1 - body_ndim   # leftover stack dims here
-        return _GatherFsdp.apply(leaf, j + extra, rt)
+        if extra == 0:
+            return _GatherFsdp.apply(leaf, j, rt)
+        full = _GatherFsdp.apply(leaf.movedim(extra, 0), j + extra, rt)
+        return full.movedim(0, extra)
     return fix(layer_params, plan)
 
 
@@ -211,7 +230,8 @@ def grad_model_sum_mask(params: Any, cfg: ModelConfig, tp: int,
     back-propagates only the slice it consumed) — replicated-KV weights
     under head-sharded attention, the q/k norms of sharded heads, the
     sliced SSM scalars, and under Megatron-SP the block norms, which run
-    on sequence shards."""
+    on sequence shards (SP is off under local/global attention, whose
+    stack runs the plain block)."""
     dims = attention.attn_dims(cfg, tp)
     _, ssm_sharded = ssm.ssm_dims(cfg, tp)
     sp_active = (seq_parallel and tp > 1 and dims.q_sharded
@@ -272,7 +292,7 @@ def _piece(leaf: torch.Tensor, spec: tuple, m: int, d: int, tp: int,
 def shard_params(params: Any, cfg: ModelConfig, tp: int, device=None,
                  dp: int = 1, fsdp_dp: int = 1):
     """Cut every full leaf into its per-rank shards, stacked: ``(dp · tp,
-    ...)``, or ``(n_layers, dp · tp, ...)`` under ``layers``, in the
+    ...)``, or ``(*stack, dp · tp, ...)`` under a stack key, in the
     leaf's dtype on ``device``.  Row ``p`` holds model shard ``p % tp``
     (replicated leaves are copied to every row); ``fsdp_dp > 1`` (the last
     data axis's size) also cuts each FSDP leaf's FSDP dim, row ``p`` taking
@@ -316,9 +336,10 @@ _TORCH_FLOATS = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def from_reference(np_params: Any, cfg: ModelConfig, tp: int, device=None,
                    dp: int = 1, fsdp_dp: int = 1):
-    """The JAX package's parameter tree (numpy arrays) -> the port's stacked
-    per-rank shards on ``device`` (FSDP leaves cut over ``fsdp_dp`` data
-    ranks), each leaf in its own float type (the SSM layer's ``A_log``,
+    """The JAX package's parameter tree (numpy arrays; ``layers``, or
+    gemma3's ``blocks/{local,global}`` and ``trailing``) -> the port's
+    stacked per-rank shards on ``device`` (FSDP leaves cut over ``fsdp_dp``
+    data ranks), each leaf in its own float type (the SSM layer's ``A_log``,
     ``D`` and ``dt_bias`` stay float32 under a bf16 config, as in the JAX
     package)."""
     def to_torch(names, a):

@@ -1,4 +1,5 @@
-"""Model assembly for the dense (qwen3) and ssm (mamba2) families:
+"""Model assembly for the dense (qwen3, command-r, deepseek-coder, and
+gemma3's 5:1 local/global attention) and ssm (mamba2) families:
 initialisation, the full forward pass (training and prefill logits) and the
 training loss, on stacked ranks.
 
@@ -6,15 +7,18 @@ The JAX package scans its stacked layers with ``lax.scan``; here the
 per-layer loop is a Python loop over views of the stacked weights.  Under
 FSDP each layer's weights are gathered inside the recomputed block, so
 one layer is materialized at a time in the forward and again in the
-backward.
-The other families (local/global attention, MoE, MLA, hybrid, VLM,
-audio) come with later slices and raise here.
+backward.  Under ``local_global_ratio = r`` the stack is the JAX
+package's: ``blocks`` of ``r`` windowed local layers and one global layer
+(one recomputed unit each), then the ``trailing`` windowed layers.
+The other families (MoE, MLA, hybrid, VLM, audio) come with later slices
+and raise here.
 """
 from __future__ import annotations
 
 import functools
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 
@@ -24,15 +28,13 @@ from repro_torch.models.common import ModelConfig, Runtime
 
 
 def require_ported_family(cfg: ModelConfig) -> None:
-    """Raise unless the port runs ``cfg``'s family: dense without
-    local/global attention or MLA, or ssm."""
-    dense = (cfg.family == "dense" and not cfg.local_global_ratio
-             and not cfg.use_mla)
+    """Raise unless the port runs ``cfg``'s family: dense (local/global
+    attention included) without MLA, or ssm."""
+    dense = cfg.family == "dense" and not cfg.use_mla
     if not dense and cfg.family != "ssm":
         raise NotImplementedError(
-            f"the port runs the dense family without local/global attention "
-            f"and the ssm family so far, not {cfg.name} ({cfg.family}); see "
-            f"ROADMAP.md Queue 1 item 8")
+            f"the port runs the dense and ssm families so far, not "
+            f"{cfg.name} ({cfg.family}); see ROADMAP.md Queue 1 item 7")
 
 
 def layer_params(stacked: Any, i: int) -> Any:
@@ -40,6 +42,33 @@ def layer_params(stacked: Any, i: int) -> Any:
     if isinstance(stacked, dict):
         return {k: layer_params(v, i) for k, v in stacked.items()}
     return stacked[i]
+
+
+def local_global_counts(cfg: ModelConfig) -> tuple[int, int]:
+    """``(n_blocks, n_trailing)`` of a local/global stack: ``L // (r + 1)``
+    super-blocks of ``r`` local layers and one global, then the rest."""
+    blk = cfg.local_global_ratio + 1
+    return cfg.n_layers // blk, cfg.n_layers % blk
+
+
+def dense_layers(params, cfg: ModelConfig):
+    """Every dense layer's weights (views) with its attention window, in
+    layer order: ``layers`` at ``cfg.sliding_window``, or under local/global
+    attention each block's local layers (windowed) and global layer (no
+    window), then the trailing layers (windowed)."""
+    if not cfg.local_global_ratio:
+        return [(layer_params(params["layers"], i), cfg.sliding_window)
+                for i in range(cfg.n_layers)]
+    nb, nt = local_global_counts(cfg)
+    out = []
+    for b in range(nb):
+        blk = layer_params(params["blocks"], b)
+        out += [(layer_params(blk["local"], j), cfg.sliding_window)
+                for j in range(cfg.local_global_ratio)]
+        out.append((blk["global"], None))
+    out += [(layer_params(params["trailing"], i), cfg.sliding_window)
+            for i in range(nt)]
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -62,7 +91,7 @@ def init_ssm_layer(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
             "ssm": ssm.init_ssm(gen, cfg, cfg.dtype, device)}
 
 
-def _fill(stack: Any, i: int, layer: Any) -> None:
+def _fill(stack: Any, i, layer: Any) -> None:
     if isinstance(layer, dict):
         for k, v in layer.items():
             _fill(stack[k], i, v)
@@ -70,19 +99,34 @@ def _fill(stack: Any, i: int, layer: Any) -> None:
         stack[i].copy_(layer)
 
 
-def _alloc(layer: Any, n: int) -> Any:
+def _alloc(layer: Any, lead: tuple) -> Any:
     if isinstance(layer, dict):
-        return {k: _alloc(v, n) for k, v in layer.items()}
-    return layer.new_empty((n,) + tuple(layer.shape))
+        return {k: _alloc(v, lead) for k, v in layer.items()}
+    return layer.new_empty(lead + tuple(layer.shape))
+
+
+def _stack(make, lead: tuple) -> Any:
+    """``make()`` called once per index of ``lead`` (row-major), the
+    layers stacked ``(*lead, ...)``."""
+    stack = None
+    for idx in np.ndindex(*lead):
+        layer = make()
+        if stack is None:
+            stack = _alloc(layer, lead)
+        _fill(stack, idx, layer)
+    return stack
 
 
 def init_model(seed: int, cfg: ModelConfig, tp: int = 1, device=None):
     """Full parameter tree of the JAX package's layout (``layers`` leaves
-    stacked ``(n_layers, ...)``), drawn from ``torch.Generator(seed)`` on
-    ``device``.  The JAX package draws other numbers from the same seed:
-    to run both on the same weights, take the JAX package's parameters
-    through ``sharding.from_reference``.  ``device`` defaults to the card
-    (:func:`repro_torch.device.resolve_device`)."""
+    stacked ``(n_layers, ...)``; under local/global attention ``blocks``
+    with ``local`` leaves ``(n_blocks, r, ...)`` and ``global`` leaves
+    ``(n_blocks, ...)``, and ``trailing`` ``(n_trailing, ...)`` when the
+    depth leaves any), drawn from ``torch.Generator(seed)`` on ``device``
+    in layer order.  The JAX package draws other numbers from the same
+    seed: to run both on the same weights, take the JAX package's
+    parameters through ``sharding.from_reference``.  ``device`` defaults to
+    the card (:func:`repro_torch.device.resolve_device`)."""
     require_ported_family(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -92,14 +136,22 @@ def init_model(seed: int, cfg: ModelConfig, tp: int = 1, device=None):
         "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.dtype,
                                   device=device),
     }
-    stack = None
-    for i in range(cfg.n_layers):
-        layer = (init_ssm_layer(gen, cfg, device) if cfg.family == "ssm"
-                 else init_dense_layer(gen, cfg, tp, device))
-        if stack is None:
-            stack = _alloc(layer, cfg.n_layers)
-        _fill(stack, i, layer)
-    params["layers"] = stack
+    if cfg.family == "ssm":
+        params["layers"] = _stack(lambda: init_ssm_layer(gen, cfg, device),
+                                  (cfg.n_layers,))
+        return params
+
+    def dense():
+        return init_dense_layer(gen, cfg, tp, device)
+    if not cfg.local_global_ratio:
+        params["layers"] = _stack(dense, (cfg.n_layers,))
+        return params
+    r = cfg.local_global_ratio
+    nb, nt = local_global_counts(cfg)
+    params["blocks"] = _stack(lambda: {"local": _stack(dense, (r,)),
+                                       "global": dense()}, (nb,))
+    if nt:
+        params["trailing"] = _stack(dense, (nt,))
     return params
 
 
@@ -180,24 +232,44 @@ def _maybe_remat(fn, rt: Runtime, train: bool):
 
 def use_seq_parallel(rt: Runtime, seq_len: int) -> bool:
     """Megatron-SP applies to the dense family with sharded q heads and a
-    sequence that divides by ``tp`` (otherwise the plain block runs)."""
+    sequence that divides by ``tp``, outside a local/global stack
+    (otherwise the plain block runs, as in the JAX package)."""
     cfg, tp = rt.cfg, rt.mesh.tp
     return (rt.seq_parallel and cfg.family == "dense" and tp > 1
+            and not cfg.local_global_ratio
             and seq_len % tp == 0 and attention.attn_dims(cfg, tp).q_sharded)
 
 
-def forward(params, batch: dict, rt: Runtime, train: bool = False
-            ) -> ForwardOut:
-    """Logits of every position of ``batch["tokens"]``: ``(B, S)`` the same
-    on every row, or ``(P, B, S)`` per row (a batch cut over the data
-    ranks).  ``train=True`` recomputes each block in the backward pass
-    when ``cfg.remat`` is set; an FSDP layer's weights are gathered
-    inside the recomputed block."""
+def _local_global_stack(params, x, positions, rt: Runtime, train: bool):
+    """gemma3's stack: one recomputed unit per super-block (``r`` local
+    layers at the sliding window, then the global layer unwindowed), its
+    FSDP gather inside the unit; then the trailing layers, windowed and
+    not recomputed (the JAX package's ``_local_global_stack``)."""
     cfg = rt.cfg
-    require_ported_family(cfg)
-    tokens = batch["tokens"]
-    x = layers.embed(params["embed"], tokens, rt)
-    positions = positions_for(tokens[0] if tokens.dim() == 3 else tokens)
+    bplan = sharding.subplan(rt.fsdp_plan, "blocks")
+    tplan = sharding.subplan(rt.fsdp_plan, "trailing")
+
+    def unit(p, h):
+        p = sharding.apply_fsdp(p, bplan, rt)
+        for j in range(cfg.local_global_ratio):
+            h = dense_block(layer_params(p["local"], j), h, positions, rt,
+                            window=cfg.sliding_window)
+        return dense_block(p["global"], h, positions, rt, window=None)
+    blk = _maybe_remat(unit, rt, train)
+    nb, nt = local_global_counts(cfg)
+    for b in range(nb):
+        x = blk(layer_params(params["blocks"], b), x)
+    for i in range(nt):
+        p = sharding.apply_fsdp(layer_params(params["trailing"], i), tplan,
+                                rt)
+        x = dense_block(p, x, positions, rt, window=cfg.sliding_window)
+    return x
+
+
+def _layer_stack(params, x, positions, rt: Runtime, train: bool):
+    """The ``layers`` stack: one recomputed block a layer, its FSDP gather
+    inside the block; dense blocks under Megatron-SP when it applies."""
+    cfg = rt.cfg
     plan = sharding.subplan(rt.fsdp_plan, "layers")
     use_sp = use_seq_parallel(rt, x.shape[2])
     if cfg.family == "ssm":
@@ -217,6 +289,24 @@ def forward(params, batch: dict, rt: Runtime, train: bool = False
         x = blk(layer_params(params["layers"], i), x)
     if use_sp:
         x = layers.sp_unshard_seq(x, rt)
+    return x
+
+
+def forward(params, batch: dict, rt: Runtime, train: bool = False
+            ) -> ForwardOut:
+    """Logits of every position of ``batch["tokens"]``: ``(B, S)`` the same
+    on every row, or ``(P, B, S)`` per row (a batch cut over the data
+    ranks).  ``train=True`` recomputes each block (each super-block under
+    local/global attention) in the backward pass when ``cfg.remat`` is
+    set; an FSDP layer's weights are gathered inside the recomputed
+    block."""
+    cfg = rt.cfg
+    require_ported_family(cfg)
+    tokens = batch["tokens"]
+    x = layers.embed(params["embed"], tokens, rt)
+    positions = positions_for(tokens[0] if tokens.dim() == 3 else tokens)
+    stack = _local_global_stack if cfg.local_global_ratio else _layer_stack
+    x = stack(params, x, positions, rt, train)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return ForwardOut(logits=layers.logits_shard(params["embed"], x, rt))
 
