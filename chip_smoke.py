@@ -59,11 +59,12 @@ exits non-zero:
    digest streams equal, no sweep, the expected recoveries with their wall
    times, device memory flat; and a sendrecv sweep at 48 ranks, 1 MiB, on
    a clean and a lossy (0.05) wire, its two winners printed;
-7. the LM serving path: the flash-attention kernel (bf16 at d 64 and 128:
-   the wgmma + TMA kernel) against its plain version at the serving shape
-   (bf16, N = 16, S = T = 1024, 8 q heads over 2 kv heads, d = 128, causal)
-   and on a grid of small shapes (window, softcap, ragged and cross
-   lengths, f32), timed beside its plain version,
+7. the LM serving path: the flash-attention kernel (bf16: the wgmma + TMA
+   kernels at d 64/128 and at d 256) against its plain version at the
+   serving shape (bf16, N = 16, S = T = 1024, 8 q heads over 2 kv heads, d
+   = 128, causal) and on a grid of small shapes (window, softcap, ragged
+   and cross lengths, f32), the d <= 128 forward's bits against
+   ``tests/test_torch_cuda.py``'s digests, timed beside its plain version,
    ``scaled_dot_product_attention`` and its bound, with the card's SM clock
    sampled beside the timing; then qwen3-8b at full
    width (36 layers, d_model 4096, vocab 151,936, bf16, tp = 4 stacked,
@@ -96,8 +97,9 @@ exits non-zero:
    kernel against the plain version and against two faults planted in the
    plain version, and the smoke config in f32 on the card against the
    CPU;
-9. training: the flash backward kernel (deterministic; bf16 at d <= 128
-   on wgmma fed by TMA, f32 and bf16 d 256 on fp32 FMA) against the plain
+9. training: the flash backward kernel (deterministic; bf16 on wgmma fed
+   by TMA, at d 256 its own dQ and dK/dV kernels; f32 on fp32 FMA) against
+   the plain
    backward (autograd through the plain version) on a grid (window,
    softcap, ragged and cross lengths, GQA rep 1 to 4, f32, d 256) and at
    the training shape (bf16, N = 32, S = T = 1024, 8 q heads over 2 kv
@@ -177,14 +179,16 @@ exits non-zero:
    against the plain version; gemma3-1b trained 4 steps at ``(data=2,
    model=4)``, ZeRO-1, remat (one unit a super-block) through
    ``examples/train_lm_torch.py`` (flash launches a step exact: 26 + 24
-   recomputed forward, 26 backward on the fp32-FMA route; ms/step, peak),
+   recomputed forward, 26 backward on the wgmma route; ms/step, peak),
    its first step through the kernels against the plain attention;
    command-r-plus-104b and deepseek-coder-33b (56 heads padded to 64) at
    full width and 4 layers serving one wave of 4 x 1024 tokens, captured,
    the same gates; the three smoke configs (f32) on the card against the
    CPU.  The flash forward and backward are also held against their plain
    versions at gemma3's shapes (bf16, d 256, window 512) in phase 2 and
-   timed there beside SDPA given the window as a boolean mask;
+   timed there at its local (window 512) and global (no window) shapes
+   beside SDPA (the window as a boolean mask; ``is_causal`` without one),
+   the backward also beside the fp32-FMA route on the same inputs;
 13. a ``kernels:`` line, the kernel table as one JSON line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -1304,8 +1308,10 @@ BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 (tensor cores)
 # grid over the options, ragged and cross lengths and every head dim
 FLASH_SERVE = (16, 1024, 1024, 8, 2, 128, True, None, None)
 # gemma3-1b's serving shape: 4 q heads over 1 kv head on every rank (the
-# attention replicated at tp 4), d 256 (bf16 runs fp32 FMA), window 512
+# attention replicated at tp 4), d 256, window 512 (its local layers); its
+# global layers see the whole causal prefix
 FLASH_SERVE_GEMMA3 = (16, 1024, 1024, 4, 1, 256, True, 512, None)
+FLASH_SERVE_GEMMA3_GLOBAL = (16, 1024, 1024, 4, 1, 256, True, None, None)
 FLASH_GRID = [
     (2, 64, 64, 4, 2, 16, True, None, None),
     (2, 100, 77, 4, 4, 32, False, None, None),
@@ -1367,32 +1373,63 @@ def work_bound(work, bw) -> dict:
 
 
 def time_flash_gemma3(dev, flush, bw, gen) -> dict:
-    """The forward at gemma3-1b's serving shape (bf16, d 256: the fp32-FMA
-    kernel; window 512): kernel, plain version, and SDPA given the window
-    as a boolean mask, beside the bound."""
+    """The forward at gemma3-1b's serving shapes (bf16, d 256: the wgmma +
+    TMA kernel's d 256 form), local (window 512) and global (no window):
+    kernel and SDPA (the window as a boolean mask; ``is_causal`` without
+    one) beside the bound, the plain version at the local shape.  Returns
+    the local shape's reading with the global one under ``"global"``."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa, ref
-    case = FLASH_SERVE_GEMMA3
-    kw = dict(causal=True, window=case[7])
-    q, k, v = flash_inputs(case, torch.bfloat16, gen, dev)
-    lib_args, lib_kw = library_attention(case, q, k, v)
-    res = work_bound(flash_work(case), bw)
-    smi_sample("flash-gemma3")
-    res.update(
-        ms=time_ms(lambda: fa.flash_attention(q, k, v, **kw), flush),
-        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
-                         flush),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            *lib_args, **lib_kw), flush))
-    log(f"[flash] gemma3-1b serving shape {case[:6]} bf16 causal, window "
-        f"{case[7]} (fp32-FMA kernel): kernel {res['ms'] * 1e3:.2f} us, "
-        f"plain {res['plain_ms'] * 1e3:.2f} us, "
-        f"scaled_dot_product_attention (window as a boolean mask) "
-        f"{res['library_ms'] * 1e3:.2f} us, bound "
-        f"{res['bound_ms'] * 1e3:.2f} us ({res['bound_by']}); kernel at "
-        f"{100 * res['bound_ms'] / res['ms']:.1f} % of its bound, "
-        f"{res['library_ms'] / res['ms']:.2f}x SDPA's speed")
-    return res
+    out = {}
+    for label, case in (("local", FLASH_SERVE_GEMMA3),
+                        ("global", FLASH_SERVE_GEMMA3_GLOBAL)):
+        kw = dict(causal=True, window=case[7])
+        q, k, v = flash_inputs(case, torch.bfloat16, gen, dev)
+        lib_args, lib_kw = library_attention(case, q, k, v)
+        res = work_bound(flash_work(case), bw)
+        smi_sample(f"flash-gemma3-{label}")
+        res.update(
+            ms=time_ms(lambda: fa.flash_attention(q, k, v, **kw), flush),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                *lib_args, **lib_kw), flush))
+        if label == "local":
+            res["plain_ms"] = time_ms(
+                lambda: ref.flash_attention_ref(q, k, v, **kw), flush)
+        log(f"[flash] gemma3-1b serving shape {case[:6]} bf16 causal, "
+            f"window {case[7]} ({label}; wgmma + TMA, d 256): kernel "
+            f"{res['ms'] * 1e3:.2f} us"
+            + (f", plain {res['plain_ms'] * 1e3:.2f} us"
+               if "plain_ms" in res else "")
+            + f", scaled_dot_product_attention ("
+            f"{'window as a boolean mask' if case[7] else 'is_causal'}) "
+            f"{res['library_ms'] * 1e3:.2f} us, bound "
+            f"{res['bound_ms'] * 1e3:.2f} us ({res['bound_by']}); kernel at "
+            f"{100 * res['bound_ms'] / res['ms']:.1f} % of its bound, "
+            f"{res['library_ms'] / res['ms']:.2f}x SDPA's speed")
+        out[label] = res
+        del q, k, v, lib_args
+    return dict(out["local"], **{"global": out["global"]})
+
+
+def check_forward_digests() -> None:
+    """The d <= 128 wgmma forward's bits against the digests the card tests
+    hold it to (its output and log-sum-exp as they were before the kernel
+    moved its tensor maps into a shared header): that test, run on the
+    card in a subprocess."""
+    import re
+    root = Path(__file__).resolve().parent
+    test = "tests/test_torch_cuda.py::test_flash_forward_is_bitwise_what_it_was"
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         test], cwd=root, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    last = (proc.stdout.strip().splitlines() or [""])[-1]
+    passed = re.match(r"(\d+) passed\b", last)
+    check(proc.returncode == 0 and passed is not None
+          and "skipped" not in last,
+          f"the d <= 128 flash forward's digests: {last} {proc.stderr[-800:]}")
+    log(f"[flash] the d <= 128 forward's output and log-sum-exp bitwise as "
+        f"they were: {passed.group(1)} digest cases ({test})")
 
 
 def phase_flash_kernel(dev, flush, bw) -> dict:
@@ -1423,6 +1460,7 @@ def phase_flash_kernel(dev, flush, bw) -> dict:
         f"two serving shapes: max|err| f32 {worst[torch.float32]:.3e} (tol 3e-5 "
         f"+ 3e-5 |plain|), bf16 {worst[torch.bfloat16]:.3e} (tol 2e-2 + "
         f"2e-2 |plain|)")
+    check_forward_digests()
     q, k, v = flash_inputs(FLASH_SERVE, torch.bfloat16, gen, dev)
     want = ref.flash_attention_ref(q, k, v).float()
     tol = FLASH_TOL[torch.bfloat16]
@@ -2134,8 +2172,9 @@ FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # heads per rank (qwen3-8b at tp 4), 1024 tokens, d 128, causal, bf16
 FLASH_TRAIN = (32, 1024, 1024, 8, 2, 128, True, None, None)
 # gemma3-1b's training shape: 8 stacked ranks x 4 sequences, 4 q heads over
-# 1 kv head, d 256 (the fp32-FMA route), window 512
+# 1 kv head, d 256, window 512 (local layers) or none (global)
 FLASH_TRAIN_GEMMA3 = (32, 1024, 1024, 4, 1, 256, True, 512, None)
+FLASH_TRAIN_GEMMA3_GLOBAL = (32, 1024, 1024, 4, 1, 256, True, None, None)
 FLASH_BWD_GRID = [
     (2, 100, 100, 4, 2, 64, True, None, None),
     (1, 130, 200, 8, 2, 64, True, 37, None),
@@ -2208,12 +2247,11 @@ def phase_flash_bwd_kernel(dev, flush, bw) -> dict:
                 worst[key] = max(worst.get(key, 0.0), err)
             del got, again, want
     log(f"[flash-bwd] kernel vs plain backward on {len(FLASH_BWD_GRID)} grid "
-        f"shapes and the two training shapes: max|err| wgmma route (bf16, d <= "
-        f"128) {worst[('wgmma', torch.bfloat16)]:.3e} (tol 2e-2 + 2e-2 "
-        f"|plain|), fp32-FMA route f32 {worst[('fma', torch.float32)]:.3e} "
-        f"(tol 1e-4 + 1e-4 |plain|) and bf16 d 256 "
-        f"{worst[('fma', torch.bfloat16)]:.3e}; every case bitwise equal over "
-        f"two runs")
+        f"shapes and the two training shapes: max|err| wgmma route (bf16, d "
+        f"64, 128, 256) {worst[('wgmma', torch.bfloat16)]:.3e} (tol 2e-2 + "
+        f"2e-2 |plain|), fp32-FMA route (f32) "
+        f"{worst[('fma', torch.float32)]:.3e} (tol 1e-4 + 1e-4 |plain|); "
+        f"every case bitwise equal over two runs")
     q, k, v = flash_inputs(FLASH_TRAIN, torch.bfloat16, gen, dev)
     dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
     out, lse = fa.flash_attention_lse(q, k, v)
@@ -2254,39 +2292,60 @@ def phase_flash_bwd_kernel(dev, flush, bw) -> dict:
 
 
 def time_flash_bwd_gemma3(dev, flush, bw, gen) -> dict:
-    """The backward at gemma3-1b's training shape (bf16, d 256: the
-    fp32-FMA route; window 512): kernel, plain backward and SDPA's backward
-    given the window as a boolean mask, beside the bound."""
+    """The backward at gemma3-1b's training shapes (bf16, d 256: the wgmma
+    route), local (window 512) and global (no window): kernel, the
+    fp32-FMA route on the same inputs, and SDPA's backward (the window as a
+    boolean mask; ``is_causal`` without one) beside the bound, the plain
+    backward at the local shape, and the route's three kernels' device
+    times from one profiled call of each.  Returns the local shape's
+    reading with the global one under ``"global"``."""
     from repro_torch.kernels.flash_attention import ops as fa, ref
     import torch.nn.functional as F
-    case = FLASH_TRAIN_GEMMA3
-    kw = dict(causal=True, window=case[7])
-    q, k, v = flash_inputs(case, torch.bfloat16, gen, dev)
-    dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
-    out, lse = fa.flash_attention_lse(q, k, v, **kw)
-    (qt, kt, vt), lib_kw = library_attention(case, q, k, v)
-    qt, kt, vt = (t.requires_grad_(True) for t in (qt, kt, vt))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
-    dot = dout.transpose(1, 2).contiguous()
-    route = fa.bwd_route(torch.bfloat16, case[5])[0]
-    res = work_bound(flash_bwd_work(case), bw)
-    smi_sample("flash-bwd-gemma3")
-    res.update(
-        ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse,
-                                                  **kw), flush),
-        plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, dout,
-                                                             **kw), flush),
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            lib_out, (qt, kt, vt), dot, retain_graph=True), flush))
-    log(f"[flash-bwd] gemma3-1b training shape {case[:6]} bf16 causal, "
-        f"window {case[7]} ({route} route): kernel {res['ms'] * 1e3:.2f} us, "
-        f"plain backward {res['plain_ms'] * 1e3:.2f} us, "
-        f"scaled_dot_product_attention's backward (window as a boolean "
-        f"mask) {res['library_ms'] * 1e3:.2f} us, bound "
-        f"{res['bound_ms'] * 1e3:.2f} us ({res['bound_by']}); kernel at "
-        f"{100 * res['bound_ms'] / res['ms']:.2f} % of its bound, "
-        f"{res['library_ms'] / res['ms']:.2f}x SDPA's speed")
-    return res
+    out = {}
+    for label, case in (("local", FLASH_TRAIN_GEMMA3),
+                        ("global", FLASH_TRAIN_GEMMA3_GLOBAL)):
+        kw = dict(causal=True, window=case[7])
+        q, k, v = flash_inputs(case, torch.bfloat16, gen, dev)
+        dout = torch.randn(q.shape, generator=gen,
+                           device=dev).to(torch.bfloat16)
+        out_, lse = fa.flash_attention_lse(q, k, v, **kw)
+        (qt, kt, vt), lib_kw = library_attention(case, q, k, v)
+        qt, kt, vt = (t.requires_grad_(True) for t in (qt, kt, vt))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
+        dot = dout.transpose(1, 2).contiguous()
+        route = fa.bwd_route(torch.bfloat16, case[5])
+        res = work_bound(flash_bwd_work(case), bw)
+        smi_sample(f"flash-bwd-gemma3-{label}")
+        res.update(
+            ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, out_, dout,
+                                                      lse, **kw), flush),
+            fma_ms=time_ms(lambda: fa._backward(
+                q, k, v, out_, dout, lse, ("fma", route[1]), True, case[7],
+                None), flush),
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), dot, retain_graph=True), flush))
+        if label == "local":
+            res["plain_ms"] = time_ms(lambda: ref.flash_attention_bwd_ref(
+                q, k, v, dout, **kw), flush)
+        log(f"[flash-bwd] gemma3-1b training shape {case[:6]} bf16 causal, "
+            f"window {case[7]} ({label}; {route[0]} route): kernel "
+            f"{res['ms'] * 1e3:.2f} us, the fp32-FMA route on the same "
+            f"inputs {res['fma_ms'] * 1e3:.2f} us"
+            + (f", plain backward {res['plain_ms'] * 1e3:.2f} us"
+               if "plain_ms" in res else "")
+            + f", scaled_dot_product_attention's backward ("
+            f"{'window as a boolean mask' if case[7] else 'is_causal'}) "
+            f"{res['library_ms'] * 1e3:.2f} us, bound "
+            f"{res['bound_ms'] * 1e3:.2f} us ({res['bound_by']}); kernel at "
+            f"{100 * res['bound_ms'] / res['ms']:.2f} % of its bound, "
+            f"{res['library_ms'] / res['ms']:.2f}x SDPA's speed, "
+            f"{res['fma_ms'] / res['ms']:.1f}x the fp32-FMA route's")
+        profile_device_time(f"flash-bwd-gemma3-{label}",
+                            lambda: fa.flash_attention_bwd(
+                                q, k, v, out_, dout, lse, **kw))
+        out[label] = res
+        del q, k, v, dout, out_, lse, qt, kt, vt, lib_out, dot
+    return dict(out["local"], **{"global": out["global"]})
 
 
 def _release():
@@ -3698,7 +3757,7 @@ def train_gemma3(dev) -> dict:
     """gemma3-1b trained through ``examples/train_lm_torch.py`` (the main
     path, counts zeroed just before and read just after): flash launches a
     step exact (forward: every layer once, each super-block's six again
-    in its recomputation; backward: every layer once, on the fp32-FMA
+    in its recomputation; backward: every layer once, on the wgmma
     route), ms/step and peak; then the first step's loss and gradients
     through the kernels against the plain attention (phase 9's gate)."""
     import shutil
@@ -3720,12 +3779,12 @@ def train_gemma3(dev) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     c, n = run["counts"], GEMMA3_TRAIN_STEPS
     want_fwd = cfg.n_layers + nb * (r + 1)
-    check(c["fwd"] == n * want_fwd and c["bwd"] == c["bwd_fma"]
+    check(c["fwd"] == n * want_fwd and c["bwd"] == c["bwd_wgmma"]
           == n * cfg.n_layers,
           f"[gemma3] training: flash launches {c}, want {n} x {want_fwd} "
           f"forward ({cfg.n_layers} layers and the {nb} super-blocks' "
           f"{nb * (r + 1)} recomputed; the {nt} trailing layers are not) "
-          f"and {n} x {cfg.n_layers} backward, all on the fp32-FMA route")
+          f"and {n} x {cfg.n_layers} backward, all on the wgmma route")
     tokens = args.batch * args.seq
     hist = run["history"]
     log(f"[gemma3] trained {cfg.n_layers} layers ({nb} super-blocks of {r} "
@@ -3735,7 +3794,7 @@ def train_gemma3(dev) -> dict:
         f"{tokens / run['ms'] * 1e3:.0f} tokens/s; peak "
         f"{run['peak'] / 1e9:.2f} GB; flash launches per step: forward "
         f"{c['fwd'] // n} = {cfg.n_layers} + {nb} x {r + 1} recomputed, "
-        f"backward {c['bwd'] // n} (fp32-FMA route {c['bwd_fma'] // n})")
+        f"backward {c['bwd'] // n} (wgmma route {c['bwd_wgmma'] // n})")
     mesh = mesh_mod.make_test_mesh(args.dp, args.tp)
     src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                  global_batch=args.batch))
@@ -3818,10 +3877,10 @@ def main() -> int:
     bw = card_bandwidth(name)
     swe_ptxas = ptxas_summary(swe_ops.LIBRARY.log)
     log(f"[build] swe_step registers and spills: {swe_ptxas}")
-    # the forward's wgmma kernel at d 64 and 128; the backward's dQ and
-    # dK/dV kernels at each
-    check_wgmma_build("flash forward", flash_ops.LIBRARY, 2)
-    check_wgmma_build("flash backward", flash_ops.BWD_LIBRARY, 4)
+    # the forward's wgmma kernel at d 64 and 128 and its d 256 form; the
+    # backward's dQ and dK/dV kernels at each
+    check_wgmma_build("flash forward", flash_ops.LIBRARY, 3)
+    check_wgmma_build("flash backward", flash_ops.BWD_LIBRARY, 6)
     # all eight of the SSD backward's kernels: the f32 route's U, grads
     # and ddt, the bf16 route's, and the shared hand-off and dA
     ssd_bwd_ptxas = check_wgmma_build(
@@ -4058,7 +4117,7 @@ def main() -> int:
                   f"serving)" for k, d in dense.items())
         + f"; flash_attention launches={gemma3_train['fwd']} (gemma3-1b "
         f"training), flash_attention_bwd launches={gemma3_train['bwd']} "
-        f"(gemma3-1b training, {gemma3_train['bwd_fma']} on the fp32-FMA "
+        f"(gemma3-1b training, {gemma3_train['bwd_wgmma']} on the wgmma "
         f"route)")
     full, boundary = timings["full pass"], timings["boundary rows"]
     rows = [{
@@ -4096,6 +4155,11 @@ def main() -> int:
         "dense_family_serving_launches": {k: d["launches"]
                                           for k, d in dense.items()},
         "gemma3_training_launches": gemma3_train["fwd"],
+        "routes": {"bf16, d 64 and 128": "wgmma + TMA "
+                   "(flash_attention_wgmma_kernel)",
+                   "bf16, d 256": "wgmma + TMA, a producer warpgroup "
+                   "(flash_attention_wgmma256_kernel)",
+                   "f32": "fp32 FMA (flash_attention_kernel)"},
         **flash_timing})
     rows.append({
         "name": "ssd_scan", "route": "cuda",
@@ -4116,6 +4180,13 @@ def main() -> int:
         "fsdp_training_launches": {k: c["bwd"]
                                    for k, c in fsdp_counts.items()},
         "gemma3_training_launches": gemma3_train["bwd"],
+        "gemma3_wgmma_launches": gemma3_train["bwd_wgmma"],
+        "routes": {"bf16, d 64 and 128": "wgmma + TMA (flash_bwd_stats, "
+                   "flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma)",
+                   "bf16, d 256": "wgmma + TMA (flash_bwd_stats, "
+                   "flash_bwd_dq_wgmma256, flash_bwd_dkdv_wgmma256)",
+                   "f32": "fp32 FMA (flash_bwd_delta, flash_bwd_dq, "
+                   "flash_bwd_dkdv)"},
         **flash_bwd_timing})
     rows.append({
         "name": "ssd_scan_bwd", "route": "cuda",

@@ -15,6 +15,15 @@ allocator setting, and prints the median ms/step over steps 2..N;
 the last line is one JSON object with every run's reading and each tree's
 mean.
 
+With ``--profile`` each tree then trains once more under
+``torch.profiler`` (not timed): the run's device time by kernel name over
+its N steps, per step, and the flash kernels' share (names holding
+``flash``), printed beside the timed runs' ms/step:
+
+    PYTHONPATH=src python examples/train_ab_torch.py --trees OLD . \
+        --profile -- --arch gemma3-1b --full-size --layers 26 --dp 2 \
+        --tp 4 --seq 1024 --batch 8 --steps 4 --lr 3e-4 --seed 0
+
 With ``--ssd-bwd`` each run times only the SSD scan's backward instead, at
 mamba2-130m's training shape in bf16 (``chip_smoke.py``'s SSD_TRAIN) under
 the model's steep decay and a shallow one: ``torch.autograd.grad`` through
@@ -109,9 +118,18 @@ def ssd_bwd_worker(tree: Path) -> dict:
     return out
 
 
-def worker(tree: Path, flags: list) -> dict:
+# tiny spin kernels that open a profile: the profiler loses its first
+# device records most often (chip_smoke.py's LEAD_IN)
+LEAD_IN = 256
+
+
+def worker(tree: Path, flags: list, profile: bool = False) -> dict:
     """One training run of ``tree`` in this process -> its median ms/step
-    over steps 2..N and its loss stream."""
+    over steps 2..N and its loss stream; with ``profile``, under
+    ``torch.profiler``, also the device ms a step (the run's over its N
+    steps) in all and by kernel name, the eight largest, and the flash
+    kernels' (``flash_ms_per_step``)."""
+    import torch
     sys.path.insert(0, str(tree / "src"))
     spec = importlib.util.spec_from_file_location(
         "train_lm_torch", tree / "examples" / "train_lm_torch.py")
@@ -119,9 +137,27 @@ def worker(tree: Path, flags: list) -> dict:
     spec.loader.exec_module(ex)
     from repro_torch.obs import trace as obs_trace
     obs_trace.configure("1")
-    res = ex.run(ex.parser().parse_args(flags), log=lambda *_: None)
+    args = ex.parser().parse_args(flags)
+    if not profile:
+        res = ex.run(args, log=lambda *_: None)
+        ms, steps = step_ms(obs_trace.events())
+        return {"ms_per_step": ms, "steps": steps, "loss": res["history"]}
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD_IN):
+            torch.cuda._sleep(100)
+        res = ex.run(args, log=lambda *_: None)
+        torch.cuda.synchronize()
     ms, steps = step_ms(obs_trace.events())
-    return {"ms_per_step": ms, "steps": steps, "loss": res["history"]}
+    rows = sorted(((e.self_device_time_total / 1e3 / steps, e.count // steps,
+                    e.key) for e in prof.key_averages()
+                   if e.self_device_time_total > 0
+                   and "spin_kernel" not in e.key), reverse=True)
+    return {"profiled_ms_per_step": ms, "steps": steps,
+            "loss": res["history"],
+            "device_ms_per_step": sum(r[0] for r in rows),
+            "flash_ms_per_step": sum(r[0] for r in rows if "flash" in r[2]),
+            "top": [[round(t, 3), n, k[:90]] for t, n, k in rows[:8]]}
 
 
 def main() -> int:
@@ -130,20 +166,27 @@ def main() -> int:
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--ssd-bwd", action="store_true",
                     help="time only the SSD scan's backward")
+    ap.add_argument("--profile", action="store_true",
+                    help="then train each tree once more under the "
+                    "profiler (device time by kernel, flash kernels' share)")
     ap.add_argument("flags", nargs="*", help="train_lm_torch.py flags")
     args = ap.parse_args()
     flags = args.flags or TRAIN_FLAGS
     if args.worker:
         tree = Path(args.worker).resolve()
         print(json.dumps(ssd_bwd_worker(tree) if args.ssd_bwd
-                         else worker(tree, flags)))
+                         else worker(tree, flags, args.profile)))
         return 0
     if not args.trees:
         ap.error("--trees A B is required")
     trees = [Path(t).resolve() for t in args.trees]
-    runs = []
-    for tree in (trees[0], trees[1], trees[1], trees[0]):
+    runs, profiles = [], []
+    order = [(t, False) for t in (trees[0], trees[1], trees[1], trees[0])]
+    if args.profile and not args.ssd_bwd:
+        order += [(t, True) for t in trees]
+    for tree, prof in order:
         mode = ["--ssd-bwd"] if args.ssd_bwd else []
+        mode += ["--profile"] if prof else []
         proc = subprocess.run(
             [sys.executable, __file__, "--worker", str(tree), *mode, "--",
              *flags],
@@ -156,6 +199,14 @@ def main() -> int:
             print(proc.stdout[-2000:], proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode
         out = json.loads(proc.stdout.strip().splitlines()[-1])
+        if prof:
+            profiles.append({"tree": str(tree), **out})
+            print(f"{tree}: profiled run, device "
+                  f"{out['device_ms_per_step']:.1f} ms a step (over its "
+                  f"{out['steps']} steps), the flash "
+                  f"kernels {out['flash_ms_per_step']:.1f} ms; largest: "
+                  f"{out['top']}", flush=True)
+            continue
         runs.append({"tree": str(tree), **out})
         if args.ssd_bwd:
             print(f"{tree}: SSD backward {out['steep'] * 1e3:.2f} us steep, "
@@ -170,7 +221,7 @@ def main() -> int:
     mean = {str(t): {k: statistics.mean(r[k] for r in runs
                                         if r["tree"] == str(t))
                      for k in keys} for t in trees}
-    print(json.dumps({"runs": runs, "mean": mean}))
+    print(json.dumps({"runs": runs, "mean": mean, "profiles": profiles}))
     return 0
 
 

@@ -35,7 +35,13 @@
 // the card's ~295 (989 TFLOP/s over 3.35 TB/s).  Only wgmma reaches the
 // tensor cores' rate; mma.sync, which the first version ran, cannot.
 //
-// What the design does about it, two kernels chosen by dtype and d in
+// At d 256 (gemma3-1b: N 16, S = T = 1024, 4 q heads over 1 kv head,
+// causal, window 512) it must move 84 MB and do 25.8 GFLOP, ~307
+// operations per byte: operations again, just.  Its bf16 tiles press on
+// the block's limits: O alone is 64 x 256 f32 over a warpgroup, 128
+// registers a thread, and Q for 128 rows is 64 KB of shared memory.
+//
+// What the design does about it, three kernels chosen by dtype and d in
 // flash_attention_launch:
 // - bf16 with d = 64 or 128 (the serving path; bf16 head dims below 64 are
 //   padded to 64: a 128-byte swizzled row holds 64 bf16),
@@ -59,9 +65,25 @@
 //   a block gets at most 168 registers a thread, and at 128 ptxas
 //   serialised every wgmma (C7512, insufficient registers; setmaxnreg with
 //   a producer warpgroup did not lift it);
+// - bf16 with d = 256 (gemma3-1b; bf16 head dims over 128 are padded to
+//   256), flash_attention_wgmma256_kernel, the same design with these
+//   changes.  Registers: O (128), S (32), P (16) and the row stats are
+//   ~190 a thread, over the 168 of a nine-warp block, so the producer is a
+//   whole warpgroup that drops to 40 registers (setmaxnreg) while the two
+//   consumer warpgroups rise to 232, as the backward's kernels do.  Shared
+//   memory: one Q buffer (64 KB) and a 2-stage ring of 64-row K and V tiles
+//   (128 KB), 192 KB; two Q buffers with 32-row kv tiles (also 192 KB)
+//   were slower (examples/flash_tiling_torch.py times both: on an H100
+//   80GB HBM3 at gemma3's local shape, 91.5 against 112.5 us).
+//   A warpgroup frees the Q buffer after the item's last S, so the next
+//   item's Q lands during the last tile's softmax, P . V and epilogue.
+//   S = Q . K^T is issued a 64-column half at a time (four descriptors of
+//   each operand live at once, not sixteen), and O += P . V is one
+//   m64n256k16 a k-step.  Items are walked in the backward's snake order
+//   (every other round of blocks reversed), which evens out the causal
+//   items' lengths across blocks;
 // - f32 inputs, which must hold 3e-5 against the plain version (no TF32 or
-//   bf16 tensor cores), and d = 256 run on fp32 FMA,
-//   flash_attention_kernel:
+//   bf16 tensor cores), run on fp32 FMA, flash_attention_kernel:
 //   - one block of 256 threads per (q tile of 64 rows, q head, n); a loop
 //     over 64-row kv tiles takes the place of Pallas' sequential grid axis,
 //     with (m, l, acc) in registers;
@@ -72,7 +94,7 @@
 //     4ty.., columns tx + 16j) and the same 4 rows x d/16 columns of the
 //     output; the row max and sum are warp shuffles within the 16 threads
 //     of a row.
-// The wgmma kernel rounds the probabilities to bf16 for P . V (the
+// The wgmma kernels round the probabilities to bf16 for P . V (the
 // Pallas kernel multiplies them in fp32) and take them as exp2 of scores
 // in log2 units: one more bf16 rounding and a few f32 ulps, inside the
 // 2e-2 that bf16 outputs are held to.
@@ -111,15 +133,6 @@ struct Args {
   float* lse;  // (N, H, S) row log-sum-exp, or null (serving)
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
 // max that propagates NaN, as jnp.max / jnp.maximum do (fmaxf drops it)
 __device__ __forceinline__ float max_nan(float a, float b) {
   return (a != a || b != b) ? a + b : fmaxf(a, b);
@@ -134,7 +147,7 @@ struct Smem {
       sizeof(float) * (BQ * LD + K_ELEMS + BK * D);
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const Args a) {
   constexpr int LD = Smem<D>::LD;
@@ -150,14 +163,14 @@ flash_attention_kernel(const Args a) {
   const long long n = blockIdx.z;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int kvh = h / a.rep;
-  const T* Q = static_cast<const T*>(a.q) + n * a.qs0 + h * a.qs2;
-  const T* K = static_cast<const T*>(a.k) + n * a.ks0 + kvh * a.ks2;
-  const T* V = static_cast<const T*>(a.v) + n * a.vs0 + kvh * a.vs2;
+  const float* Q = static_cast<const float*>(a.q) + n * a.qs0 + h * a.qs2;
+  const float* K = static_cast<const float*>(a.k) + n * a.ks0 + kvh * a.ks2;
+  const float* V = static_cast<const float*>(a.v) + n * a.vs0 + kvh * a.vs2;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, c = i % D;
     const int qr = q0 + r;
-    sQ[r * LD + c] = qr < a.S ? to_f32(Q[qr * a.qs1 + c]) : 0.f;
+    sQ[r * LD + c] = qr < a.S ? Q[qr * a.qs1 + c] : 0.f;
   }
 
   float m[4], l[4], acc[4][CPT];
@@ -181,8 +194,8 @@ flash_attention_kernel(const Args a) {
       const int r = i / D, c = i % D;
       const int kr = k0 + r;
       const bool in = kr < a.T;
-      sK[r * LD + c] = in ? to_f32(K[kr * a.ks1 + c]) : 0.f;
-      sV[r * D + c] = in ? to_f32(V[kr * a.vs1 + c]) : 0.f;
+      sK[r * LD + c] = in ? K[kr * a.ks1 + c] : 0.f;
+      sV[r * D + c] = in ? V[kr * a.vs1 + c] : 0.f;
     }
     __syncthreads();
 
@@ -272,9 +285,9 @@ flash_attention_kernel(const Args a) {
     const float denom = max_nan(l[i], 1e-30f);
     if (a.lse != nullptr && tx == 0)
       a.lse[(n * gridDim.y + h) * a.S + qr] = m[i] + logf(denom);
-    T* O = static_cast<T*>(a.o) + n * a.os0 + qr * a.os1 + h * a.os2;
+    float* O = static_cast<float*>(a.o) + n * a.os0 + qr * a.os1 + h * a.os2;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) store(O + tx + 16 * c, acc[i][c] / denom);
+    for (int c = 0; c < CPT; ++c) O[tx + 16 * c] = acc[i][c] / denom;
   }
 }
 
@@ -341,11 +354,12 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return r;
 }
 
-// A work item: q tile (longest first), head, n
+// A work item: q tile (longest first), head, n; its kv tiles of KB rows
 struct Item {
   int q0, h, n, lo, nt;
 };
 
+template <int KB = BN>
 __device__ __forceinline__ Item item(int w, int nq, int H, int N,
                                      const Args& a) {
   Item it;
@@ -357,24 +371,24 @@ __device__ __forceinline__ Item item(int w, int nq, int H, int N,
   int hi = a.T;
   if (a.causal) hi = min(hi, it.q0 + BM);
   it.lo = 0;
-  if (a.has_window) it.lo = max(0, it.q0 - a.window + 1) / BN * BN;
-  it.nt = hi > it.lo ? (hi - it.lo + BN - 1) / BN : 0;
+  if (a.has_window) it.lo = max(0, it.q0 - a.window + 1) / KB * KB;
+  it.nt = hi > it.lo ? (hi - it.lo + KB - 1) / KB : 0;
   return it;
 }
 
-// Scale, softcap and (MASK) mask one 64 x BN score tile held as the
+// Scale, softcap and (MASK) mask one 64 x 2R score tile held as the
 // accumulator fragment: register r is row qp0 + 8 ((r >> 1) & 1), key k0 +
 // 8 (r >> 2) + 2c + (r & 1).  Without a softcap the scores stay raw (the
 // exponent scales them: one FMA); with one they leave in log2 units.
 // Hidden scores become NEG_INF with their bit in ok cleared; rmax takes
 // the row maxima.
-template <bool MASK, bool CAP>
-__device__ __forceinline__ void score_tile(float (&sc)[BN / 2],
-                                           uint32_t& ok, float (&rmax)[2],
-                                           const Args& a, float scale2,
-                                           int qp0, int k0, int c) {
+template <bool MASK, bool CAP, int R>
+__device__ __forceinline__ void score_tile(float (&sc)[R], uint32_t& ok,
+                                           float (&rmax)[2], const Args& a,
+                                           float scale2, int qp0, int k0,
+                                           int c) {
 #pragma unroll
-  for (int r = 0; r < BN / 2; ++r) {
+  for (int r = 0; r < R; ++r) {
     float x = sc[r];
     if (CAP) x = a.softcap * tanhf(x * scale2 / a.softcap) * LOG2E;
     if (MASK) {
@@ -388,6 +402,111 @@ __device__ __forceinline__ void score_tile(float (&sc)[BN / 2],
     }
     sc[r] = x;
     rmax[(r >> 1) & 1] = fmax_nan(rmax[(r >> 1) & 1], x);
+  }
+}
+
+// The online-softmax update by one 64-row score tile of R registers a
+// thread (the accumulator fragment): scale, softcap and mask it (the mask
+// only where `full` is false, a tile some score of which is hidden), move
+// (m, l) and rescale o; the scores become p = 2^(score - m), 0 where hidden
+template <int R, int NO>
+__device__ __forceinline__ void softmax_tile(float (&sc)[R], float (&o)[NO],
+                                             float (&m)[2], float (&l)[2],
+                                             const Args& a, bool full,
+                                             bool cap, float scale2, float f,
+                                             int qp0, int k0, int c) {
+  float rmax[2] = {NEG_INF, NEG_INF};
+  uint32_t ok = 0;
+  if (full) {
+    if (cap)
+      score_tile<false, true>(sc, ok, rmax, a, scale2, qp0, k0, c);
+    else
+      score_tile<false, false>(sc, ok, rmax, a, scale2, qp0, k0, c);
+  } else {
+    if (cap)
+      score_tile<true, true>(sc, ok, rmax, a, scale2, qp0, k0, c);
+    else
+      score_tile<true, false>(sc, ok, rmax, a, scale2, qp0, k0, c);
+  }
+  float corr[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    rmax[e] = fmax_nan(rmax[e], __shfl_xor_sync(0xffffffffu, rmax[e], 1));
+    rmax[e] = fmax_nan(rmax[e], __shfl_xor_sync(0xffffffffu, rmax[e], 2));
+    const float m_new = fmax_nan(m[e], rmax[e] * f);
+    corr[e] = exp2_ftz(m[e] - m_new);
+    m[e] = m_new;
+  }
+  // p = 2^(score - m); on a tile that hides some score, 0 where hidden
+  float rsum[2] = {0.f, 0.f};
+  if (full) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      sc[r] = exp2_ftz(fmaf(sc[r], f, -m[(r >> 1) & 1]));
+      rsum[(r >> 1) & 1] += sc[r];
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float e2 = exp2_ftz(fmaf(sc[r], f, -m[(r >> 1) & 1]));
+      sc[r] = (ok >> r) & 1u ? e2 : 0.f;
+      rsum[(r >> 1) & 1] += sc[r];
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    rsum[e] += __shfl_xor_sync(0xffffffffu, rsum[e], 1);
+    rsum[e] += __shfl_xor_sync(0xffffffffu, rsum[e], 2);
+    l[e] = l[e] * corr[e] + rsum[e];
+  }
+#pragma unroll
+  for (int r = 0; r < NO; ++r) o[r] *= corr[(r >> 1) & 1];
+}
+
+// the probability fragments of keys 16kt .. 16kt + 15 are the A fragment of
+// k-step kt of P . V
+template <int R>
+__device__ __forceinline__ void pack_p(const float (&sc)[R],
+                                       uint32_t (&p)[R / 8][4]) {
+#pragma unroll
+  for (int kt = 0; kt < R / 8; ++kt) {
+    p[kt][0] = pack_bf16(sc[8 * kt + 0], sc[8 * kt + 1]);
+    p[kt][1] = pack_bf16(sc[8 * kt + 2], sc[8 * kt + 3]);
+    p[kt][2] = pack_bf16(sc[8 * kt + 4], sc[8 * kt + 5]);
+    p[kt][3] = pack_bf16(sc[8 * kt + 6], sc[8 * kt + 7]);
+  }
+}
+
+// An item's rows qp0 and qp0 + 8 of the output (o / l in bf16) and, where
+// asked, their log-sum-exp
+template <int NO>
+__device__ __forceinline__ void store_rows(const float (&o)[NO],
+                                           const float (&m)[2],
+                                           const float (&l)[2],
+                                           const Args& a, const Item& it,
+                                           int H, int qp0, int c) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int qr = qp0 + 8 * e;
+    if (qr >= a.S) continue;
+    // one IEEE reciprocal per row: o * (1 / l) is within an f32 ulp of
+    // o / l, far under the bf16 rounding that follows
+    const float inv = 1.f / max_nan(l[e], 1e-30f);
+    // m and the exponents are in log2 units: L = (m + log2 l) ln 2; a
+    // row that sees no key (l = 0) gets NEG_INF + ln(1e-30) = NEG_INF in
+    // f32, as the plain version and the FMA kernel give it
+    if (a.lse != nullptr && c == 0)
+      a.lse[(static_cast<long long>(it.n) * H + it.h) * a.S + qr] =
+          l[e] == 0.f
+              ? NEG_INF
+              : (m[e] + log2f(max_nan(l[e], 1e-30f))) * 0.6931471805599453f;
+    __nv_bfloat16* O = static_cast<__nv_bfloat16*>(a.o) + it.n * a.os0 +
+                       qr * a.os1 + it.h * a.os2;
+#pragma unroll
+    for (int jj = 0; jj < NO / 4; ++jj)
+      *reinterpret_cast<__nv_bfloat162*>(O + 8 * jj + 2 * c) =
+          __floats2bfloat162_rn(o[4 * jj + 2 * e] * inv,
+                                o[4 * jj + 2 * e + 1] * inv);
   }
 }
 
@@ -407,6 +526,22 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
                                               const uint32_t (&p)[4],
                                               uint64_t db) {
   hopper::wgmma_rs_n128(o, p, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float (&o)[128],
+                                              const uint32_t (&p)[4],
+                                              uint64_t db) {
+  hopper::wgmma_rs_n256(o, p, db);
+}
+
+// S (64 x BN) {+}= Q (64 x 16) . K^T (16 x BN), both from shared memory
+template <int BN>
+__device__ __forceinline__ void wgmma_qk(float (&sc)[BN / 2], uint64_t dq,
+                                         uint64_t dk, int accumulate) {
+  if constexpr (BN == 64)
+    hopper::wgmma_ss_n64(sc, dq, dk, accumulate);
+  else
+    hopper::wgmma_ss_n32(sc, dq, dk, accumulate);
 }
 
 // Persistent: block b takes work items b, b + gridDim.x, ... of the nq * H
@@ -550,65 +685,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
         const bool full = k0 + BN <= a.T &&
                           (!a.causal || k0 + BN - 1 <= wq0) &&
                           (!a.has_window || k0 > wq0 + 63 - a.window);
-        float rmax[2] = {NEG_INF, NEG_INF};
-        uint32_t ok = 0;
-        if (full) {
-          if (cap)
-            wg::score_tile<false, true>(sc, ok, rmax, a, scale2, qp0, k0, c);
-          else
-            wg::score_tile<false, false>(sc, ok, rmax, a, scale2, qp0, k0, c);
-        } else {
-          if (cap)
-            wg::score_tile<true, true>(sc, ok, rmax, a, scale2, qp0, k0, c);
-          else
-            wg::score_tile<true, false>(sc, ok, rmax, a, scale2, qp0, k0, c);
-        }
-        float corr[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          rmax[e] = wg::fmax_nan(rmax[e],
-                                 __shfl_xor_sync(0xffffffffu, rmax[e], 1));
-          rmax[e] = wg::fmax_nan(rmax[e],
-                                 __shfl_xor_sync(0xffffffffu, rmax[e], 2));
-          const float m_new = wg::fmax_nan(m[e], rmax[e] * f);
-          corr[e] = wg::exp2_ftz(m[e] - m_new);
-          m[e] = m_new;
-        }
-        // p = 2^(score - m); on a tile that hides some score, 0 where hidden
-        float rsum[2] = {0.f, 0.f};
-        if (full) {
-#pragma unroll
-          for (int r = 0; r < BN / 2; ++r) {
-            sc[r] = wg::exp2_ftz(fmaf(sc[r], f, -m[(r >> 1) & 1]));
-            rsum[(r >> 1) & 1] += sc[r];
-          }
-        } else {
-#pragma unroll
-          for (int r = 0; r < BN / 2; ++r) {
-            const float e2 = wg::exp2_ftz(fmaf(sc[r], f, -m[(r >> 1) & 1]));
-            sc[r] = (ok >> r) & 1u ? e2 : 0.f;
-            rsum[(r >> 1) & 1] += sc[r];
-          }
-        }
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          rsum[e] += __shfl_xor_sync(0xffffffffu, rsum[e], 1);
-          rsum[e] += __shfl_xor_sync(0xffffffffu, rsum[e], 2);
-          l[e] = l[e] * corr[e] + rsum[e];
-        }
-#pragma unroll
-        for (int r = 0; r < D / 2; ++r) o[r] *= corr[(r >> 1) & 1];
-      }
-      if (!skip) {
-        // the score fragments of keys 16kt .. 16kt + 15 are the A fragment
-        // of k-step kt of P . V
-#pragma unroll
-        for (int kt = 0; kt < BN / 16; ++kt) {
-          p[kt][0] = pack_bf16(sc[8 * kt + 0], sc[8 * kt + 1]);
-          p[kt][1] = pack_bf16(sc[8 * kt + 2], sc[8 * kt + 3]);
-          p[kt][2] = pack_bf16(sc[8 * kt + 4], sc[8 * kt + 5]);
-          p[kt][3] = pack_bf16(sc[8 * kt + 6], sc[8 * kt + 7]);
-        }
+        wg::softmax_tile(sc, o, m, l, a, full, cap, scale2, f, qp0, k0, c);
+        wg::pack_p(sc, p);
       }
 
       mbar_wait(bar(wg::bar_v_full(s)), parity);
@@ -639,41 +717,243 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
     __syncwarp();
     if (lane == 0) mbar_arrive(bar(wg::bar_q_empty(qb)));
 
+    wg::store_rows(o, m, l, a, it, H, qp0, c);
+  }
+}
+
+// ---------------------------------------------------------------------
+// bf16, d = 256: the same design, with a producer warpgroup that hands its
+// registers to the consumers
+// ---------------------------------------------------------------------
+
+namespace wg256 {
+
+constexpr int D = 256;
+constexpr int HALVES = D / 64;
+constexpr int CONSUMERS = 2;                    // warpgroups 0 and 1
+constexpr int THREADS = 128 * (CONSUMERS + 1);  // warpgroup 2 loads
+// 40 + 2 x 232 a thread of each SM sub-partition's three warps: the 3 x
+// 168 that a block of 384 threads is launched with
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+
+// QBUF Q buffers of BM rows, then the K stages, then the V stages (tiles
+// of BN rows), then the mbarriers: Q full and Q empty per buffer, then per
+// stage K full, V full, K empty, V empty
+template <int BN, int QBUF>
+struct Smem {
+  static constexpr uint32_t Q_BYTES = wg::BM * D * 2;
+  static constexpr uint32_t KV_BYTES = BN * D * 2;  // one K or V tile
+  static constexpr uint32_t K_OFF = QBUF * Q_BYTES;
+  static constexpr uint32_t V_OFF = K_OFF + wg::STAGES * KV_BYTES;
+  static constexpr uint32_t BAR_OFF = V_OFF + wg::STAGES * KV_BYTES;
+  static constexpr int BARS = 2 * QBUF + 4 * wg::STAGES;
+  // + 1024 to align the dynamic buffer's start
+  static constexpr size_t BYTES = BAR_OFF + 8 * BARS + 1024;
+};
+
+}  // namespace wg256
+
+// flash_attention_wgmma_kernel at d 256 (see the header): a producer
+// warpgroup at 40 registers and two consumer warpgroups at 232, QBUF Q
+// buffers and kv tiles of BN rows (the launcher takes 64 and 1;
+// examples/flash_tiling_torch.py times 32 and 2); S = Q . K^T is issued a
+// 64-column half at a time (four descriptors of each operand live at
+// once), and a warpgroup frees the item's Q buffer after its last S, so
+// that the next item's Q lands during the last tile's softmax, P . V and
+// the epilogue.
+template <int BN, int QBUF>
+__global__ void __launch_bounds__(wg256::THREADS, 1)
+flash_attention_wgmma256_kernel(const __grid_constant__ CUtensorMap tmq,
+                                const __grid_constant__ CUtensorMap tmk,
+                                const __grid_constant__ CUtensorMap tmv,
+                                const Args a, const int nq, const int H,
+                                const int N) {
+  using namespace hopper;
+  using L = wg256::Smem<BN, QBUF>;
+  constexpr int D = wg256::D, BM = wg::BM, STAGES = wg::STAGES;
+  constexpr int ROW = wg::ROW, CONSUMERS = wg256::CONSUMERS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = base + L::K_OFF, sV = base + L::V_OFF;
+  const uint32_t bars = base + L::BAR_OFF;
+  auto q_full = [bars](int b) { return bars + 8u * b; };
+  auto q_empty = [bars](int b) { return bars + 8u * (QBUF + b); };
+  auto k_full = [bars](int s) { return bars + 8u * (2 * QBUF + s); };
+  auto v_full = [bars](int s) {
+    return bars + 8u * (2 * QBUF + STAGES + s);
+  };
+  auto k_empty = [bars](int s) {
+    return bars + 8u * (2 * QBUF + 2 * STAGES + s);
+  };
+  auto v_empty = [bars](int s) {
+    return bars + 8u * (2 * QBUF + 3 * STAGES + s);
+  };
+  const int items = nq * H * N;
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < QBUF; ++b) {
+      mbar_init(q_full(b), 1);
+      mbar_init(q_empty(b), 4 * CONSUMERS);  // one arrival a consumer warp
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 4 * CONSUMERS);
+      mbar_init(v_empty(s), 4 * CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // warp-uniform (a shuffle from lane 0): the paths split here once
+  const int wgi = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128,
+                              0);
+  if (wgi == CONSUMERS) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    regs_dec<wg256::PRODUCER_REGS>();
+    if (threadIdx.x == 128 * CONSUMERS) {
+      int tile = 0;  // tiles issued so far, across items
+      for (int j = 0, w = nth_item(0); w < items; w = nth_item(++j)) {
+        const wg::Item it = wg::item<BN>(w, nq, H, N, a);
+        const int kvh = it.h / a.rep;
+        const int qb = j % QBUF;
+        mbar_wait(q_empty(qb), ((j / QBUF) & 1) ^ 1);
+        mbar_expect_tx(q_full(qb), L::Q_BYTES);
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int qr = qp0 + 8 * e;
-      if (qr >= a.S) continue;
-      // one IEEE reciprocal per row: o * (1 / l) is within an f32 ulp of
-      // o / l, far under the bf16 rounding that follows
-      const float inv = 1.f / max_nan(l[e], 1e-30f);
-      // m and the exponents are in log2 units: L = (m + log2 l) ln 2; a
-      // row that sees no key (l = 0) gets NEG_INF + ln(1e-30) = NEG_INF in
-      // f32, as the plain version and the FMA kernel give it
-      if (a.lse != nullptr && c == 0)
-        a.lse[(static_cast<long long>(it.n) * H + it.h) * a.S + qr] =
-            l[e] == 0.f
-                ? NEG_INF
-                : (m[e] + log2f(max_nan(l[e], 1e-30f))) * 0.6931471805599453f;
-      __nv_bfloat16* O = static_cast<__nv_bfloat16*>(a.o) + it.n * a.os0 +
-                         qr * a.os1 + it.h * a.os2;
+        for (int hf = 0; hf < wg256::HALVES; ++hf)
+          tma_load_4d(base + qb * L::Q_BYTES + hf * BM * ROW, &tmq,
+                      q_full(qb), 64 * hf, it.h, it.q0, it.n);
+        for (int i = 0; i < it.nt; ++i, ++tile) {
+          const int s = tile % STAGES;
+          const uint32_t free_parity = ((tile / STAGES) & 1) ^ 1;
+          const int k0 = it.lo + i * BN;
+          mbar_wait(k_empty(s), free_parity);
+          mbar_expect_tx(k_full(s), L::KV_BYTES);
 #pragma unroll
-      for (int jj = 0; jj < D / 8; ++jj)
-        *reinterpret_cast<__nv_bfloat162*>(O + 8 * jj + 2 * c) =
-            __floats2bfloat162_rn(o[4 * jj + 2 * e] * inv,
-                                  o[4 * jj + 2 * e + 1] * inv);
+          for (int hf = 0; hf < wg256::HALVES; ++hf)
+            tma_load_4d(sK + s * L::KV_BYTES + hf * BN * ROW, &tmk,
+                        k_full(s), 64 * hf, kvh, k0, it.n);
+          mbar_wait(v_empty(s), free_parity);
+          mbar_expect_tx(v_full(s), L::KV_BYTES);
+#pragma unroll
+          for (int hf = 0; hf < wg256::HALVES; ++hf)
+            tma_load_4d(sV + s * L::KV_BYTES + hf * BN * ROW, &tmv,
+                        v_full(s), 64 * hf, kvh, k0, it.n);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wgi owns q rows [q0 + 64 wgi, + 64) ----
+    regs_inc<wg256::CONSUMER_REGS>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int c = lane % 4;
+    const bool cap = a.softcap != 0.f;
+    const float scale2 = cap ? a.scale : a.scale * LOG2E;
+    const float f = cap ? 1.f : scale2;
+    int tile = 0;
+    for (int j = 0, w = nth_item(0); w < items; w = nth_item(++j)) {
+      const wg::Item it = wg::item<BN>(w, nq, H, N, a);
+      const int wq0 = it.q0 + 64 * wgi;
+      const int qp0 = wq0 + 16 * warp + lane / 4;  // rows qp0, qp0 + 8
+      const int qb = j % QBUF;
+      const uint32_t q_wg = base + qb * L::Q_BYTES + 64 * wgi * ROW;
+
+      float o[D / 2], sc[BN / 2];
+#pragma unroll
+      for (int r = 0; r < D / 2; ++r) o[r] = 0.f;
+#pragma unroll
+      for (int r = 0; r < BN / 2; ++r) sc[r] = 0.f;
+      float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+      uint32_t p[BN / 16][4];
+
+      mbar_wait(q_full(qb), (j / QBUF) & 1);
+      for (int i = 0; i < it.nt; ++i, ++tile) {
+        const int s = tile % STAGES;
+        const uint32_t parity = (tile / STAGES) & 1;
+        const int k0 = it.lo + i * BN;
+        const bool skip = (a.causal && k0 > wq0 + 63) ||
+                          (a.has_window && k0 + BN - 1 <= wq0 - a.window);
+        mbar_wait(k_full(s), parity);
+        if (!skip) {
+          // S = Q . K^T, 16 k-steps issued a 64-column half at a time
+          const uint32_t k_s = sK + s * L::KV_BYTES;
+          fence_regs(sc);
+#pragma unroll
+          for (int hf = 0; hf < wg256::HALVES; ++hf) {
+            uint64_t dq[4], dk[4];
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              dq[kk] = desc_sw128(q_wg + hf * BM * ROW + kk * 32, 16, 1024);
+              dk[kk] = desc_sw128(k_s + hf * BN * ROW + kk * 32, 16, 1024);
+            }
+            fence_regs(dq);
+            fence_regs(dk);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_qk<BN>(sc, dq[kk], dk[kk], hf > 0 || kk > 0);
+            wgmma_commit();
+          }
+          wgmma_wait<0>();
+          fence_regs(sc);
+        }
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(k_empty(s));
+          // the item's last S has read this warpgroup's Q rows
+          if (i == it.nt - 1) mbar_arrive(q_empty(qb));
+        }
+
+        if (!skip) {
+          const bool full = k0 + BN <= a.T &&
+                            (!a.causal || k0 + BN - 1 <= wq0) &&
+                            (!a.has_window || k0 > wq0 + 63 - a.window);
+          wg::softmax_tile(sc, o, m, l, a, full, cap, scale2, f, qp0, k0, c);
+          wg::pack_p(sc, p);
+        }
+
+        mbar_wait(v_full(s), parity);
+        if (!skip) {
+          // O += P . V: one m64n256k16 a k-step of 16 kv rows, V read
+          // MN-major over its four 64-column halves (BN * 128 bytes apart)
+          const uint32_t v_s = sV + s * L::KV_BYTES;
+          uint64_t dv[BN / 16];
+#pragma unroll
+          for (int kt = 0; kt < BN / 16; ++kt)
+            dv[kt] = desc_sw128(v_s + kt * 16 * ROW, BN * ROW, 1024);
+          fence_regs(dv);
+#pragma unroll
+          for (int kt = 0; kt < BN / 16; ++kt) fence_regs(p[kt]);
+          fence_regs(o);
+          wgmma_fence();
+#pragma unroll
+          for (int kt = 0; kt < BN / 16; ++kt) wgmma_pv<D>(o, p[kt], dv[kt]);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(o);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(v_empty(s));
+      }
+      if (it.nt == 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(q_empty(qb));
+      }
+      wg::store_rows(o, m, l, a, it, H, qp0, c);
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const Args& a, int N, int H, cudaStream_t stream) {
   const size_t smem = Smem<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
+      flash_attention_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.S + BQ - 1) / BQ, H, N);
-  flash_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(a);
+  flash_attention_kernel<D><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -705,15 +985,52 @@ cudaError_t launch_wgmma(const Args& a, int N, int H, int KV,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <int BN, int QBUF>
+cudaError_t launch_wgmma256(const Args& a, int N, int H, int KV,
+                            cudaStream_t stream) {
+  constexpr int D = wg256::D;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err =
+      make_map(&tq, a.q, D, H, a.S, N, a.qs2, a.qs1, a.qs0, wg::BM);
+  if (err == cudaSuccess)
+    err = make_map(&tk, a.k, D, KV, a.T, N, a.ks2, a.ks1, a.ks0, BN);
+  if (err == cudaSuccess)
+    err = make_map(&tv, a.v, D, KV, a.T, N, a.vs2, a.vs1, a.vs0, BN);
+  if (err != cudaSuccess) return err;
+  const auto kernel = flash_attention_wgmma256_kernel<BN, QBUF>;
+  const size_t smem = wg256::Smem<BN, QBUF>::BYTES;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  // setmaxnreg.inc waits for the registers the producer gave back: the
+  // block must be launched with enough of them, or the consumers would wait
+  // forever (ptxas sets the count from __launch_bounds__: 168 a thread)
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs * wg256::THREADS <
+      128 * (wg256::PRODUCER_REGS +
+             wg256::CONSUMERS * wg256::CONSUMER_REGS))
+    return cudaErrorInvalidConfiguration;
+  const int nq = (a.S + wg::BM - 1) / wg::BM;
+  const long long items = static_cast<long long>(nq) * H * N;
+  if (items > INT_MAX) return cudaErrorInvalidValue;
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  const int blocks = static_cast<int>(items < sms ? items : sms);
+  kernel<<<blocks, wg256::THREADS, smem, stream>>>(tq, tk, tv, a, nq, H, N);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_d(const Args& a, int d, int N, int H,
                      cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(a, N, H, stream);
-    case 32: return launch<T, 32>(a, N, H, stream);
-    case 64: return launch<T, 64>(a, N, H, stream);
-    case 128: return launch<T, 128>(a, N, H, stream);
-    case 256: return launch<T, 256>(a, N, H, stream);
+    case 16: return launch<16>(a, N, H, stream);
+    case 32: return launch<32>(a, N, H, stream);
+    case 64: return launch<64>(a, N, H, stream);
+    case 128: return launch<128>(a, N, H, stream);
+    case 256: return launch<256>(a, N, H, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -722,14 +1039,15 @@ cudaError_t launch_d(const Args& a, int d, int N, int H,
 
 // dtype: 0 = float32, 1 = bfloat16; d is an instantiated head dim (the
 // wrapper zero-pads any other, ops.py::padded_head_dim).  bf16 at d = 64 or
-// 128 runs the wgmma + TMA kernel; f32 at any d and bf16 at d = 256 the
-// fp32-FMA kernel; anything else is refused.  Strides in elements; the
-// inner stride of every tensor is 1.  window < 0 means no window, softcap 0
-// no softcap.  A non-null lse receives every row's log-sum-exp of its
-// scores, (N, H, S) f32 contiguous (training; the backward reads it).  The wgmma kernel needs every row of q, k, v and out to start
-// 16-byte aligned and, for TMA, every stride of an extent over 1 to be a
-// positive multiple of 16 bytes (ops.py::_rows_aligned copies a view that
-// is not).  Returns the CUDA error of the launch (0 on success).
+// 128 runs the wgmma + TMA kernel, bf16 at d = 256 its d 256 form; f32 at
+// any d the fp32-FMA kernel; anything else is refused.  Strides in
+// elements; the inner stride of every tensor is 1.  window < 0 means no
+// window, softcap 0 no softcap.  A non-null lse receives every row's
+// log-sum-exp of its scores, (N, H, S) f32 contiguous (training; the
+// backward reads it).  The wgmma kernels need every row of q, k, v and out
+// to start 16-byte aligned and, for TMA, every stride of an extent over 1
+// to be a positive multiple of 16 bytes (ops.py::_rows_aligned copies a
+// view that is not).  Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int d,
     int N, int S, int T, int H, int KV, long long qs0, long long qs1,
@@ -743,9 +1061,10 @@ extern "C" int flash_attention_launch(
          vs1, vs2, os0, os1, os2, S,   T,   H / KV, scale, causal,
          window >= 0 ? 1 : 0, window, softcap, lse};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_d<float>(a, d, N, H, st);
+  if (dtype == 0) return launch_d(a, d, N, H, st);
   if (dtype == 1 && d == 64) return launch_wgmma<64>(a, N, H, KV, st);
   if (dtype == 1 && d == 128) return launch_wgmma<128>(a, N, H, KV, st);
-  if (dtype == 1 && d == 256) return launch<__nv_bfloat16, 256>(a, N, H, st);
+  if (dtype == 1 && d == 256)
+    return launch_wgmma256<64, 1>(a, N, H, KV, st);
   return cudaErrorInvalidValue;
 }

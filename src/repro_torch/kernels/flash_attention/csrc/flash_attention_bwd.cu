@@ -87,10 +87,46 @@
 // ptxas spilled or serialised wgmmas (C7512, C7517), and both were
 // slower.
 //
+// bf16 with D = 256 (gemma3-1b; bf16 head dims over 128 are padded to 256):
+// the same three steps, with flash_bwd_dq_wgmma256 and
+// flash_bwd_dkdv_wgmma256 in place of the d 128 kernels.  At gemma3's
+// training shape (N 32, S = T = 1024, 4 q heads over 1 kv head, causal,
+// window 512) the five products are 129 GFLOP against 336 MB, ~384
+// operations per byte: operations.  The d 128 layouts do not fit there:
+// - dQ: two (Q, dO) buffers of 128 rows are 256 KB alone.  So one buffer
+//   (128 KB), freed after the item's last S and dP so that the next item's
+//   lands during the last tile's dQ and epilogue, and a 2-stage ring of
+//   K/V tiles of 32 rows (64 KB): 192 KB.  S and dP are m64n32k16 (16 + 16
+//   registers beside dQ's 128), issued a 64-column half of d at a time;
+//   dQ += dS . K is one m64n256k16 a k-step of 16 keys, the second
+//   k-step's dS formed while the first runs.
+// - dK/dV: a warpgroup that owned 64 kv rows would hold dK and dV in 256
+//   registers a thread, over the 255 a thread may have.  So both consumer
+//   warpgroups share one item of 64 kv rows: warpgroup w forms S^T = K .
+//   Q^T and dP^T = V . dO^T for queries 32 w .. 32 w + 31 of each q tile
+//   (m64n32k16, a 64-column half of d at a time), P^T and dS^T of them in
+//   fp32 as the d 128 kernel does, and stores both as bf16 into shared
+//   memory, 128-byte swizzled (fence.proxy.async, then a named barrier
+//   over the two warpgroups); then each runs dV += P^T . dO and dK += dS^T
+//   . Q for head-dim columns 128 w .. 128 w + 127 (m64n128k16 with both
+//   operands in shared memory, dO and Q MN-major): 64 + 64 registers of
+//   dK and dV a thread.  Each S^T and dP^T element is computed once, seven
+//   products in the whole backward as at d 128.  The other way, each
+//   warpgroup forming the whole S^T and dP^T for its own columns, needs no
+//   barrier and no staging but does nine products and twice the
+//   exponentials of every tile; it was not built.  The (P^T, dS^T) tiles
+//   alternate between two buffers (32 KB), so a warpgroup that runs ahead
+//   writes the next tile's while the other still reads this one's; with
+//   the (K, V) item buffer (64 KB), the 2-stage Q/dO ring (128 KB) and the
+//   ring's stats the block takes 225 KB of the 227 it may have.
+// Both launch through the same host path (wg::launch) with the same
+// register hand-over and launch check; the stats pass runs one warp a row.
+//
 // f32 inputs (held to 1e-4 against the plain version: no tensor-core type
-// keeps that) and bf16 at D = 256: fp32 FMA, every tensor contiguous (the
-// wrapper copies), D one of 16, 32, 64, 128, 256 (the wrapper zero-pads);
-// three kernels:
+// keeps that): fp32 FMA, every tensor contiguous (the wrapper copies), D
+// one of 16, 32, 64, 128, 256 (the wrapper zero-pads); three kernels (bf16
+// inputs take them too when asked, chip_smoke.py times them beside the
+// wgmma route):
 // - flash_bwd_delta: one warp per (n, s, h) row;
 // - flash_bwd_dq: one block per (q tile, q head, n) walks the kv tiles the
 //   tile can see and recomputes the scores, P, dP and dS for each;
@@ -563,19 +599,20 @@ __device__ __forceinline__ void prob_grad(const Args& a, float raw, float dp,
 // register A fragment of k-step kt of a product that contracts them: its
 // register x packs registers 8 kt + 2 x and 8 kt + 2 x + 1 as a bf16 pair.
 
-// dS of score registers 16 H .. 16 H + 15 (keys 32 H .. 32 H + 31 of the
-// tile) in place, rows qp0 and qp0 + 8, and their bf16 A fragments, k-steps
-// 2 H and 2 H + 1 of dQ += dS . K; with MASK, hidden pairs give 0
-template <int H, bool MASK, bool CAP>
-__device__ __forceinline__ void dq_grads(float (&sc)[32],
-                                         const float (&dp)[32],
+// dS of score registers 8 KS H .. 8 KS (H + 1) - 1 (keys 16 KS H .. 16 KS
+// (H + 1) - 1 of the tile) in place, rows qp0 and qp0 + 8, and their bf16 A
+// fragments, k-steps KS H .. KS (H + 1) - 1 of dQ += dS . K; with MASK,
+// hidden pairs give 0
+template <int H, int KS, bool MASK, bool CAP, int R>
+__device__ __forceinline__ void dq_grads(float (&sc)[R], const float (&dp)[R],
                                          const float (&l2)[2],
                                          const float (&dl)[2],
-                                         uint32_t (&g)[4][4], const Args& a,
-                                         int qp0, int k0, int c) {
+                                         uint32_t (&g)[R / 8][4],
+                                         const Args& a, int qp0, int k0,
+                                         int c) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int r = 16 * H + i, e = (r >> 1) & 1;
+  for (int i = 0; i < 8 * KS; ++i) {
+    const int r = 8 * KS * H + i, e = (r >> 1) & 1;
     float p, ds;
     prob_grad<CAP>(a, sc[r], dp[r], l2[e], dl[e], p, ds);
     if (MASK && !visible(a, qp0 + 8 * e, k0 + 8 * (r >> 2) + 2 * c + (r & 1)))
@@ -583,25 +620,26 @@ __device__ __forceinline__ void dq_grads(float (&sc)[32],
     sc[r] = ds;
   }
 #pragma unroll
-  for (int kt = 2 * H; kt < 2 * H + 2; ++kt)
+  for (int kt = KS * H; kt < KS * H + KS; ++kt)
 #pragma unroll
     for (int x = 0; x < 4; ++x)
       g[kt][x] = pack_bf16(sc[8 * kt + 2 * x], sc[8 * kt + 2 * x + 1]);
 }
 
-template <int H>
-__device__ __forceinline__ void dq_grads(bool mask, bool cap, float (&sc)[32],
-                                         const float (&dp)[32],
+template <int H, int KS, int R>
+__device__ __forceinline__ void dq_grads(bool mask, bool cap, float (&sc)[R],
+                                         const float (&dp)[R],
                                          const float (&l2)[2],
                                          const float (&dl)[2],
-                                         uint32_t (&g)[4][4], const Args& a,
-                                         int qp0, int k0, int c) {
+                                         uint32_t (&g)[R / 8][4],
+                                         const Args& a, int qp0, int k0,
+                                         int c) {
   if (mask) {
-    if (cap) dq_grads<H, true, true>(sc, dp, l2, dl, g, a, qp0, k0, c);
-    else dq_grads<H, true, false>(sc, dp, l2, dl, g, a, qp0, k0, c);
+    if (cap) dq_grads<H, KS, true, true>(sc, dp, l2, dl, g, a, qp0, k0, c);
+    else dq_grads<H, KS, true, false>(sc, dp, l2, dl, g, a, qp0, k0, c);
   } else {
-    if (cap) dq_grads<H, false, true>(sc, dp, l2, dl, g, a, qp0, k0, c);
-    else dq_grads<H, false, false>(sc, dp, l2, dl, g, a, qp0, k0, c);
+    if (cap) dq_grads<H, KS, false, true>(sc, dp, l2, dl, g, a, qp0, k0, c);
+    else dq_grads<H, KS, false, false>(sc, dp, l2, dl, g, a, qp0, k0, c);
   }
 }
 
@@ -779,19 +817,12 @@ __device__ __forceinline__ void init_bars(uint32_t bars) {
   mbar_fence_init();
 }
 
-// The j-th work item of this block: rounds of gridDim.x items, every other
-// round in reverse block order (a snake), so that with items longest first
-// each block's share evens out.  Past the last item it is >= items.
-__device__ __forceinline__ int nth_item(int j) {
-  const int g = gridDim.x, b = blockIdx.x;
-  return j * g + ((j & 1) ? g - 1 - b : b);
-}
-
 struct DqItem {
   int q0, h, n, lo, nt;
 };
 
-// q tiles longest first (causal), then heads, then n
+// q tiles longest first (causal), then heads, then n; key tiles of KB rows
+template <int KB = TILE>
 __device__ __forceinline__ DqItem dq_item(int w, int nq, const Args& a) {
   DqItem it;
   const int hn = a.H * a.N;
@@ -802,8 +833,8 @@ __device__ __forceinline__ DqItem dq_item(int w, int nq, const Args& a) {
   int hi = a.T;
   if (a.causal) hi = min(hi, it.q0 + BLOCK);
   it.lo = 0;
-  if (a.has_window) it.lo = max(0, it.q0 - a.window + 1) / TILE * TILE;
-  it.nt = hi > it.lo ? (hi - it.lo + TILE - 1) / TILE : 0;
+  if (a.has_window) it.lo = max(0, it.q0 - a.window + 1) / KB * KB;
+  it.nt = hi > it.lo ? (hi - it.lo + KB - 1) / KB : 0;
   return it;
 }
 
@@ -937,7 +968,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmq,
           descs_mnmajor(kb, ks);
           fence_regs(kb);
           uint32_t g[4][4];
-          dq_grads<0>(!full, cap, sc, dp, l2, dl, g, a, qp0, k0, c);
+          dq_grads<0, 2>(!full, cap, sc, dp, l2, dl, g, a, qp0, k0, c);
           fence_regs(g[0]);
           fence_regs(g[1]);
           fence_regs(dq);
@@ -945,7 +976,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmq,
           wgmma_rs<D>(dq, g[0], kb[0]);
           wgmma_rs<D>(dq, g[1], kb[1]);
           wgmma_commit();
-          dq_grads<1>(!full, cap, sc, dp, l2, dl, g, a, qp0, k0, c);
+          dq_grads<1, 2>(!full, cap, sc, dp, l2, dl, g, a, qp0, k0, c);
           fence_regs(g[2]);
           fence_regs(g[3]);
           wgmma_fence();
@@ -996,18 +1027,19 @@ struct KvItem {
   int k0, kvh, n, lo, nt;  // nt q tiles per q head of the group
 };
 
-// kv tiles longest first (causal: the first sees the most queries), then
-// kv heads, then n
+// kv tiles of KB rows longest first (causal: the first sees the most
+// queries), then kv heads, then n
+template <int KB = BLOCK>
 __device__ __forceinline__ KvItem kv_item(int w, const Args& a) {
   KvItem it;
   const int hn = a.KV * a.N;
-  it.k0 = (w / hn) * BLOCK;
+  it.k0 = (w / hn) * KB;
   it.kvh = (w % hn) % a.KV;
   it.n = (w % hn) / a.KV;
   // q tiles that can see a key of the item
   it.lo = a.causal ? it.k0 : 0;
   int hi = a.S;
-  if (a.has_window) hi = min(hi, it.k0 + BLOCK - 1 + a.window);
+  if (a.has_window) hi = min(hi, it.k0 + KB - 1 + a.window);
   it.nt = hi > it.lo ? (hi - it.lo + TILE - 1) / TILE : 0;
   return it;
 }
@@ -1208,16 +1240,515 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tmq,
   }
 }
 
-// the stats pass, then the dQ and the dK/dV kernels, each persistent: one
-// block per SM walks its items
+// ---- d 256 ---------------------------------------------------------------
+
+// dQ at d 256: one (Q, dO) buffer of BLOCK rows, then a ring of K/V tiles
+// of TILE256 rows
+constexpr int TILE256 = 32;
+struct Dq256Smem {
+  static constexpr uint32_t Q_BYTES = BLOCK * 256 * 2;     // one Q or dO tile
+  static constexpr uint32_t KV_BYTES = TILE256 * 256 * 2;  // one K or V tile
+  static constexpr uint32_t KV_OFF = 2 * Q_BYTES;
+  static constexpr uint32_t BAR_OFF = KV_OFF + STAGES * 2 * KV_BYTES;
+  static constexpr int BARS = 4 + 2 * STAGES;
+  static constexpr size_t BYTES = BAR_OFF + 8 * BARS + 1024;
+};
+
+// As flash_bwd_dq_wgmma at d 128, with four changes (see the header):
+// one (Q, dO) buffer, freed after the item's last S and dP so that the next
+// item's lands during the last tile's dQ and the epilogue; key tiles of 32
+// rows; S and dP issued a 64-column half at a time; dQ += dS . K one
+// m64n256k16 a k-step, the second k-step's dS formed while the first runs.
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wgmma256(const __grid_constant__ CUtensorMap tmq,
+                      const __grid_constant__ CUtensorMap tmdo,
+                      const __grid_constant__ CUtensorMap tmk,
+                      const __grid_constant__ CUtensorMap tmv, const Args a,
+                      const int nq) {
+  using namespace hopper;
+  using L = Dq256Smem;
+  constexpr int D = 256, KB = TILE256;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::BAR_OFF;
+  auto bar = [bars](int i) { return bars + 8u * i; };
+  const int items = nq * a.H * a.N;
+  if (threadIdx.x == 0) init_bars(bars);
+  __syncthreads();
+
+  const int wgi = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128,
+                              0);
+  if (wgi == CONSUMERS) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 128 * CONSUMERS) {
+      int tile = 0;  // key tiles issued so far, across items
+      for (int j = 0, w = nth_item(0); w < items; w = nth_item(++j)) {
+        const DqItem it = dq_item<KB>(w, nq, a);
+        const int kvh = it.h / a.rep;
+        mbar_wait(bar(bar_item_empty(0)), (j & 1) ^ 1);
+        mbar_expect_tx(bar(bar_item_full(0)), 2 * L::Q_BYTES);
+#pragma unroll
+        for (int hf = 0; hf < D / 64; ++hf) {
+          tma_load_4d(base + hf * BLOCK * ROW, &tmq, bar(bar_item_full(0)),
+                      64 * hf, it.h, it.q0, it.n);
+          tma_load_4d(base + L::Q_BYTES + hf * BLOCK * ROW, &tmdo,
+                      bar(bar_item_full(0)), 64 * hf, it.h, it.q0, it.n);
+        }
+        for (int i = 0; i < it.nt; ++i, ++tile) {
+          const int s = tile % STAGES;
+          const int k0 = it.lo + i * KB;
+          const uint32_t ks = base + L::KV_OFF + s * 2 * L::KV_BYTES;
+          mbar_wait(bar(bar_empty(s)), ((tile / STAGES) & 1) ^ 1);
+          mbar_expect_tx(bar(bar_full(s)), 2 * L::KV_BYTES);
+#pragma unroll
+          for (int hf = 0; hf < D / 64; ++hf) {
+            tma_load_4d(ks + hf * KB * ROW, &tmk, bar(bar_full(s)), 64 * hf,
+                        kvh, k0, it.n);
+            tma_load_4d(ks + L::KV_BYTES + hf * KB * ROW, &tmv,
+                        bar(bar_full(s)), 64 * hf, kvh, k0, it.n);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wgi owns q rows [q0 + 64 wgi, + 64) ----
+    regs_inc<CONSUMER_REGS>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int c = lane % 4;
+    const bool cap = a.softcap != 0.f;
+    const long long nhs = static_cast<long long>(a.N) * a.H * a.S_pad;
+    const uint32_t q_wg = base + 64 * wgi * ROW, do_wg = q_wg + L::Q_BYTES;
+    int tile = 0;
+    for (int j = 0, w = nth_item(0); w < items; w = nth_item(++j)) {
+      const DqItem it = dq_item<KB>(w, nq, a);
+      const int wq0 = it.q0 + 64 * wgi;
+      const int qp0 = wq0 + 16 * warp + lane / 4;  // rows qp0, qp0 + 8
+      float l2[2], dl[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const long long li =
+            (static_cast<long long>(it.n) * a.H + it.h) * a.S_pad + qp0 +
+            8 * e;
+        l2[e] = a.stats[li];
+        dl[e] = a.stats[nhs + li];
+      }
+      float dq[D / 2], sc[KB / 2], dp[KB / 2];
+#pragma unroll
+      for (int r = 0; r < D / 2; ++r) dq[r] = 0.f;
+#pragma unroll
+      for (int r = 0; r < KB / 2; ++r) sc[r] = dp[r] = 0.f;
+
+      mbar_wait(bar(bar_item_full(0)), j & 1);
+      for (int i = 0; i < it.nt; ++i, ++tile) {
+        const int s = tile % STAGES;
+        const int k0 = it.lo + i * KB;
+        const bool skip = wq0 >= a.S || (a.causal && k0 > wq0 + 63) ||
+                          (a.has_window && k0 + KB - 1 <= wq0 - a.window);
+        const uint32_t ks = base + L::KV_OFF + s * 2 * L::KV_BYTES;
+        const uint32_t vs = ks + L::KV_BYTES;
+        mbar_wait(bar(bar_full(s)), (tile / STAGES) & 1);
+        if (!skip) {
+          // S = Q . K^T and dP = dO . V^T, a 64-column half at a time
+          fence_regs(sc);
+          fence_regs(dp);
+#pragma unroll
+          for (int hf = 0; hf < D / 64; ++hf) {
+            uint64_t qa[4], kb[4], oa[4], vb[4];
+            descs_kmajor<64>(qa, kb, q_wg + hf * BLOCK * ROW, 0,
+                             ks + hf * KB * ROW, 0);
+            descs_kmajor<64>(oa, vb, do_wg + hf * BLOCK * ROW, 0,
+                             vs + hf * KB * ROW, 0);
+            fence_regs(qa);
+            fence_regs(kb);
+            fence_regs(oa);
+            fence_regs(vb);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_ss_n32(sc, qa[kk], kb[kk], hf > 0 || kk > 0);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_ss_n32(dp, oa[kk], vb[kk], hf > 0 || kk > 0);
+            wgmma_commit();
+          }
+          wgmma_wait<0>();
+          fence_regs(sc);
+          fence_regs(dp);
+        }
+        // the item's last S and dP have read this warpgroup's Q and dO
+        __syncwarp();
+        if (lane == 0 && i == it.nt - 1) mbar_arrive(bar(bar_item_empty(0)));
+        if (!skip) {
+          const bool full = k0 + KB <= a.T && wq0 + 64 <= a.S &&
+                            (!a.causal || k0 + KB - 1 <= wq0) &&
+                            (!a.has_window || k0 > wq0 + 63 - a.window);
+          // K read MN-major: a k-step is 16 key rows, the next 64 columns
+          // KB rows on
+          uint64_t kb[KB / 16];
+#pragma unroll
+          for (int kt = 0; kt < KB / 16; ++kt)
+            kb[kt] = desc_sw128(ks + kt * 16 * ROW, KB * ROW, 1024);
+          fence_regs(kb);
+          uint32_t g[KB / 16][4];
+          dq_grads<0, 1>(!full, cap, sc, dp, l2, dl, g, a, qp0, k0, c);
+          fence_regs(g[0]);
+          fence_regs(dq);
+          wgmma_fence();
+          wgmma_rs_n256(dq, g[0], kb[0]);
+          wgmma_commit();
+          dq_grads<1, 1>(!full, cap, sc, dp, l2, dl, g, a, qp0, k0, c);
+          fence_regs(g[1]);
+          wgmma_fence();
+          wgmma_rs_n256(dq, g[1], kb[1]);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dq);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar(bar_empty(s)));
+      }
+      if (it.nt == 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar(bar_item_empty(0)));
+      }
+
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qr = qp0 + 8 * e;
+        if (qr >= a.S) continue;
+        __nv_bfloat16* out =
+            a.dq + ((static_cast<long long>(it.n) * a.S + qr) * a.H + it.h) *
+                       static_cast<long long>(D);
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj)
+          *reinterpret_cast<__nv_bfloat162*>(out + 8 * jj + 2 * c) =
+              __floats2bfloat162_rn(dq[4 * jj + 2 * e], dq[4 * jj + 2 * e + 1]);
+      }
+    }
+  }
+}
+
+// dK/dV at d 256: one (K, V) buffer of BLOCK256 rows, the Q/dO ring of
+// TILE rows, two (P^T, dS^T) buffers of BLOCK256 x TILE bf16, then the
+// ring's stats (l2 and delta of each streamed tile's rows)
+constexpr int BLOCK256 = 64;
+struct Kv256Smem {
+  static constexpr uint32_t KV_BYTES = BLOCK256 * 256 * 2;  // one K or V
+  static constexpr uint32_t Q_BYTES = TILE * 256 * 2;       // one Q or dO
+  static constexpr uint32_t Q_OFF = 2 * KV_BYTES;
+  static constexpr uint32_t PS_OFF = Q_OFF + STAGES * 2 * Q_BYTES;
+  static constexpr uint32_t PS_BYTES = BLOCK256 * TILE * 2;  // P^T or dS^T
+  static constexpr uint32_t STAT_OFF = PS_OFF + 2 * 2 * PS_BYTES;
+  static constexpr uint32_t STAT_BYTES = TILE * 4;
+  static constexpr uint32_t BAR_OFF = STAT_OFF + STAGES * 2 * STAT_BYTES;
+  static constexpr int BARS = 4 + 2 * STAGES;
+  static constexpr size_t BYTES = BAR_OFF + 8 * BARS + 1024;
+};
+
+// P^T and dS^T of a 64 x 32 block of the tile (accumulator fragments st,
+// dpt: kv rows kp0 and kp0 + 8 of the thread, tile row `row` and row + 8;
+// queries q0 .. q0 + 31, whose l2 and delta are sl[] and sl[TILE + ]) as
+// bf16 into the tiles at sp and sds, 16-byte chunks chunk0 .. chunk0 + 3 of
+// each 128-byte row, 128-byte swizzled: the K-major A operand of dV +=
+// P^T . dO and dK += dS^T . Q.  With MASK, hidden pairs give 0.
+template <bool MASK, bool CAP>
+__device__ __forceinline__ void dkv_grads_store(const float (&st)[16],
+                                                const float (&dpt)[16],
+                                                const float* sl, uint32_t sp,
+                                                uint32_t sds, const Args& a,
+                                                int q0, int kp0, int row,
+                                                int chunk0, int c) {
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * jj + 2 * c);
+    const float2 dl =
+        *reinterpret_cast<const float2*>(sl + TILE + 8 * jj + 2 * c);
+    float p[4], ds[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      prob_grad<CAP>(a, st[4 * jj + u], dpt[4 * jj + u], (u & 1) ? l2.y : l2.x,
+                     (u & 1) ? dl.y : dl.x, p[u], ds[u]);
+      if (MASK && !visible(a, q0 + 8 * jj + 2 * c + (u & 1),
+                           kp0 + 8 * ((u >> 1) & 1))) {
+        p[u] = 0.f;
+        ds[u] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = row + 8 * e;
+      const uint32_t off = r * ROW + (((chunk0 + jj) ^ (r & 7)) << 4) + 4 * c;
+      hopper::st_shared_b32(sp + off, pack_bf16(p[2 * e], p[2 * e + 1]));
+      hopper::st_shared_b32(sds + off, pack_bf16(ds[2 * e], ds[2 * e + 1]));
+    }
+  }
+}
+
+__device__ __forceinline__ void dkv_grads_store(bool mask, bool cap,
+                                                const float (&st)[16],
+                                                const float (&dpt)[16],
+                                                const float* sl, uint32_t sp,
+                                                uint32_t sds, const Args& a,
+                                                int q0, int kp0, int row,
+                                                int chunk0, int c) {
+  if (mask) {
+    if (cap)
+      dkv_grads_store<true, true>(st, dpt, sl, sp, sds, a, q0, kp0, row,
+                                  chunk0, c);
+    else
+      dkv_grads_store<true, false>(st, dpt, sl, sp, sds, a, q0, kp0, row,
+                                   chunk0, c);
+  } else {
+    if (cap)
+      dkv_grads_store<false, true>(st, dpt, sl, sp, sds, a, q0, kp0, row,
+                                   chunk0, c);
+    else
+      dkv_grads_store<false, false>(st, dpt, sl, sp, sds, a, q0, kp0, row,
+                                    chunk0, c);
+  }
+}
+
+// dK/dV at d 256 (see the header): the two consumer warpgroups share one
+// item of 64 kv rows.  Warpgroup w forms S^T and dP^T of the tile's
+// queries 32 w .. 32 w + 31 (m64n32k16, a 64-column half of d at a time),
+// and P^T and dS^T of them in fp32, which it stores as bf16 into shared
+// memory; after a named barrier over both warpgroups each runs dV += P^T .
+// dO and dK += dS^T . Q for head-dim columns 128 w .. 128 w + 127
+// (m64n128k16, both operands from shared memory).  The (P^T, dS^T) tiles
+// alternate between two buffers, so that a warpgroup that runs ahead
+// writes the next tile's while the other still reads this one's.
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_wgmma256(const __grid_constant__ CUtensorMap tmq,
+                        const __grid_constant__ CUtensorMap tmdo,
+                        const __grid_constant__ CUtensorMap tmk,
+                        const __grid_constant__ CUtensorMap tmv, const Args a,
+                        const int nkv) {
+  using namespace hopper;
+  using L = Kv256Smem;
+  constexpr int D = 256, KB = BLOCK256;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::BAR_OFF;
+  auto bar = [bars](int i) { return bars + 8u * i; };
+  const int items = nkv * a.KV * a.N;
+  const long long nhs = static_cast<long long>(a.N) * a.H * a.S_pad;
+  if (threadIdx.x == 0) init_bars(bars);
+  __syncthreads();
+
+  const int wgi = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128,
+                              0);
+  if (wgi == CONSUMERS) {
+    // ---- producer warpgroup: one thread issues every load ----
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 128 * CONSUMERS) {
+      int tile = 0;  // q tiles issued so far, across items
+      for (int j = 0, w = nth_item(0); w < items; w = nth_item(++j)) {
+        const KvItem it = kv_item<KB>(w, a);
+        mbar_wait(bar(bar_item_empty(0)), (j & 1) ^ 1);
+        mbar_expect_tx(bar(bar_item_full(0)), 2 * L::KV_BYTES);
+#pragma unroll
+        for (int hf = 0; hf < D / 64; ++hf) {
+          tma_load_4d(base + hf * KB * ROW, &tmk, bar(bar_item_full(0)),
+                      64 * hf, it.kvh, it.k0, it.n);
+          tma_load_4d(base + L::KV_BYTES + hf * KB * ROW, &tmv,
+                      bar(bar_item_full(0)), 64 * hf, it.kvh, it.k0, it.n);
+        }
+        // the group's q heads in order, each over its q tiles
+        for (int hh = 0; hh < a.rep; ++hh) {
+          const int h = it.kvh * a.rep + hh;
+          const long long row0 =
+              (static_cast<long long>(it.n) * a.H + h) * a.S_pad;
+          for (int i = 0; i < it.nt; ++i, ++tile) {
+            const int s = tile % STAGES;
+            const int q0 = it.lo + i * TILE;
+            const uint32_t qs = base + L::Q_OFF + s * 2 * L::Q_BYTES;
+            const uint32_t st = base + L::STAT_OFF + s * 2 * L::STAT_BYTES;
+            mbar_wait(bar(bar_empty(s)), ((tile / STAGES) & 1) ^ 1);
+            mbar_expect_tx(bar(bar_full(s)),
+                           2 * L::Q_BYTES + 2 * L::STAT_BYTES);
+#pragma unroll
+            for (int hf = 0; hf < D / 64; ++hf) {
+              tma_load_4d(qs + hf * TILE * ROW, &tmq, bar(bar_full(s)),
+                          64 * hf, h, q0, it.n);
+              tma_load_4d(qs + L::Q_BYTES + hf * TILE * ROW, &tmdo,
+                          bar(bar_full(s)), 64 * hf, h, q0, it.n);
+            }
+            bulk_load(st, a.stats + row0 + q0, L::STAT_BYTES,
+                      bar(bar_full(s)));
+            bulk_load(st + L::STAT_BYTES, a.stats + nhs + row0 + q0,
+                      L::STAT_BYTES, bar(bar_full(s)));
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: both own the item's 64 kv rows; warpgroup wgi its
+    // queries 32 wgi .. of each tile and head-dim columns 128 wgi .. ----
+    regs_inc<CONSUMER_REGS>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int c = lane % 4;
+    const int row = 16 * warp + lane / 4;  // tile rows row, row + 8
+    const bool cap = a.softcap != 0.f;
+    const uint32_t k_s = base, v_s = base + L::KV_BYTES;
+    int tile = 0;
+    for (int j = 0, w = nth_item(0); w < items; w = nth_item(++j)) {
+      const KvItem it = kv_item<KB>(w, a);
+      const int kp0 = it.k0 + row;  // kv rows kp0, kp0 + 8
+      float dk[D / 4], dv[D / 4], st[16], dpt[16];
+#pragma unroll
+      for (int r = 0; r < D / 4; ++r) dk[r] = dv[r] = 0.f;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) st[r] = dpt[r] = 0.f;
+
+      mbar_wait(bar(bar_item_full(0)), j & 1);
+      for (int hh = 0; hh < a.rep; ++hh) {
+        for (int i = 0; i < it.nt; ++i, ++tile) {
+          const int s = tile % STAGES;
+          const int q0 = it.lo + i * TILE;
+          const int wq0 = q0 + 32 * wgi;  // this warpgroup's first query
+          // a tile hidden from every pair is skipped by both warpgroups
+          const bool skip =
+              it.k0 >= a.T || (a.causal && q0 + TILE - 1 < it.k0) ||
+              (a.has_window && q0 >= it.k0 + KB - 1 + a.window);
+          const uint32_t qs = base + L::Q_OFF + s * 2 * L::Q_BYTES;
+          const uint32_t dos = qs + L::Q_BYTES;
+          const uint32_t sp = base + L::PS_OFF + (tile & 1) * 2 * L::PS_BYTES;
+          const uint32_t sds = sp + L::PS_BYTES;
+          mbar_wait(bar(bar_full(s)), (tile / STAGES) & 1);
+          if (!skip) {
+            // S^T = K . Q^T and dP^T = V . dO^T over this warpgroup's 32
+            // queries, a 64-column half of d at a time
+            fence_regs(st);
+            fence_regs(dpt);
+#pragma unroll
+            for (int hf = 0; hf < D / 64; ++hf) {
+              uint64_t ka[4], qb[4], va[4], dob[4];
+              descs_kmajor<64>(ka, qb, k_s + hf * KB * ROW, 0,
+                               qs + hf * TILE * ROW + 32 * wgi * ROW, 0);
+              descs_kmajor<64>(va, dob, v_s + hf * KB * ROW, 0,
+                               dos + hf * TILE * ROW + 32 * wgi * ROW, 0);
+              fence_regs(ka);
+              fence_regs(qb);
+              fence_regs(va);
+              fence_regs(dob);
+              wgmma_fence();
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+                wgmma_ss_n32(st, ka[kk], qb[kk], hf > 0 || kk > 0);
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+                wgmma_ss_n32(dpt, va[kk], dob[kk], hf > 0 || kk > 0);
+              wgmma_commit();
+            }
+            wgmma_wait<0>();
+            fence_regs(st);
+            fence_regs(dpt);
+
+            // P^T and dS^T into shared memory, the masks only on a block
+            // that hides some pair
+            const float* sl = reinterpret_cast<const float*>(
+                smem_raw + (base - smem_u32(smem_raw)) + L::STAT_OFF +
+                s * 2 * L::STAT_BYTES) + 32 * wgi;
+            const bool full = it.k0 + KB <= a.T && wq0 + 32 <= a.S &&
+                              (!a.causal || it.k0 + KB - 1 <= wq0) &&
+                              (!a.has_window || it.k0 > wq0 + 31 - a.window);
+            dkv_grads_store(!full, cap, st, dpt, sl, sp, sds, a, wq0, kp0,
+                            row, 4 * wgi, c);
+            fence_proxy_async();
+          }
+          // both warpgroups' halves of P^T and dS^T are in
+          bar_sync(1, 128 * CONSUMERS);
+          if (!skip) {
+            // dV += P^T . dO and dK += dS^T . Q: A K-major from the staged
+            // tiles (a k-step is 16 queries, 32 bytes of a row), dO and Q
+            // MN-major over this warpgroup's two 64-column halves
+            uint64_t pa[4], ga[4], ob[4], qb[4];
+#pragma unroll
+            for (int kt = 0; kt < 4; ++kt) {
+              pa[kt] = desc_sw128(sp + kt * 32, 16, 1024);
+              ga[kt] = desc_sw128(sds + kt * 32, 16, 1024);
+            }
+            descs_mnmajor(ob, dos + 2 * wgi * TILE * ROW);
+            descs_mnmajor(qb, qs + 2 * wgi * TILE * ROW);
+            fence_regs(pa);
+            fence_regs(ga);
+            fence_regs(ob);
+            fence_regs(qb);
+            fence_regs(dv);
+            fence_regs(dk);
+            wgmma_fence();
+#pragma unroll
+            for (int kt = 0; kt < 4; ++kt) wgmma_ss_n128_mn(dv, pa[kt], ob[kt]);
+#pragma unroll
+            for (int kt = 0; kt < 4; ++kt) wgmma_ss_n128_mn(dk, ga[kt], qb[kt]);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(dv);
+            fence_regs(dk);
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bar(bar_empty(s)));
+        }
+      }
+      // this item's K and V buffer is free for the next item
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar(bar_item_empty(0)));
+
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kr = kp0 + 8 * e;
+        if (kr >= a.T) continue;
+        const long long off =
+            ((static_cast<long long>(it.n) * a.T + kr) * a.KV + it.kvh) *
+                static_cast<long long>(D) +
+            128 * wgi;
+#pragma unroll
+        for (int jj = 0; jj < D / 16; ++jj) {
+          *reinterpret_cast<__nv_bfloat162*>(a.dk + off + 8 * jj + 2 * c) =
+              __floats2bfloat162_rn(dk[4 * jj + 2 * e], dk[4 * jj + 2 * e + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(a.dv + off + 8 * jj + 2 * c) =
+              __floats2bfloat162_rn(dv[4 * jj + 2 * e], dv[4 * jj + 2 * e + 1]);
+        }
+      }
+    }
+  }
+}
+
+// a dQ or dK/dV kernel of the wgmma route
+using Kernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
+                        Args, int);
+
+// The dynamic shared memory `fn` takes, and the check that ptxas gave its
+// block the registers of the hand-over: setmaxnreg.inc waits for the
+// registers the producer gave back, so with fewer the consumers would wait
+// forever (ptxas sets the count from __launch_bounds__: 168 a thread)
+cudaError_t prepare(Kernel fn, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs * THREADS <
+      128 * PRODUCER_REGS + 128 * CONSUMERS * CONSUMER_REGS)
+    return cudaErrorInvalidConfiguration;
+  return cudaSuccess;
+}
+
+// The stats pass, then the dQ and the dK/dV kernels, each persistent: one
+// block per SM walks its items.  The dQ kernel's items are BLOCK q rows
+// over key tiles of dq_tile rows; the dK/dV kernel's kv_block kv rows over
+// q tiles of TILE rows.
 template <int D>
 cudaError_t launch(const Args& a, const void* q, const void* k,
                    const void* v, const long long (&st)[4][3],
-                   cudaStream_t stream) {
+                   cudaStream_t stream, Kernel dq_fn, size_t dq_smem,
+                   int dq_tile, Kernel kv_fn, size_t kv_smem, int kv_block) {
   const int sms = sm_count();
   if (sms <= 0) return cudaErrorInvalidDevice;
   const int nq = (a.S + BLOCK - 1) / BLOCK;
-  const int nkv = (a.T + BLOCK - 1) / BLOCK;
+  const int nkv = (a.T + kv_block - 1) / kv_block;
   const long long dq_items = static_cast<long long>(nq) * a.H * a.N;
   const long long kv_items = static_cast<long long>(nkv) * a.KV * a.N;
   const long long stat_threads =
@@ -1225,12 +1756,12 @@ cudaError_t launch(const Args& a, const void* q, const void* k,
   if (dq_items > INT_MAX || kv_items > INT_MAX ||
       (stat_threads + 255) / 256 > INT_MAX)
     return cudaErrorInvalidValue;
-  // (q, dO) with boxes of BLOCK rows and (k, v) of TILE rows for dQ; the
-  // other way round for dK/dV
+  // (q, dO) with boxes of BLOCK rows and (k, v) of dq_tile rows for dQ;
+  // (q, dO) of TILE rows and (k, v) of kv_block rows for dK/dV
   CUtensorMap mq[2], mdo[2], mk[2], mv[2];
   cudaError_t err = cudaSuccess;
   for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
-    const int qbox = i == 0 ? BLOCK : TILE, kbox = i == 0 ? TILE : BLOCK;
+    const int qbox = i == 0 ? BLOCK : TILE, kbox = i == 0 ? dq_tile : kv_block;
     err = make_map(&mq[i], q, D, a.H, a.S, a.N, st[0][2], st[0][1],
                    st[0][0], qbox);
     if (err == cudaSuccess)
@@ -1243,42 +1774,38 @@ cudaError_t launch(const Args& a, const void* q, const void* k,
       err = make_map(&mv[i], v, D, a.KV, a.T, a.N, st[2][2], st[2][1],
                      st[2][0], kbox);
   }
+  if (err == cudaSuccess) err = prepare(dq_fn, dq_smem);
+  if (err == cudaSuccess) err = prepare(kv_fn, kv_smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(DqSmem<D>::BYTES));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(KvSmem<D>::BYTES));
-  if (err != cudaSuccess) return err;
-  // setmaxnreg.inc waits for the registers the producer gave back: the
-  // block must be launched with enough of them, or the consumers would wait
-  // forever (ptxas sets the count from __launch_bounds__: 168 a thread)
-  const void* kernels[2] = {
-      reinterpret_cast<const void*>(flash_bwd_dq_wgmma<D>),
-      reinterpret_cast<const void*>(flash_bwd_dkdv_wgmma<D>)};
-  for (const void* fn : kernels) {
-    cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, fn);
-    if (err != cudaSuccess) return err;
-    if (attr.numRegs * THREADS <
-        128 * PRODUCER_REGS + 128 * CONSUMERS * CONSUMER_REGS)
-      return cudaErrorInvalidConfiguration;
-  }
   flash_bwd_stats<D><<<static_cast<unsigned>((stat_threads + 255) / 256), 256,
                        0, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_wgmma<D><<<static_cast<int>(dq_items < sms ? dq_items : sms),
-                          THREADS, DqSmem<D>::BYTES, stream>>>(
-      mq[0], mdo[0], mk[0], mv[0], a, nq);
+  dq_fn<<<static_cast<int>(dq_items < sms ? dq_items : sms), THREADS, dq_smem,
+          stream>>>(mq[0], mdo[0], mk[0], mv[0], a, nq);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_wgmma<D><<<static_cast<int>(kv_items < sms ? kv_items : sms),
-                            THREADS, KvSmem<D>::BYTES, stream>>>(
-      mq[1], mdo[1], mk[1], mv[1], a, nkv);
+  kv_fn<<<static_cast<int>(kv_items < sms ? kv_items : sms), THREADS,
+          kv_smem, stream>>>(mq[1], mdo[1], mk[1], mv[1], a, nkv);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_d(const Args& a, const void* q, const void* k,
+                     const void* v, const long long (&st)[4][3],
+                     cudaStream_t stream) {
+  return launch<D>(a, q, k, v, st, stream, flash_bwd_dq_wgmma<D>,
+                   DqSmem<D>::BYTES, TILE, flash_bwd_dkdv_wgmma<D>,
+                   KvSmem<D>::BYTES, BLOCK);
+}
+
+template <>
+cudaError_t launch_d<256>(const Args& a, const void* q, const void* k,
+                          const void* v, const long long (&st)[4][3],
+                          cudaStream_t stream) {
+  return launch<256>(a, q, k, v, st, stream, flash_bwd_dq_wgmma256,
+                     Dq256Smem::BYTES, TILE256, flash_bwd_dkdv_wgmma256,
+                     Kv256Smem::BYTES, BLOCK256);
 }
 
 }  // namespace wg
@@ -1336,7 +1863,8 @@ extern "C" int flash_attention_bwd_wgmma_launch(
                               {vs0, vs1, vs2},
                               {ds0, ds1, ds2}};
   const cudaStream_t sm = static_cast<cudaStream_t>(stream);
-  if (d == 64) return wg::launch<64>(a, q, k, v, st, sm);
-  if (d == 128) return wg::launch<128>(a, q, k, v, st, sm);
+  if (d == 64) return wg::launch_d<64>(a, q, k, v, st, sm);
+  if (d == 128) return wg::launch_d<128>(a, q, k, v, st, sm);
+  if (d == 256) return wg::launch_d<256>(a, q, k, v, st, sm);
   return cudaErrorInvalidValue;
 }

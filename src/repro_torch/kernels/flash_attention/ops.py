@@ -8,12 +8,13 @@ the kernel of ``csrc/flash_attention.cu`` or raises — there is no fallback.
 The kernel is compiled at first use by :mod:`repro_torch.kernels._build`
 and loaded with ``ctypes``.
 
-The launcher picks one of the source's two kernels by dtype and head dim,
+The launcher picks one of the source's kernels by dtype and head dim,
 which the wrapper first zero-pads up to one of the kernels' instantiations
-(:func:`padded_head_dim`): bf16 at d 64 or 128 runs wgmma fed by TMA (the
-serving path; a 128-byte swizzled row holds 64 bf16, so bf16 head dims
-below 64 pad to 64), and f32 inputs, which are held to 3e-5 (no bf16 or
-TF32 tensor cores), and bf16 at d 256 run the fp32-FMA kernel.
+(:func:`padded_head_dim`): bf16 runs wgmma fed by TMA (at d 64 or 128 one
+kernel, at d 256 its form with a producer warpgroup; a 128-byte swizzled
+row holds 64 bf16, so bf16 head dims below 64 pad to 64), and f32 inputs,
+which are held to 3e-5 (no bf16 or TF32 tensor cores), run the fp32-FMA
+kernel.
 
 ``flash_attention`` is differentiable.  On the card its forward, when a
 gradient is wanted, also writes every row's log-sum-exp (serving never asks
@@ -22,10 +23,10 @@ backward kernel (:func:`flash_attention_bwd`): deterministic, with no
 atomics.  On the CPU autograd differentiates the plain version.
 
 The backward has two routes of ``csrc/flash_attention_bwd.cu``, picked by
-:func:`bwd_route`: bf16 at d 64 or 128 (smaller bf16 head dims padded to
-64) runs wgmma fed by TMA, reading views in place by the forward's rule
-(:func:`_rows_aligned`); f32 inputs, held to 1e-4, and bf16 at d 256 run
-the fp32-FMA kernels on contiguous copies.
+:func:`bwd_route`: bf16 at d 64, 128 or 256 (other bf16 head dims padded as
+the forward pads them) runs wgmma fed by TMA, reading views in place by the
+forward's rule (:func:`_rows_aligned`); f32 inputs, held to 1e-4, run the
+fp32-FMA kernels on contiguous copies.
 """
 from __future__ import annotations
 
@@ -80,7 +81,7 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
 LIBRARY = _build.Library(SOURCE, _bind)
 BWD_LIBRARY = _build.Library(BWD_SOURCE, _bind_bwd)
 # the fp32-FMA backward's instantiated head dims (both dtypes); the wgmma
-# route's are 64 and 128 (bf16)
+# route's are the forward's bf16 ones
 BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
 # the wgmma backward's scratch rows (L log2 e and delta) per (n, head):
 # S rounded up to this
@@ -110,10 +111,10 @@ def _rows_aligned(t: torch.Tensor) -> bool:
 
 def bwd_route(dtype: torch.dtype, d: int) -> tuple[str, int]:
     """The backward kernel that ``dtype`` inputs of head dim ``d`` take and
-    the head dim they are zero-padded to: ``("wgmma", 64 or 128)`` for bf16
-    at d <= 128, else ``("fma", the next of BWD_HEAD_DIMS)`` (f32 is held
-    to 1e-4, which no tensor-core type keeps)."""
-    if dtype == torch.bfloat16 and d <= 128:
+    the head dim they are zero-padded to: ``("wgmma", 64, 128 or 256)`` for
+    bf16, as the forward pads it, and ``("fma", the next of BWD_HEAD_DIMS)``
+    for f32 (held to 1e-4, which no tensor-core type keeps)."""
+    if dtype == torch.bfloat16 and d <= _D_MAX:
         return "wgmma", padded_head_dim(dtype, d)
     return "fma", next(h for h in BWD_HEAD_DIMS if h >= d)
 
@@ -292,7 +293,7 @@ def _backward(q, k, v, out, dout, lse, route: tuple[str, int], causal,
               window, softcap):
     """The backward kernels of ``route`` (``(kind, padded head dim)``, as
     :func:`bwd_route` gives it) on checked, non-empty CUDA tensors.
-    ``("fma", 128)`` also runs bf16 (``chip_smoke.py`` times the fp32-FMA
+    ``("fma", dp)`` also runs bf16 (``chip_smoke.py`` times the fp32-FMA
     kernels beside the wgmma route on the same inputs)."""
     global bwd_launches
     kind, dp = route

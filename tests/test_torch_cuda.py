@@ -27,8 +27,9 @@ float32 and in bfloat16 (both compute in float32 from the same bf16
 values); under the serving model's steep decay, against the plain version
 in float64 (at most twice the f32 plain version's error + 1e-6 max|y|,
 ``chip_smoke.py``'s gate); mamba2's smoke serving path on the card against
-the CPU, as qwen3's.  The flash kernel's wgmma + TMA path (bf16, d 64 and
-128) on ragged lengths, S != T, windows, softcaps and GQA rep 1 to 8.
+the CPU, as qwen3's.  The flash kernel's wgmma + TMA path (bf16, d 64,
+128 and 256) on ragged lengths, S != T, windows, softcaps and GQA rep 1 to
+8.
 
 The flash backward against the plain backward: 1e-4 (f32, the FMA route)
 and 2e-2 (bf16) in the form tol + tol |plain|, two runs bitwise equal; the
@@ -380,9 +381,10 @@ def test_flash_kernel_copies_unaligned_bf16_views(card):
 
 
 # (N, S, T, H, KV, d, causal, window, softcap) on the wgmma + TMA path (bf16,
-# d 64 or 128): lengths that are no multiple of the 128-row q tile or the
-# 64-row kv tile, S != T both ways, a window and a softcap, GQA rep 1, 2, 4
-# and 8, a padded head dim (100 -> 128), more work items than SMs
+# d 64, 128 or 256): lengths that are no multiple of the 128-row q tile or
+# the 64-row kv tile, S != T both ways, a window and a softcap, GQA rep 1,
+# 2, 4 and 8, a padded head dim (100 -> 128, 192 -> 256), more work items
+# than SMs; at d 256 gemma3-1b's heads (4 over 1) and window
 WGMMA_CASES = [
     (2, 200, 200, 8, 8, 128, True, None, None),
     (1, 333, 129, 8, 4, 128, True, None, None),
@@ -390,13 +392,18 @@ WGMMA_CASES = [
     (1, 260, 260, 8, 1, 128, True, 50, 3.0),
     (3, 128, 64, 2, 2, 100, False, 20, None),
     (4, 513, 513, 16, 2, 128, True, None, None),
+    (1, 260, 260, 4, 1, 256, True, 50, 3.0),
+    (2, 333, 129, 4, 4, 256, True, None, None),
+    (2, 77, 301, 8, 2, 256, False, None, None),
+    (3, 130, 130, 4, 1, 192, True, 37, None),
+    (8, 1024, 1024, 4, 1, 256, True, 512, None),
 ]
 
 
 @pytest.mark.parametrize("case", WGMMA_CASES)
 def test_flash_wgmma_path_matches_plain(card, case):
     N, S, T, H, KV, d, causal, window, softcap = case
-    assert fa_ops.padded_head_dim(torch.bfloat16, d) in (64, 128)
+    assert fa_ops.padded_head_dim(torch.bfloat16, d) in (64, 128, 256)
     gen = torch.Generator(device=card).manual_seed(sum(case[:6]))
     q, k, v = (torch.randn(shape, generator=gen, device=card).bfloat16()
                for shape in ((N, S, H, d), (N, T, KV, d), (N, T, KV, d)))
@@ -409,11 +416,12 @@ def test_flash_wgmma_path_matches_plain(card, case):
     assert ((got.float() - want).abs() <= 2e-2 + 2e-2 * want.abs()).all()
 
 
-def test_flash_wgmma_reads_strided_views_in_place(card):
-    """bf16 q/k/v as views of one fused (N, S, 3, H, 128) projection: every
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_wgmma_reads_strided_views_in_place(card, d):
+    """bf16 q/k/v as views of one fused (N, S, 3, H, d) projection: every
     stride is a multiple of 16 bytes, so TMA reads them in place (no copy),
     and the result matches the plain version."""
-    qkv = torch.randn(2, 150, 3, 4, 128, device=card).bfloat16()
+    qkv = torch.randn(2, 150, 3, 4, d, device=card).bfloat16()
     q, k, v = qkv.unbind(2)
     assert all(fa_ops._rows_aligned(t) for t in (q, k, v))
     got = fa_ops.flash_attention(q, k, v, window=40, softcap=4.0)
@@ -1079,11 +1087,45 @@ def test_flash_autograd_launches_the_backward_kernel(card):
                      <= 2e-2 + 2e-2 * b.float().abs()).all())
 
 
+# (N, S, T, H, KV, d, causal, window, softcap) on the wgmma route at d 256
+# (bf16; its own dQ and dK/dV kernels): a window with a softcap, lengths no
+# multiple of the 128-row q item, the 64-row kv item or the 32-row key
+# tile, S != T both ways, GQA rep 1, 2 and 4, a padded head dim (192 ->
+# 256), and more work items than SMs in both kernels (gemma3-1b's heads and
+# window)
+WGMMA_256_BWD_CASES = [(1, 260, 260, 4, 1, 256, True, 50, 3.0),
+                       (2, 333, 129, 4, 4, 256, True, None, None),
+                       (2, 77, 301, 8, 2, 256, False, None, None),
+                       (1, 100, 257, 4, 2, 256, True, None, None),
+                       (3, 130, 130, 4, 1, 192, True, 37, None),
+                       (2, 190, 190, 4, 1, 256, False, None, 5.0),
+                       (16, 600, 600, 4, 1, 256, True, 512, None)]
+
+
+@pytest.mark.parametrize("case", WGMMA_256_BWD_CASES)
+def test_flash_wgmma_backward_at_d256_matches_plain(card, case):
+    """The wgmma backward at d 256 against the plain backward within 2e-2 +
+    2e-2 |plain|, one launch on the wgmma route, two runs bitwise equal."""
+    kw = dict(zip(("causal", "window", "softcap"), case[6:]))
+    assert fa_ops.bwd_route(torch.bfloat16, case[5]) == ("wgmma", 256)
+    q, k, v, dout = _bwd_inputs(case, torch.bfloat16, card)
+    out, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
+    r0 = fa_ops.bwd_route_launches["wgmma"]
+    got = fa_ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    again = fa_ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.bwd_route_launches["wgmma"] == r0 + 2
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
+    _assert_grads_close(got, want, torch.bfloat16)
+    for name, a, c in zip(("dq", "dk", "dv"), got, again):
+        assert torch.equal(a, c), name
+
+
 # (dtype, head dim) -> the route the backward takes (ops.bwd_route)
 FLASH_BWD_ROUTES = [(torch.bfloat16, 128, "wgmma"),
                     (torch.bfloat16, 64, "wgmma"),
                     (torch.bfloat16, 32, "wgmma"),
-                    (torch.bfloat16, 256, "fma"),
+                    (torch.bfloat16, 256, "wgmma"),
                     (torch.float32, 128, "fma")]
 
 
@@ -1112,18 +1154,19 @@ def test_flash_backward_takes_its_route(card, dtype, d, route):
         _assert_grads_close(got, want, dtype)
 
 
-def test_flash_backward_reads_strided_views_in_place(card):
-    """bf16 q/k/v as views of one fused (N, S, 3, H, 128) projection and a
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_backward_reads_strided_views_in_place(card, d):
+    """bf16 q/k/v as views of one fused (N, S, 3, H, d) projection and a
     cotangent that is a view too: the wgmma route reads them through their
     strides (TMA) and agrees with the plain backward; an expanded cotangent
     (stride 0) is copied first."""
-    qkv = torch.randn(2, 150, 3, 4, 128, device=card).bfloat16()
+    qkv = torch.randn(2, 150, 3, 4, d, device=card).bfloat16()
     q, k, v = qkv.unbind(2)
     k, v = k[:, :, :2], v[:, :, :2]
-    douts = torch.randn(2, 150, 2, 4, 128, device=card).bfloat16()
+    douts = torch.randn(2, 150, 2, 4, d, device=card).bfloat16()
     kw = dict(window=40, softcap=4.0)
     out, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
-    for dout in (douts[:, :, 1], douts[0, 0, 0, 0].expand(2, 150, 4, 128)):
+    for dout in (douts[:, :, 1], douts[0, 0, 0, 0].expand(2, 150, 4, d)):
         assert fa_ops._rows_aligned(dout) == (dout.stride(0) != 0)
         got = fa_ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
         want = fa_ref.flash_attention_bwd_ref(q, k, v, dout, **kw)

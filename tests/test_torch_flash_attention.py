@@ -44,6 +44,7 @@ CASES = {
     "ragged_multi_tile_rep4": (2, 129, 129, 8, 2, 64, True, None, None),
     "cross_causal_window": (1, 50, 140, 4, 2, 16, True, 30, None),
     "rows_without_keys": (1, 150, 70, 2, 2, 16, True, 20, None),
+    "gemma3_like_d256_window": (1, 130, 130, 4, 1, 256, True, 37, None),
 }
 DTYPES = {"f32": (torch.float32, jnp.float32, 3e-5),
           "bf16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
@@ -110,9 +111,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 # (dtype, head dim) -> the head dim the wrapper zero-pads it to, which the
-# launcher dispatches on: bf16 at 64 or 128 runs wgmma + TMA (a 128-byte
-# swizzled row holds 64 bf16, so smaller bf16 head dims pad to 64); f32
-# (held to 3e-5) at every d and bf16 at 256 run fp32 FMA
+# launcher dispatches on: bf16 at 64, 128 or 256 runs wgmma + TMA (a
+# 128-byte swizzled row holds 64 bf16, so smaller bf16 head dims pad to
+# 64); f32 (held to 3e-5) at every d runs fp32 FMA
 PADDED = {("bf16", 16): 64, ("bf16", 24): 64, ("bf16", 32): 64,
           ("bf16", 48): 64, ("bf16", 64): 64, ("bf16", 100): 128,
           ("bf16", 128): 128, ("bf16", 200): 256, ("bf16", 256): 256,
@@ -148,13 +149,12 @@ def test_tma_alignment_rule():
 
 
 # (dtype, head dim) -> the backward's route and the head dim it pads to:
-# bf16 up to 128 runs wgmma + TMA (at 64 or 128, as the forward pads); f32
-# (held to 1e-4: no tensor-core type keeps it) and bf16 over 128 run the
-# fp32-FMA kernels
+# bf16 runs wgmma + TMA (at 64, 128 or 256, as the forward pads); f32 (held
+# to 1e-4: no tensor-core type keeps it) runs the fp32-FMA kernels
 BWD_ROUTES = {("bf16", 16): ("wgmma", 64), ("bf16", 32): ("wgmma", 64),
               ("bf16", 64): ("wgmma", 64), ("bf16", 100): ("wgmma", 128),
-              ("bf16", 128): ("wgmma", 128), ("bf16", 200): ("fma", 256),
-              ("bf16", 256): ("fma", 256), ("f32", 16): ("fma", 16),
+              ("bf16", 128): ("wgmma", 128), ("bf16", 200): ("wgmma", 256),
+              ("bf16", 256): ("wgmma", 256), ("f32", 16): ("fma", 16),
               ("f32", 48): ("fma", 64), ("f32", 128): ("fma", 128),
               ("f32", 256): ("fma", 256)}
 
