@@ -189,7 +189,27 @@ exits non-zero:
    timed there at its local (window 512) and global (no window) shapes
    beside SDPA (the window as a boolean mask; ``is_causal`` without one),
    the backward also beside the fp32-FMA route on the same inputs;
-13. a ``kernels:`` line, the kernel table as one JSON line, and as the
+13. the moe family: mixtral-8x22b at full width (d_model 6144, 48/8 heads
+   of 128, 8 experts top-2 of d_ff 16384, vocab 32,768; bf16, tp 4: 2
+   whole experts and 12/2 heads a rank, random weights from seed 0),
+   depth cut to 4 layers, serving one wave of 2 x 6144 tokens (past the
+   4096-token window) through ``examples/serve_lm_torch.py``, captured
+   (flash launches exact: one a layer), its prefill logits through the
+   kernel against the plain version; one wave captured against eager (16
+   decode steps, tokens and logits bitwise equal) and the (token, expert)
+   assignments its prefill's capacity cut dropped; ``moe_block_a2a`` at
+   mixtral's width (8 stacked data ranks x 1024 tokens, one layer's expert
+   weights) under fused/buffered and overlapped/streaming (ordered and
+   unordered, window 2, 512 B chunks), bitwise equal, each timed; the
+   smoke config (f32) on the card against the CPU at its own capacity and
+   with room for every token, and with a shared expert and a dense head
+   layer.  The flash forward is held against its plain version at
+   mixtral's prefill shape (8, 6144, 6144, 12/2 heads, d 128, window 4096)
+   in phase 2, element by element and each row against its own rms (a
+   gate that the window one tile longer or shorter, or no window, must
+   break), and timed there beside SDPA (the window as a boolean mask),
+   its plain version and its bound;
+14. a ``kernels:`` line, the kernel table as one JSON line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and exits non-zero without one, or when the repository
@@ -305,8 +325,8 @@ def kernel_bytes(args, rows) -> int:
     return nbytes
 
 
-def time_ms(fn, flush) -> float:
-    """Median of TIMED_RUNS CUDA-event timings of ``fn``, with the L2 cache
+def time_ms(fn, flush, runs: int = TIMED_RUNS) -> float:
+    """Median of ``runs`` CUDA-event timings of ``fn``, with the L2 cache
     flushed before each run (the main path reads these arrays cold).  A
     sleep kernel ahead of each run lets the host enqueue the flush and the
     timed launch before the card reaches them, so the events time the
@@ -314,7 +334,7 @@ def time_ms(fn, flush) -> float:
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(TIMED_RUNS):
+    for _ in range(runs):
         torch.cuda._sleep(SLEEP_CYCLES)
         flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
@@ -1312,6 +1332,23 @@ FLASH_SERVE = (16, 1024, 1024, 8, 2, 128, True, None, None)
 # global layers see the whole causal prefix
 FLASH_SERVE_GEMMA3 = (16, 1024, 1024, 4, 1, 256, True, 512, None)
 FLASH_SERVE_GEMMA3_GLOBAL = (16, 1024, 1024, 4, 1, 256, True, None, None)
+# mixtral-8x22b's prefill shape: a wave of 2 x 6144 tokens on tp 4 (N = 8
+# stacked sequences), 12 q heads over 2 kv heads a rank, d 128, window
+# 4096; its plain version materialises (8, 12, 6144, 6144) f32 scores
+# (14.5 GB), so it is timed over MIXTRAL_PLAIN_RUNS runs
+FLASH_SERVE_MIXTRAL = (8, 6144, 6144, 12, 2, 128, True, 4096, None)
+MIXTRAL_PLAIN_RUNS = 5
+# past the window a row averages 4096 values, so its outputs are ~1.65 /
+# sqrt(4096) = 0.026, the size of FLASH_TOL's floor: at this shape each
+# (n, query, head) row is also held to its own scale, max|kernel - plain|
+# over the head dim within FLASH_ROW_REL of the row's rms(plain).  On an
+# H100 the kernel's worst row reads 3.53e-2 to 3.55e-2 (bf16 rounding, rows
+# inside and past the window alike); the planted faults, which must each
+# break it, read 2.99 to 3.46 (the window one 64-key tile longer), 2.21 to
+# 2.41 (one tile shorter) and 4.13 to 6.24 (no window)
+FLASH_ROW_REL = 1e-1
+FLASH_ROW_FAULTS = {"window + 64": 4096 + 64, "window - 64": 4096 - 64,
+                    "no window": None}
 FLASH_GRID = [
     (2, 64, 64, 4, 2, 16, True, None, None),
     (2, 100, 77, 4, 4, 32, False, None, None),
@@ -1411,6 +1448,69 @@ def time_flash_gemma3(dev, flush, bw, gen) -> dict:
     return dict(out["local"], **{"global": out["global"]})
 
 
+def flash_mixtral(dev, flush, bw, gen) -> dict:
+    """The forward at mixtral-8x22b's prefill shape (bf16, d 128, causal,
+    window 4096: the wgmma + TMA kernel, tiles outside the window
+    skipped) against its plain version, element by element and row by row
+    (FLASH_ROW_REL, which the planted FLASH_ROW_FAULTS must break), then
+    timed beside it, SDPA (the window as a boolean mask) and its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa, ref
+    case = FLASH_SERVE_MIXTRAL
+    kw = dict(causal=True, window=case[7])
+    q, k, v = flash_inputs(case, torch.bfloat16, gen, dev)
+    want = ref.flash_attention_ref(q, k, v, **kw).float()
+    diff = (fa.flash_attention(q, k, v, **kw).float() - want).abs()
+    tol = FLASH_TOL[torch.bfloat16]
+    err = diff.max().item()
+    check(bool((diff <= tol + tol * want.abs()).all()),
+          f"flash_attention {case} bf16: max|kernel - plain| {err} over "
+          f"{tol} + {tol} |plain|")
+    rms = want.square().mean(-1).sqrt()
+
+    def row_gap(got):
+        return ((got.float() - want).abs().amax(-1) / rms).max().item()
+    row = (diff.amax(-1) / rms).max().item()
+    check(row <= FLASH_ROW_REL,
+          f"flash_attention {case} bf16: a row's max|kernel - plain| {row} "
+          f"of its rms(plain) (bound {FLASH_ROW_REL})")
+    del diff
+    planted = {}
+    for label, window in FLASH_ROW_FAULTS.items():
+        planted[label] = row_gap(fa.flash_attention(q, k, v, causal=True,
+                                                    window=window))
+        check(planted[label] > FLASH_ROW_REL,
+              f"the row gate misses the planted fault ({label}): "
+              f"{planted[label]} of a row's rms")
+    del want, rms
+    _release()
+    lib_args, lib_kw = library_attention(case, q, k, v)
+    res = work_bound(flash_work(case), bw)
+    smi_sample("flash-mixtral")
+    res.update(
+        max_abs_err=err, max_row_rel_err=row, planted_row_rel_err=planted,
+        ms=time_ms(lambda: fa.flash_attention(q, k, v, **kw), flush),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            *lib_args, **lib_kw), flush),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                         flush, MIXTRAL_PLAIN_RUNS))
+    log(f"[flash] mixtral-8x22b prefill shape {case[:6]} bf16 causal, "
+        f"window {case[7]} (wgmma + TMA, d 128): max|kernel - plain| "
+        f"{err:.3e} (tol 2e-2 + 2e-2 |plain|), a row's max|kernel - plain| "
+        f"{row:.3e} of its rms(plain) (bound {FLASH_ROW_REL}; planted "
+        + ", ".join(f"{k} {v:.3e}" for k, v in planted.items())
+        + f", each over it); kernel {res['ms']:.3f} ms, "
+        f"plain {res['plain_ms']:.3f} ms (median of {MIXTRAL_PLAIN_RUNS}), "
+        f"scaled_dot_product_attention (window as a boolean mask) "
+        f"{res['library_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
+        f"({res['bound_by']}); kernel at "
+        f"{100 * res['bound_ms'] / res['ms']:.1f} % of its bound, "
+        f"{res['library_ms'] / res['ms']:.2f}x SDPA's speed")
+    del q, k, v, lib_args
+    _release()
+    return res
+
+
 def check_forward_digests() -> None:
     """The d <= 128 wgmma forward's bits against the digests the card tests
     hold it to (its output and log-sum-exp as they were before the kernel
@@ -1498,6 +1598,9 @@ def phase_flash_kernel(dev, flush, bw) -> dict:
         f"{100 * out['bound_ms'] / k_ms:.1f} % of its bound; the fp32-FMA "
         f"path on f32 inputs of the same shape {f32_ms * 1e3:.2f} us")
     out["gemma3_serving"] = time_flash_gemma3(dev, flush, bw, gen)
+    out["mixtral_serving"] = flash_mixtral(dev, flush, bw, gen)
+    out["max_abs_err"] = max(out["max_abs_err"],
+                             out["mixtral_serving"]["max_abs_err"])
     return out
 
 
@@ -1859,17 +1962,20 @@ def _leaves(tree):
         yield tree
 
 
-def phase_serve_smoke(dev, arch: str, S: int, GEN: int) -> None:
-    """``arch``'s smoke config in f32, tp = 4, on the card and on the CPU
-    from the same weights: greedy tokens over GEN decode steps after an
-    S-token prompt equal; on the card, decode equals prefill of the
-    extended sequence."""
+def phase_serve_smoke(dev, arch: str, S: int, GEN: int, **overrides) -> None:
+    """``arch``'s smoke config in f32 (with ``overrides``), tp = 4, on the
+    card and on the CPU from the same weights: greedy tokens over GEN
+    decode steps after an S-token prompt equal; on the card, decode equals
+    prefill of the extended sequence (an MoE config only where its
+    capacity holds every token: otherwise the prefill's capacity cut drops
+    tokens that a decode step keeps, and the two differ by design)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.config import CommConfig
     from repro_torch.launch import input_specs as isp
     from repro_torch.models import decode as dec, sharding, transformer
     from repro_torch.train import serve as serve_mod
-    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32,
+                              **overrides)
     tp, B = 4, 4
     full = transformer.init_model(0, cfg, tp, "cpu")
     toks = np.random.RandomState(0).randint(0, cfg.vocab_size, (B, S))
@@ -1893,6 +1999,19 @@ def phase_serve_smoke(dev, arch: str, S: int, GEN: int) -> None:
     check(torch.equal(cpu_toks, card_toks),
           f"smoke greedy tokens on the card {card_toks.tolist()} differ from "
           f"the CPU's {cpu_toks.tolist()}")
+    label = f"{cfg.name}" + "".join(f", {k}={v}" for k, v in
+                                    overrides.items())
+    rel_cpu = ((st.last_logits.cpu() - cpu_st.last_logits).abs().max()
+               / cpu_st.last_logits.abs().max()).item()
+    if cfg.family == "moe" and (cfg.capacity_factor * cfg.n_experts_per_tok
+                                < cfg.n_experts):
+        check(rel_cpu <= SMOKE_REL, f"smoke logits: card vs CPU {rel_cpu} "
+              f"(bound {SMOKE_REL})")
+        log(f"[serve] {label} f32 tp {tp}: greedy tokens over {GEN} decode "
+            f"steps after {S} prompt tokens equal on the card and the CPU "
+            f"(capacity cut active); card vs CPU {rel_cpu:.2e} of "
+            f"max|logit|")
+        return
     seq = np.concatenate([toks, card_toks.numpy()], axis=1)
     _, pre = serve_mod.build_serve_fn(
         cfg, tp, CommConfig(), isp.ShapeSpec("s", S + GEN, B, "prefill"),
@@ -1902,12 +2021,10 @@ def phase_serve_smoke(dev, arch: str, S: int, GEN: int) -> None:
           "smoke decode's next token differs from the extended prefill's")
     rel = ((st.last_logits - ext.last_logits).abs().max()
            / ext.last_logits.abs().max()).item()
-    rel_cpu = ((st.last_logits.cpu() - cpu_st.last_logits).abs().max()
-               / cpu_st.last_logits.abs().max()).item()
     check(rel <= SMOKE_REL and rel_cpu <= SMOKE_REL,
           f"smoke logits: decode vs extended prefill {rel}, card vs CPU "
           f"{rel_cpu} (bound {SMOKE_REL})")
-    log(f"[serve] {cfg.name} f32 tp {tp}: greedy tokens over {GEN} decode "
+    log(f"[serve] {label} f32 tp {tp}: greedy tokens over {GEN} decode "
         f"steps after {S} prompt tokens equal on the card and the CPU; "
         f"decode vs prefill of the extended sequence {rel:.2e}, card vs CPU "
         f"{rel_cpu:.2e} of max|logit|")
@@ -3682,7 +3799,7 @@ def serve_dense(dev, arch: str, argv: list) -> dict:
     ``argv``, captured (the main path: the flash counts zeroed just before
     it and read just after; one launch a layer a prefill wave), then one
     wave's prefill logits through the kernel against the plain version
-    (PREFILL_REL of max|logit|)."""
+    (PREFILL_REL of max|logit|).  Lines are tagged by the family."""
     from repro_torch.configs import get_config
     from repro_torch.launch import input_specs as isp, setup
     from repro_torch.models import transformer
@@ -3691,6 +3808,7 @@ def serve_dense(dev, arch: str, argv: list) -> dict:
     args = ex.parser().parse_args(["--arch", arch] + argv)
     cfg = ex.model_config(args)
     comm = ex.COMMS[args.comm]
+    tag = cfg.family
     _release()
     t0 = time.perf_counter()
     sess = setup.build_session(cfg, args.tp, comm, seed=args.seed,
@@ -3698,7 +3816,7 @@ def serve_dense(dev, arch: str, argv: list) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     gb = 1e9
-    first, _ = transformer.dense_layers(sess.params, cfg)[0]
+    first, _ = transformer.attention_layers(sess.params, cfg)[0]
     layer_bytes = sum(t.numel() * t.element_size()
                       for t in _leaves(first)) / gb
     full_layers = get_config(arch).n_layers
@@ -3707,27 +3825,31 @@ def serve_dense(dev, arch: str, argv: list) -> dict:
            f" x {layer_bytes:.2f} GB of bf16 layer weights do not fit one "
            f"80 GB card beside the rest; {cfg.n_layers} keep the phase in "
            f"its time)")
-    log(f"[dense] {arch}: full width (d_model {cfg.d_model}, "
+    log(f"[{tag}] {arch}: full width (d_model {cfg.d_model}, "
         f"{cfg.n_heads} q heads"
         + (f" padded to {cfg.padded_heads}" if cfg.padded_heads else "")
         + f" over {cfg.n_kv_heads} kv, head dim {cfg.resolved_head_dim}, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), {cut}; bf16 weights "
+        f"d_ff {cfg.d_ff}, "
+        + (f"{cfg.n_experts} experts top-{cfg.n_experts_per_tok}, "
+           if cfg.n_experts else "")
+        + f"vocab {cfg.vocab_size}), {cut}; bf16 weights "
         f"from seed {args.seed} initialised on the card in {init_s:.1f} s")
     flash_counts(reset=True)
     out = ex.run(args, log=lambda *_: None, sess=sess)
     launches = flash_counts()["fwd"]
     waves = len(out["prefill_ms"])
     check(launches == out["flash_launches"] == cfg.n_layers * waves,
-          f"[dense] {arch}: flash launches {launches}, want {cfg.n_layers} "
+          f"[{tag}] {arch}: flash launches {launches}, want {cfg.n_layers} "
           f"x {waves} waves")
-    check(out["all_logits_finite"], f"[dense] {arch}: non-finite logits")
-    log(f"[dense] {arch} served captured: {out['requests']} requests, "
+    check(out["all_logits_finite"], f"[{tag}] {arch}: non-finite logits")
+    log(f"[{tag}] {arch} served captured: {out['requests']} requests, "
         f"{out['generated_tokens']} tokens in {out['wall_s']:.2f} s; "
         f"prefill ms per wave {[round(m, 2) for m in out['prefill_ms']]}; "
         f"median decode {out['decode_ms_per_token_median']:.2f} ms/step over "
         f"{out['decode_steps']} steps; peak {out['peak_mem_gb']:.2f} GB; "
         f"flash launches {launches} = {cfg.n_layers} layers x {waves} "
         f"wave(s)")
+    _release()     # the serving run's graphs, before the plain prefill
     toks = np.random.RandomState(1).randint(0, cfg.vocab_size,
                                             (args.batch, args.prompt_len))
     _, pre = serve_mod.build_serve_fn(
@@ -3740,12 +3862,12 @@ def serve_dense(dev, arch: str, argv: list) -> dict:
                            ).last_logits
     gap = ((got - want).abs().max() / want.abs().max()).item()
     check(bool(torch.isfinite(got).all()) and gap <= PREFILL_REL,
-          f"[dense] {arch}: prefill through the kernel vs the plain version "
+          f"[{tag}] {arch}: prefill through the kernel vs the plain version "
           f"{gap} of max|logit| (bound {PREFILL_REL})")
-    log(f"[dense] {arch}: one wave's prefill through the kernel vs the plain"
+    log(f"[{tag}] {arch}: one wave's prefill through the kernel vs the plain"
         f" version: max|dlogit| {gap:.3e} of max|logit| (bound "
         f"{PREFILL_REL})")
-    del sess, pre, got, want
+    del pre, got, want, sess
     _release()
     return dict(launches=launches, waves=waves, gap=gap,
                 prefill_ms=out["prefill_ms"],
@@ -3832,6 +3954,189 @@ def phase_dense_family(dev) -> dict:
     phase_serve_smoke(dev, "gemma3-1b", 24, 8)
     phase_serve_smoke(dev, "command-r-plus-104b", 24, 4)
     phase_serve_smoke(dev, "deepseek-coder-33b", 24, 4)
+    return out
+
+
+# ----------------------------------------------------------------------
+# The moe family: mixtral-8x22b served, moe_block_a2a at its width
+# ----------------------------------------------------------------------
+
+# mixtral-8x22b at full width (bf16, random weights from seed 0, tp 4: 2
+# whole experts and 12/2 heads a rank), depth cut to MIXTRAL_LAYERS (56
+# layers of ~5.0 GB do not fit one card): one wave of 2 x 6144 tokens, past
+# the 4096-token window, then up to 16 decode steps
+MIXTRAL_LAYERS = 4
+MIXTRAL_SERVE_ARGV = ["--layers", str(MIXTRAL_LAYERS), "--tp", "4",
+                      "--batch", "2", "--prompt-len", "6144", "--gen", "16",
+                      "--requests", "2", "--comm", "static"]
+MIXTRAL_DECODE_STEPS = 16
+# moe_block_a2a at mixtral's width: 8 stacked data ranks (one expert a
+# rank), 1024 tokens a rank, one layer's expert weights
+A2A_RANKS, A2A_TOKENS, A2A_RUNS = 8, 1024, 5
+
+
+def wave_drops(params, toks, rt, dev) -> list:
+    """The (token, expert) assignments the capacity cut drops in a prefill
+    wave of ``toks``, by layer: :func:`moe.dropped` of each MoE block's
+    input, the layers run eagerly as the prefill runs them."""
+    from repro_torch.models import attention, layers, moe, transformer
+    cfg = rt.cfg
+    t = torch.as_tensor(toks, device=dev)
+    x = layers.embed(params["embed"], t, rt)
+    pos = transformer.positions_for(t)
+    out = []
+    with torch.no_grad():
+        for p, window in transformer.attention_layers(params, cfg):
+            h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+            x = x + attention.attention(p["attn"], h, pos, rt, window=window)
+            h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+            out.append(int(moe.dropped(p["moe"], h, cfg)[0]))
+            x = x + moe.moe_block(p["moe"], h, rt)[0]
+    return out
+
+
+def mixtral_waves(dev) -> dict:
+    """One wave at the serving example's mixtral shapes on a session built
+    as the example builds it, captured against eager:
+    MIXTRAL_DECODE_STEPS decode steps (the warm-up that captures, then
+    replays), tokens and logits bitwise equal at every step; a replay of
+    the captured prefill timed; the wave's (token, expert) assignments
+    that the capacity cut dropped, counted by :func:`wave_drops`."""
+    from repro_torch.launch import input_specs as isp, setup
+    from repro_torch.models import decode as dec, moe
+    from repro_torch.train import serve as serve_mod
+    ex = load_example("serve_lm_torch")
+    args = ex.parser().parse_args(["--arch", "mixtral-8x22b"]
+                                  + MIXTRAL_SERVE_ARGV)
+    cfg = ex.model_config(args)
+    comm = ex.COMMS[args.comm]
+    sess = setup.build_session(cfg, args.tp, comm, seed=args.seed,
+                               device=dev)
+    S, B, gen = args.prompt_len, args.batch, MIXTRAL_DECODE_STEPS
+    toks = np.random.RandomState(2).randint(0, cfg.vocab_size, (B, S))
+    runs = {}
+    for captured in (False, True):
+        rt, pre = serve_mod.build_serve_fn(
+            cfg, args.tp, comm, isp.ShapeSpec("wave", S, B, "prefill"),
+            cache_capacity=S + gen, device=dev, captured=captured)
+        if not captured:
+            n_drop = wave_drops(sess.params, toks, rt, dev)
+        _, step = serve_mod.build_serve_fn(
+            cfg, args.tp, comm, isp.ShapeSpec("wave", S + gen, B, "decode"),
+            device=dev, captured=captured)
+        st = pre(sess.params, {"tokens": toks})
+        if captured:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = pre(sess.params, {"tokens": toks})
+            torch.cuda.synchronize()
+            replay_ms = (time.perf_counter() - t0) * 1e3
+        out = []
+        for _ in range(gen):
+            nxt = dec.greedy_tokens(st, rt)
+            st = step(sess.params, nxt, st)
+            out.append((nxt.clone(), st.last_logits.clone()))
+        runs[captured] = out
+        del pre, step, st
+        _release()
+    del sess
+    _release()
+    for i, ((te, le), (tc, lc)) in enumerate(zip(runs[False], runs[True])):
+        check(torch.equal(te, tc), f"[moe] decode step {i}: captured tokens "
+              f"{tc.tolist()} differ from eager {te.tolist()}")
+        check(torch.equal(le, lc), f"[moe] decode step {i}: captured logits "
+              f"differ from eager")
+    T = B * S
+    log(f"[moe] {cfg.name}: {gen} captured decode steps (one graph, "
+        f"{gen - 1} replays) bitwise equal to eager, tokens and logits; the "
+        f"wave's {T} tokens x top-{cfg.n_experts_per_tok} = "
+        f"{T * cfg.n_experts_per_tok} assignments a layer at capacity "
+        f"{moe.capacity(cfg, T)} an expert: dropped {n_drop} by layer "
+        f"({sum(n_drop)} in all); a replay of the captured prefill "
+        f"{replay_ms:.1f} ms")
+    return dict(dropped=n_drop, decode_steps=gen, prefill_replay_ms=replay_ms)
+
+
+def phase_moe_a2a(dev) -> dict:
+    """``moe_block_a2a`` at mixtral's width (bf16): A2A_RANKS stacked data
+    ranks, A2A_TOKENS tokens a rank, one layer's expert weights (seed 0,
+    replicated: each rank applies its tree's first expert, as the JAX
+    package's block does); fused/buffered against overlapped/streaming
+    under ordered and unordered transport (window 2, 512 B chunks):
+    outputs and aux bitwise equal; each schedule timed with CUDA events."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import (CommConfig, CommMode, Scheduling,
+                                         Transport)
+    from repro_torch.models import moe
+    from repro_torch.models.common import MeshContext, Runtime
+    cfg = get_config("mixtral-8x22b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    layer = moe.init_moe(gen, cfg, cfg.dtype, dev, 1)
+    params = {k: v.unsqueeze(0).expand(A2A_RANKS, *v.shape)
+              for k, v in layer.items()}
+    x = torch.randn((A2A_RANKS, A2A_TOKENS, cfg.d_model), generator=gen,
+                    device=dev).to(cfg.dtype)
+    scheds = {"fused/buffered": CommConfig(mode=CommMode.BUFFERED,
+                                           scheduling=Scheduling.FUSED)}
+    for t in (Transport.ORDERED, Transport.UNORDERED):
+        scheds[f"overlapped/streaming/{t.value}"] = CommConfig(
+            mode=CommMode.STREAMING, scheduling=Scheduling.OVERLAPPED,
+            transport=t, window=2, chunk_bytes=512)
+    outs, ms = {}, {}
+    for label, comm in scheds.items():
+        rt = Runtime(cfg=cfg, mesh=MeshContext.stacked(1, A2A_RANKS),
+                     comm=comm)
+        with torch.no_grad():
+            outs[label] = moe.moe_block_a2a(params, x, rt)
+            times = []
+            for _ in range(A2A_RUNS):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                moe.moe_block_a2a(params, x, rt)
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b))
+        ms[label] = statistics.median(times)
+    y, aux = outs["fused/buffered"]
+    check(bool(torch.isfinite(y).all()), "[moe-a2a] non-finite output")
+    for label, (y2, aux2) in outs.items():
+        check(torch.equal(y2, y) and torch.equal(aux2, aux),
+              f"[moe-a2a] {label} differs from fused/buffered")
+    cap = max(8, int(cfg.capacity_factor * A2A_TOKENS
+                     * cfg.n_experts_per_tok / cfg.n_experts))
+    log(f"[moe-a2a] moe_block_a2a at mixtral's width: {A2A_RANKS} stacked "
+        f"data ranks x {A2A_TOKENS} tokens, one expert a rank, capacity "
+        f"{cap}; every schedule bitwise equal to fused/buffered (outputs "
+        f"and aux); ms a call (median of {A2A_RUNS}, CUDA events): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    del params, layer, x, outs, y
+    _release()
+    return ms
+
+
+def phase_moe_family(dev) -> dict:
+    """mixtral-8x22b served at full width and cut depth, with one wave
+    captured against eager; ``moe_block_a2a`` at its width; the smoke
+    config and a shared-expert, dense-head variant (f32) on the card
+    against the CPU.  Returns mixtral's serving reading."""
+    out = serve_dense(dev, "mixtral-8x22b", MIXTRAL_SERVE_ARGV)
+    out.update(mixtral_waves(dev))
+    check(out["launches"] == MIXTRAL_LAYERS,
+          f"[moe] flash launches {out['launches']}, want {MIXTRAL_LAYERS}")
+    log(f"[moe] mixtral-8x22b served: prefill {out['prefill_ms'][0]:.1f} ms "
+        f"(the first wave, with its capture; a replay "
+        f"{out['prefill_replay_ms']:.1f} ms), decode "
+        f"{out['decode_ms']:.2f} ms/step, peak {out['peak_gb']:.2f} GB, "
+        f"flash launches {out['launches']}")
+    out["a2a_ms"] = phase_moe_a2a(dev)
+    # the smoke config at its own capacity (tokens drop), and with room for
+    # every token, where decode must equal the prefill of the extended
+    # sequence; then the shared expert and a dense head layer
+    phase_serve_smoke(dev, "mixtral-8x22b", 24, 16)
+    phase_serve_smoke(dev, "mixtral-8x22b", 24, 16, capacity_factor=2.0)
+    phase_serve_smoke(dev, "mixtral-8x22b", 24, 16, capacity_factor=2.0,
+                      n_shared_experts=1, n_dense_layers=1)
     return out
 
 
@@ -4088,7 +4393,11 @@ def main() -> int:
     gemma3_train = dense.pop("gemma3-1b training")["counts"]
     lap("12")
 
-    # -- 13. summary ---------------------------------------------------
+    # -- 13. the moe family -------------------------------------------
+    mixtral = phase_moe_family(dev)
+    lap("13")
+
+    # -- 14. summary ---------------------------------------------------
     log(f"kernels: swe_step launches={main_launches} "
         + " ".join(f"{k}={v}" for k, v in launches_by_mode.items())
         + f"; swe_step launches={elastic_launches} (elastic runs)"
@@ -4118,7 +4427,9 @@ def main() -> int:
         + f"; flash_attention launches={gemma3_train['fwd']} (gemma3-1b "
         f"training), flash_attention_bwd launches={gemma3_train['bwd']} "
         f"(gemma3-1b training, {gemma3_train['bwd_wgmma']} on the wgmma "
-        f"route)")
+        f"route)"
+        + f"; flash_attention launches={mixtral['launches']} (mixtral-8x22b "
+        f"serving)")
     full, boundary = timings["full pass"], timings["boundary rows"]
     rows = [{
         "name": "swe_step", "route": "cuda",
@@ -4155,6 +4466,7 @@ def main() -> int:
         "dense_family_serving_launches": {k: d["launches"]
                                           for k, d in dense.items()},
         "gemma3_training_launches": gemma3_train["fwd"],
+        "moe_serving_launches": {"mixtral-8x22b": mixtral["launches"]},
         "routes": {"bf16, d 64 and 128": "wgmma + TMA "
                    "(flash_attention_wgmma_kernel)",
                    "bf16, d 256": "wgmma + TMA, a producer warpgroup "

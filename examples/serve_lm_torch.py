@@ -1,6 +1,6 @@
 """Continuous-batching LM serving on the PyTorch port: waves of requests
 arriving mid-flight, greedy decode on the sequence-sharded KV cache (dense
-family) or the fixed-size SSM state (ssm family), all tensor-parallel ranks
+and moe families) or the fixed-size SSM state (ssm family), all tensor-parallel ranks
 stacked on one CUDA card.
 
 Requests arrive on a seeded schedule while earlier waves are still
@@ -31,6 +31,9 @@ Run:  PYTHONPATH=src python examples/serve_lm_torch.py            # card
           --prompt-len 1024                # 5:1 local/global, window 512
       PYTHONPATH=src python examples/serve_lm_torch.py \
           --arch command-r-plus-104b --layers 4 --prompt-len 1024
+      PYTHONPATH=src python examples/serve_lm_torch.py \
+          --arch mixtral-8x22b --layers 4 --tp 4 --batch 2 \
+          --prompt-len 6144 --gen 16 --requests 2   # 8 experts, top-2
       PYTHONPATH=src python examples/serve_lm_torch.py --smoke --device cpu
       PYTHONPATH=src python examples/serve_lm_torch.py --smoke --device cpu \
           --comm auto --tune-db db.json --expect-plan-hits
@@ -38,7 +41,7 @@ Run:  PYTHONPATH=src python examples/serve_lm_torch.py            # card
 Without ``--smoke`` the model is the full-width configuration (bf16,
 random weights from ``--seed``), ``--layers`` deep when given (a 104B
 model does not fit one card: command-r-plus-104b's layers are ~3.1 GB
-each).  ``--arch`` takes every registered architecture whose family the
+each, mixtral-8x22b's ~5.0 GB).  ``--arch`` takes every registered architecture whose family the
 port runs.  The ssm family's ``--prompt-len`` must
 be a multiple of its chunk (``ssm_chunk``: 128 at full width, 16 in the
 smoke config): the SSD scan takes whole chunks, and no padding is done.

@@ -1,12 +1,14 @@
-"""Serving path of the dense and ssm families: prefill (build caches) and
-single-token decode, on stacked tensor-parallel ranks.
+"""Serving path of the dense, moe and ssm families: prefill (build caches)
+and single-token decode, on stacked tensor-parallel ranks.
 
-Caches carry a leading layer axis.  The dense family's are
+Caches carry a leading layer axis.  The dense and moe families' are
 ``KVCache(k (L, P, B, S_shard, KV, hd), ...)`` in layer order
-(:func:`repro_torch.models.transformer.dense_layers`: under local/global
-attention each block's local layers, its global layer, then the trailing
-layers, all sharing one length; the JAX package nests them as
-``{"blocks": {"local", "global"}, "trailing"}``), every cache
+(:func:`repro_torch.models.transformer.attention_layers`: under
+local/global attention each block's local layers, its global layer, then
+the trailing layers; in the moe family the dense head, then the MoE
+layers; all sharing one length; the JAX package nests them as
+``{"blocks": {"local", "global"}, "trailing"}`` and ``{"dense",
+"moe"}``), every cache
 **sequence-sharded over the model axis**: row ``p`` holds positions
 ``[p·S_shard, (p+1)·S_shard)`` of every layer, and decode's partial
 attention combines via two small ACCL-X all-reduces (the LSE trick).  The
@@ -29,9 +31,9 @@ from typing import NamedTuple, Union
 
 import torch
 
-from repro_torch.models import attention, layers, ssm
+from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.common import Runtime
-from repro_torch.models.transformer import (dense_layers, layer_params,
+from repro_torch.models.transformer import (attention_layers, layer_params,
                                             positions_for,
                                             require_ported_family)
 
@@ -50,27 +52,29 @@ def layer_cache(caches: attention.KVCache, i: int) -> attention.KVCache:
                              length=caches.length)
 
 
-def _prefill_dense(p, x, positions, rt: Runtime, cache, window=None):
-    cfg = rt.cfg
-    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+def _ffn(p, x, rt: Runtime):
+    """The layer's feed-forward on ``x``: its MoE block (the load-balance
+    loss dropped) or its MLP."""
+    h = layers.rms_norm(x, p["ln2"], rt.cfg.norm_eps)
+    if "moe" in p:
+        return x + moe.moe_block(p["moe"], h, rt)[0]
+    return x + layers.mlp(p["mlp"], h, rt, rt.cfg.mlp_type)
+
+
+def _prefill_layer(p, x, positions, rt: Runtime, cache, window=None):
+    h = layers.rms_norm(x, p["ln1"], rt.cfg.norm_eps)
     a, (k, v) = attention.attention(p["attn"], h, positions, rt,
                                     window=window, return_kv=True)
-    x = x + a
-    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + layers.mlp(p["mlp"], h, rt, cfg.mlp_type)
+    x = _ffn(p, x + a, rt)
     attention.prefill_into_cache(cache, k, v, rt)
     return x
 
 
-def _decode_dense(p, x, cache, rt: Runtime, window=None):
-    cfg = rt.cfg
-    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+def _decode_layer(p, x, cache, rt: Runtime, window=None):
+    h = layers.rms_norm(x, p["ln1"], rt.cfg.norm_eps)
     a, cache = attention.decode_attention(p["attn"], h, cache, rt,
                                           window=window)
-    x = x + a
-    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + layers.mlp(p["mlp"], h, rt, cfg.mlp_type)
-    return x, cache
+    return _ffn(p, x + a, rt), cache
 
 
 def init_state(params, rt: Runtime, batch: int, max_len: int,
@@ -135,8 +139,8 @@ def prefill(params, batch: dict, rt: Runtime, max_len: int,
             caches.h[i].copy_(hstate)
     else:
         positions = positions_for(tokens)
-        for i, (p, window) in enumerate(dense_layers(params, cfg)):
-            x = _prefill_dense(p, x, positions, rt, layer_cache(caches, i),
+        for i, (p, window) in enumerate(attention_layers(params, cfg)):
+            x = _prefill_layer(p, x, positions, rt, layer_cache(caches, i),
                                window)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     last = layers.logits_shard(params["embed"], x[:, :, -1], rt)
@@ -164,8 +168,8 @@ def decode_step(params, token: torch.Tensor, state: ServeState, rt: Runtime
             caches.conv[i].copy_(new.conv)
             caches.h[i].copy_(new.h)
     else:
-        for i, (p, window) in enumerate(dense_layers(params, cfg)):
-            x, _ = _decode_dense(p, x, layer_cache(caches, i), rt, window)
+        for i, (p, window) in enumerate(attention_layers(params, cfg)):
+            x, _ = _decode_layer(p, x, layer_cache(caches, i), rt, window)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = layers.logits_shard(params["embed"], x[:, :, -1], rt)
     return _store(state, logits, state.length + 1)

@@ -181,6 +181,26 @@ def tp_grad_sum(x: torch.Tensor, rt: Runtime, enable: bool = True
     return x
 
 
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct * ctx.s, None
+
+
+def scale_grad(x: torch.Tensor, s: float) -> torch.Tensor:
+    """Identity forward; scales the cotangent by ``s`` in backward.
+
+    For a loss computed the same way on every TP rank (the MoE aux loss):
+    gradients are summed over the model axis at sync time, so a path that
+    every rank computes identically pre-scales its cotangent by 1/tp."""
+    return _ScaleGrad.apply(x, s)
+
+
 def col_parallel(x: torch.Tensor, w_shard: torch.Tensor) -> torch.Tensor:
     """Replicated x @ column-sharded w -> feature-sharded output (no
     comm)."""
@@ -328,11 +348,13 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, mlp_type: str,
 
 
 def mlp(params, x: torch.Tensor, rt: Runtime, mlp_type: str,
-        sp: bool = False) -> torch.Tensor:
+        sharded: Optional[bool] = None, sp: bool = False) -> torch.Tensor:
     """``sp=True``: x arrives sequence-sharded; all-gather in,
     reduce-scatter out (Megatron-SP).  Otherwise x is replicated and the
-    *f* operator applies."""
-    sharded = bool(rt.cfg.d_ff) and rt.cfg.d_ff % rt.mesh.tp == 0
+    *f* operator applies.  ``sharded`` (default: ``d_ff`` divides by
+    ``tp``) says whether the hidden dim is cut over the model ranks."""
+    if sharded is None:
+        sharded = bool(rt.cfg.d_ff) and rt.cfg.d_ff % rt.mesh.tp == 0
     sp = sp and sharded and rt.mesh.tp > 1
     x = sp_all_gather(x, rt) if sp else tp_grad_sum(x, rt, sharded)
     up = col_parallel(x, params["w_up"])

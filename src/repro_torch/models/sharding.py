@@ -1,8 +1,8 @@
 """Parameter sharding rules of the LM path — one source of truth.
 
 ``param_specs`` gives every leaf of a full (global) parameter tree its
-tensor-parallel spec, the JAX package's ``_base_spec`` rules for the dense
-and ssm leaves; ``shard_params`` cuts the full arrays into per-rank shards
+tensor-parallel spec, the JAX package's ``_base_spec`` rules for the dense,
+moe and ssm leaves; ``shard_params`` cuts the full arrays into per-rank shards
 stacked on a rank dimension, and ``unshard_params`` puts them back together.
 ``from_reference`` is the weight carrier from the JAX package: its
 parameters as numpy arrays (``jax.device_get`` of a ``build_session``
@@ -15,6 +15,9 @@ TP rules (model axis), with ``tp`` the stacked rank count:
   attn wo            (Heff*hd, D)   -> ('model', None)   row-parallel
   mlp w_up/w_gate    (D, F)         -> (None, 'model')
   mlp w_down         (F, D)         -> ('model', None)
+  moe router         (D, E)         -> replicated
+  moe w_gate/w_up/w_down (tp, e_loc, a, b) -> ('model', None, None, None)
+                                       (flattened EP: one slice a rank)
   ssm w_z/w_x        (D, d_inner)   -> (None, 'model') if ssm heads shard
   ssm conv_x         (W, d_inner)   -> (None, 'model') if ssm heads shard
   ssm w_out          (d_inner, D)   -> ('model', None) if ssm heads shard
@@ -26,7 +29,10 @@ two under ``blocks/local`` (``(n_blocks, r, ...)``: ``r`` local layers a
 super-block); its shards are laid out ``(*stack, P, ...)`` so that layer
 ``i``'s view is a stacked ``(P, ...)`` tensor.  On a ``(data, model)``
 mesh ``P = dp · tp`` and row ``p`` holds model shard ``p % tp``; every
-data rank holds a copy of the ``tp`` shards.
+data rank holds a copy of the ``tp`` shards.  An MoE expert leaf's body
+dim 0 *is* the model dim, of size ``tp``: its shards are ``(*stack, P, 1,
+e_loc, a, b)`` (:mod:`repro_torch.models.moe` reads them so), and a tree
+built at another ``tp`` is refused.
 
 FSDP (``build_fsdp_plan``, ``apply_fsdp``): each layer-stack weight takes
 a ``data`` factor on the first body dim that can carry it
@@ -70,6 +76,12 @@ def _n_stack_dims(names: list[str]) -> int:
     return n
 
 
+def _is_expert(names) -> bool:
+    """An MoE expert leaf: ``(tp, e_loc, a, b)`` in the full tree."""
+    return len(names) >= 2 and names[-2] == "moe" and names[-1] in (
+        "w_gate", "w_up", "w_down")
+
+
 def _base_spec(names: list[str], cfg: ModelConfig, tp: int):
     """TP spec entries for the unstacked (body) dims, or None =
     replicated."""
@@ -80,6 +92,10 @@ def _base_spec(names: list[str], cfg: ModelConfig, tp: int):
     if leaf == "table":
         return ("model", None) if tp > 1 and cfg.vocab_size % tp == 0 \
             else (None, None)
+    if leaf == "router":
+        return (None, None)
+    if _is_expert(names):
+        return ("model", None, None, None) if tp > 1 else (None,) * 4
     if leaf == "wq":
         return (None, "model") if dims.q_sharded else (None, None)
     if leaf in ("wk", "wv"):
@@ -229,9 +245,10 @@ def grad_model_sum_mask(params: Any, cfg: ModelConfig, tp: int,
     time: parameters stored replicated but *used* shardwise (each rank
     back-propagates only the slice it consumed) — replicated-KV weights
     under head-sharded attention, the q/k norms of sharded heads, the
-    sliced SSM scalars, and under Megatron-SP the block norms, which run
-    on sequence shards (SP is off under local/global attention, whose
-    stack runs the plain block)."""
+    sliced SSM scalars, the MoE router (each rank back-propagates the
+    gates of its own experts), and under Megatron-SP the block norms,
+    which run on sequence shards (SP is off under local/global attention,
+    whose stack runs the plain block)."""
     dims = attention.attn_dims(cfg, tp)
     _, ssm_sharded = ssm.ssm_dims(cfg, tp)
     sp_active = (seq_parallel and tp > 1 and dims.q_sharded
@@ -252,6 +269,8 @@ def grad_model_sum_mask(params: Any, cfg: ModelConfig, tp: int,
             return 1
         if ssm_sharded and parent == "ssm" and leaf_name in (
                 "w_B", "w_C", "w_dt", "A_log", "D", "dt_bias", "norm"):
+            return 1
+        if leaf_name == "router":
             return 1
         return 0
     return _map(mask_of, params)
@@ -301,10 +320,15 @@ def shard_params(params: Any, cfg: ModelConfig, tp: int, device=None,
 
     def cut(names, leaf):
         leaf = leaf.to(device) if device is not None else leaf
+        n_stack = _n_stack_dims(names)
+        if _is_expert(names) and leaf.shape[n_stack] != tp:
+            raise ValueError(f"{'/'.join(names)}: {tuple(leaf.shape)} is an "
+                             f"expert stack built at tp="
+                             f"{leaf.shape[n_stack]}, not {tp}")
         spec = _spec(names, tuple(leaf.shape), cfg, tp, fsdp_dp, fsdp_dp > 1)
         return torch.stack([_piece(leaf, spec, p % tp, (p // tp) % fsdp_dp,
                                    tp, fsdp_dp, names) for p in range(P)],
-                           dim=_n_stack_dims(names))
+                           dim=n_stack)
     return _map(cut, params)
 
 
@@ -337,7 +361,9 @@ _TORCH_FLOATS = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def from_reference(np_params: Any, cfg: ModelConfig, tp: int, device=None,
                    dp: int = 1, fsdp_dp: int = 1):
     """The JAX package's parameter tree (numpy arrays; ``layers``, or
-    gemma3's ``blocks/{local,global}`` and ``trailing``) -> the port's
+    gemma3's ``blocks/{local,global}`` and ``trailing``, or the moe
+    family's ``layers`` and ``dense_layers``; an MoE tree built at the same
+    ``tp``, its expert layout depending on it) -> the port's
     stacked per-rank shards on ``device`` (FSDP leaves cut over ``fsdp_dp``
     data ranks), each leaf in its own float type (the SSM layer's ``A_log``,
     ``D`` and ``dt_bias`` stay float32 under a bf16 config, as in the JAX

@@ -1,7 +1,7 @@
 """Model assembly for the dense (qwen3, command-r, deepseek-coder, and
-gemma3's 5:1 local/global attention) and ssm (mamba2) families:
-initialisation, the full forward pass (training and prefill logits) and the
-training loss, on stacked ranks.
+gemma3's 5:1 local/global attention), moe (mixtral) and ssm (mamba2)
+families: initialisation, the full forward pass (training and prefill
+logits) and the training loss, on stacked ranks.
 
 The JAX package scans its stacked layers with ``lax.scan``; here the
 per-layer loop is a Python loop over views of the stacked weights.  Under
@@ -9,9 +9,11 @@ FSDP each layer's weights are gathered inside the recomputed block, so
 one layer is materialized at a time in the forward and again in the
 backward.  Under ``local_global_ratio = r`` the stack is the JAX
 package's: ``blocks`` of ``r`` windowed local layers and one global layer
-(one recomputed unit each), then the ``trailing`` windowed layers.
-The other families (MoE, MLA, hybrid, VLM, audio) come with later slices
-and raise here.
+(one recomputed unit each), then the ``trailing`` windowed layers.  The
+moe family runs its leading ``dense_layers`` (unwindowed) and then its
+MoE ``layers`` at ``cfg.sliding_window``, one recomputed unit each that
+carries the layer's load-balance loss.  The other families (MLA, hybrid,
+VLM, audio) come with later slices and raise here.
 """
 from __future__ import annotations
 
@@ -23,18 +25,18 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers, sharding, ssm
+from repro_torch.models import attention, layers, moe, sharding, ssm
 from repro_torch.models.common import ModelConfig, Runtime
 
 
 def require_ported_family(cfg: ModelConfig) -> None:
     """Raise unless the port runs ``cfg``'s family: dense (local/global
-    attention included) without MLA, or ssm."""
-    dense = cfg.family == "dense" and not cfg.use_mla
-    if not dense and cfg.family != "ssm":
+    attention included) or moe, without MLA, or ssm."""
+    if cfg.use_mla or cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
-            f"the port runs the dense and ssm families so far, not "
-            f"{cfg.name} ({cfg.family}); see ROADMAP.md Queue 1 item 7")
+            f"the port runs the dense, moe (without MLA) and ssm families "
+            f"so far, not {cfg.name} ({cfg.family}"
+            + (", MLA" if cfg.use_mla else "") + "); see ROADMAP.md Queue 1")
 
 
 def layer_params(stacked: Any, i: int) -> Any:
@@ -51,11 +53,19 @@ def local_global_counts(cfg: ModelConfig) -> tuple[int, int]:
     return cfg.n_layers // blk, cfg.n_layers % blk
 
 
-def dense_layers(params, cfg: ModelConfig):
-    """Every dense layer's weights (views) with its attention window, in
-    layer order: ``layers`` at ``cfg.sliding_window``, or under local/global
-    attention each block's local layers (windowed) and global layer (no
-    window), then the trailing layers (windowed)."""
+def attention_layers(params, cfg: ModelConfig):
+    """Every attention layer's weights (views) with its attention window,
+    in layer order: ``layers`` at ``cfg.sliding_window``; under
+    local/global attention each block's local layers (windowed) and global
+    layer (no window), then the trailing layers (windowed); in the moe
+    family the ``dense_layers`` head (no window), then the MoE ``layers``
+    (windowed).  A layer's feed-forward is an MoE block where it holds
+    ``moe``, else its ``mlp``."""
+    if cfg.family == "moe":
+        return ([(layer_params(params["dense_layers"], i), None)
+                 for i in range(cfg.n_dense_layers)]
+                + [(layer_params(params["layers"], i), cfg.sliding_window)
+                   for i in range(cfg.n_layers - cfg.n_dense_layers)])
     if not cfg.local_global_ratio:
         return [(layer_params(params["layers"], i), cfg.sliding_window)
                 for i in range(cfg.n_layers)]
@@ -83,6 +93,16 @@ def init_dense_layer(gen: torch.Generator, cfg: ModelConfig, tp: int,
         "ln2": torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device),
         "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type,
                                cfg.dtype, device),
+    }
+
+
+def init_moe_layer(gen: torch.Generator, cfg: ModelConfig, tp: int,
+                   device) -> dict:
+    return {
+        "ln1": torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device),
+        "attn": attention.init_attention(gen, cfg, cfg.dtype, device, tp),
+        "ln2": torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device),
+        "moe": moe.init_moe(gen, cfg, cfg.dtype, device, tp),
     }
 
 
@@ -122,7 +142,10 @@ def init_model(seed: int, cfg: ModelConfig, tp: int = 1, device=None):
     stacked ``(n_layers, ...)``; under local/global attention ``blocks``
     with ``local`` leaves ``(n_blocks, r, ...)`` and ``global`` leaves
     ``(n_blocks, ...)``, and ``trailing`` ``(n_trailing, ...)`` when the
-    depth leaves any), drawn from ``torch.Generator(seed)`` on ``device``
+    depth leaves any; in the moe family ``layers`` of the ``n_layers -
+    n_dense_layers`` MoE layers, expert leaves in the flattened layout of
+    ``tp`` (:func:`repro_torch.models.moe.init_moe`), and ``dense_layers``
+    when the config has a dense head), drawn from ``torch.Generator(seed)`` on ``device``
     in layer order.  The JAX package draws other numbers from the same
     seed: to run both on the same weights, take the JAX package's
     parameters through ``sharding.from_reference``.  ``device`` defaults to
@@ -143,6 +166,13 @@ def init_model(seed: int, cfg: ModelConfig, tp: int = 1, device=None):
 
     def dense():
         return init_dense_layer(gen, cfg, tp, device)
+    if cfg.family == "moe":
+        params["layers"] = _stack(lambda: init_moe_layer(gen, cfg, tp,
+                                                         device),
+                                  (cfg.n_layers - cfg.n_dense_layers,))
+        if cfg.n_dense_layers:
+            params["dense_layers"] = _stack(dense, (cfg.n_dense_layers,))
+        return params
     if not cfg.local_global_ratio:
         params["layers"] = _stack(dense, (cfg.n_layers,))
         return params
@@ -179,6 +209,15 @@ def dense_block_sp(p, x_s, positions, rt: Runtime, window=None):
     return x_s + layers.mlp(p["mlp"], h, rt, cfg.mlp_type, sp=True)
 
 
+def moe_layer(p, x, positions, rt: Runtime, window=None):
+    """Attention, then the MoE block: ``(x, aux (P,))``."""
+    h = layers.rms_norm(x, p["ln1"], rt.cfg.norm_eps)
+    x = x + attention.attention(p["attn"], h, positions, rt, window=window)
+    h = layers.rms_norm(x, p["ln2"], rt.cfg.norm_eps)
+    y, aux = moe.moe_block(p["moe"], h, rt)
+    return x + y, aux
+
+
 def ssm_block(p, x, rt: Runtime):
     return x + ssm.ssm_forward(p["ssm"], layers.rms_norm(x, p["ln"],
                                                          rt.cfg.norm_eps), rt)
@@ -186,6 +225,7 @@ def ssm_block(p, x, rt: Runtime):
 
 class ForwardOut(NamedTuple):
     logits: torch.Tensor     # vocab-sharded (P, B, S, V/tp), f32
+    aux_loss: torch.Tensor   # (P,) f32: the MoE load-balance loss (0 else)
 
 
 def positions_for(tokens: torch.Tensor) -> torch.Tensor:
@@ -266,6 +306,30 @@ def _local_global_stack(params, x, positions, rt: Runtime, train: bool):
     return x
 
 
+def _moe_stack(params, x, positions, rt: Runtime, train: bool):
+    """The moe family's stack: the ``dense_layers`` head unwindowed (not
+    recomputed, as in the JAX package), then each MoE layer at the sliding
+    window as one recomputed unit, its FSDP gather inside it, carrying its
+    load-balance loss: ``(x, aux summed over the layers (P,))``."""
+    cfg = rt.cfg
+    dplan = sharding.subplan(rt.fsdp_plan, "dense_layers")
+    mplan = sharding.subplan(rt.fsdp_plan, "layers")
+    for i in range(cfg.n_dense_layers):
+        p = sharding.apply_fsdp(layer_params(params["dense_layers"], i),
+                                dplan, rt)
+        x = dense_block(p, x, positions, rt, window=None)
+
+    def unit(p, h):
+        return moe_layer(sharding.apply_fsdp(p, mplan, rt), h, positions, rt,
+                         window=cfg.sliding_window)
+    blk = _maybe_remat(unit, rt, train)
+    aux = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers - cfg.n_dense_layers):
+        x, a = blk(layer_params(params["layers"], i), x)
+        aux = aux + a
+    return x, aux
+
+
 def _layer_stack(params, x, positions, rt: Runtime, train: bool):
     """The ``layers`` stack: one recomputed block a layer, its FSDP gather
     inside the block; dense blocks under Megatron-SP when it applies."""
@@ -305,17 +369,24 @@ def forward(params, batch: dict, rt: Runtime, train: bool = False
     tokens = batch["tokens"]
     x = layers.embed(params["embed"], tokens, rt)
     positions = positions_for(tokens[0] if tokens.dim() == 3 else tokens)
-    stack = _local_global_stack if cfg.local_global_ratio else _layer_stack
-    x = stack(params, x, positions, rt, train)
+    if cfg.family == "moe":
+        x, aux = _moe_stack(params, x, positions, rt, train)
+    else:
+        stack = (_local_global_stack if cfg.local_global_ratio
+                 else _layer_stack)
+        x = stack(params, x, positions, rt, train)
+        aux = torch.zeros((x.shape[0],), dtype=torch.float32,
+                          device=x.device)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return ForwardOut(logits=layers.logits_shard(params["embed"], x, rt))
+    return ForwardOut(logits=layers.logits_shard(params["embed"], x, rt),
+                      aux_loss=aux)
 
 
 def loss_fn(params, batch: dict, rt: Runtime):
     """Every row's training loss ``(P,)`` (the mean cross-entropy of its
-    data rank's batch; equal across a model group) and its parts."""
+    data rank's batch, plus ``0.01 ·`` the MoE load-balance loss; equal
+    across a model group) and its parts."""
     out = forward(params, batch, rt, train=True)
     ce = layers.cross_entropy_vocab_sharded(out.logits, batch["labels"], rt,
                                             batch.get("loss_mask"))
-    aux = torch.zeros_like(ce)
-    return ce, {"ce": ce, "aux": aux}
+    return ce + 0.01 * out.aux_loss, {"ce": ce, "aux": out.aux_loss}

@@ -86,10 +86,11 @@ SWEEPABLE = ("sendrecv", "all_reduce", "all_gather", "reduce_scatter",
 # recorded as its own TuneEntry (tagged ``TuneEntry.consumer``) so
 # ``select_config(consumer=...)`` can answer per phase.  The first consumer
 # in each tuple is the primary one — the one the pruning model predicts
-# with.  all_to_all's consumer (the MoE loop) comes with the MoE family.
+# with.
 CONSUMERS: dict[str, tuple[str, ...]] = {
     "all_reduce": ("row_parallel", "decode_step", "prefill"),
     "multi_neighbor": ("halo_fold",),
+    "all_to_all": ("moe_loop",),
 }
 
 # row_parallel consumer geometry: the reduced output is (tokens, _ROWPAR_D)
@@ -97,6 +98,10 @@ CONSUMERS: dict[str, tuple[str, ...]] = {
 # contracts over _ROWPAR_FF features.
 _ROWPAR_D = 64
 _ROWPAR_FF = 128
+# moe_loop consumer geometry: a (tokens, _MOE_D) dispatch payload with
+# tokens*_MOE_D*4 = msg_bytes; each expert's FFN expands to _MOE_FF.
+_MOE_D = 32
+_MOE_FF = 64
 # decode_step consumer geometry: a (batch, _DEC_D) per-token activation with
 # batch*_DEC_D*4 = msg_bytes; the per-step matmul contracts over _DEC_D —
 # almost nothing to hide the combines behind.
@@ -133,6 +138,9 @@ def consumer_flops(collective: str, msg_bytes: int,
     if collective == "multi_neighbor":
         # elementwise interior update over the state (~12 flops/element)
         return 12.0 * (msg_bytes / 4.0)
+    if collective == "all_to_all":
+        # expert FFN: two matmuls (D->FF, FF->D) over tokens*D = msg/4 elems
+        return 4.0 * _MOE_FF * (msg_bytes / 4.0)
     return 0.0
 
 
@@ -332,6 +340,31 @@ def _build_consumer_op(collective: str, comm, cfg: CommConfig,
             return torch.tanh(h + 1e-3 * y.sum(-1, keepdim=True))
 
         return op, (tokens, _ROWPAR_FF)
+
+    if collective == "all_to_all" and consumer == "moe_loop":
+        # MoE expert loop: dispatch (all_to_all) -> expert FFN -> combine
+        # (all_to_all back).  The FFN is the hideable compute: the chunked
+        # overlapped dispatch and combine (streaming.chunked_all_to_all)
+        # let the expert matmuls of chunk i run while chunk i+1 is on the
+        # wire.
+        tokens = max(n, msg_bytes // 4 // _MOE_D)
+        tokens += (-tokens) % n              # all_to_all split constraint
+        # both weights drawn in turn from one RandomState(1), as the
+        # reference draws them
+        rng = np.random.RandomState(1)
+        dev = resolve_device(device)
+        w1, w2 = (torch.from_numpy((rng.randn(*shape) * 0.05).astype(
+            np.float32)).to(dev).expand(n, *shape)
+            for shape in ((_MOE_D, _MOE_FF), (_MOE_FF, _MOE_D)))
+
+        def op(x):
+            y = collectives.all_to_all(x, comm, cfg)            # dispatch
+            h = torch.tanh(streaming.matmul_f32(y, w1))
+            h = streaming.matmul_f32(h, w2)
+            z = collectives.all_to_all(h.to(x.dtype), comm, cfg)  # combine
+            return torch.tanh(x + 1e-3 * z)
+
+        return op, (tokens, _MOE_D)
 
     if collective != "multi_neighbor" or consumer != "halo_fold":
         raise ValueError(f"no consumer-loop benchmark {consumer!r} for "
