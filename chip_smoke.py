@@ -209,7 +209,25 @@ exits non-zero:
    gate that the window one tile longer or shorter, or no window, must
    break), and timed there beside SDPA (the window as a boolean mask),
    its plain version and its bound;
-14. a ``kernels:`` line, the kernel table as one JSON line, and as the
+14. Multi-head Latent Attention: deepseek-v3-671b at full width (d_model
+   7168, 128 MLA heads: q_lora 1536, kv_lora 512, q/k head dim 128 + 64, v
+   128; 256 experts top-8 of d_ff 2048 and 1 shared, dense d_ff 18432,
+   vocab 129,280; bf16, tp 4: 32 heads and 64 whole experts a rank, random
+   weights from seed 0), depth cut to 4 layers (its 3 dense head layers and
+   one MoE layer), serving one wave of 4 x 1024 tokens through
+   ``examples/serve_lm_torch.py``, captured (flash launches exact: one a
+   layer), its prefill logits through the kernel against the plain
+   version; one wave captured against eager (16 decode steps on the latent
+   cache, tokens and logits bitwise equal) and the capacity cut's drops;
+   the smoke config (f32) on the card against the CPU at its own capacity
+   and with room for every token, and one training step at ``(2, 2)`` (the
+   backward's padded-v path).  The flash forward and backward are held
+   against their plain versions with v's head dim unlike q's in phase 2
+   (small shapes, f32 and bf16, and deepseek-v3's prefill and training
+   shapes: bf16, 32/32 heads, d 192, d_v 128, causal, N 16 and 8), each
+   row of the forward also against its own rms, and timed there beside
+   SDPA (``is_causal``), the plain versions and their bounds;
+15. a ``kernels:`` line, the kernel table as one JSON line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and exits non-zero without one, or when the repository
@@ -1349,6 +1367,19 @@ MIXTRAL_PLAIN_RUNS = 5
 FLASH_ROW_REL = 1e-1
 FLASH_ROW_FAULTS = {"window + 64": 4096 + 64, "window - 64": 4096 - 64,
                     "no window": None}
+# deepseek-v3-671b's prefill shape: a wave of 4 x 1024 tokens on tp 4 (N =
+# 16 stacked sequences), 32 heads a rank (MLA folds the shared rope key into
+# every head: no GQA), q/k head dim 192 (128 nope + 64 rope), v head dim
+# MLA_DV, causal; the bf16 kernel zero-pads q, k and v to its d 256 route.
+# Its training shape takes 8 sequences
+FLASH_SERVE_MLA = (16, 1024, 1024, 32, 32, 192, True, None, None)
+FLASH_TRAIN_MLA = (8, 1024, 1024, 32, 32, 192, True, None, None)
+MLA_DV = 128
+# small shapes whose v head dim differs from q's, each on both routes (f32:
+# fp32 FMA; bf16: wgmma, padded to 64 or 256): (case, v head dim)
+FLASH_DV_GRID = [((2, 64, 64, 4, 4, 24, True, None, None), 16),
+                 ((2, 130, 130, 4, 4, 192, True, None, None), 128),
+                 ((1, 100, 77, 4, 2, 48, True, 20, None), 32)]
 FLASH_GRID = [
     (2, 64, 64, 4, 2, 16, True, None, None),
     (2, 100, 77, 4, 4, 32, False, None, None),
@@ -1369,21 +1400,26 @@ PREFILL_REL = 5e-2
 SMOKE_REL = 1e-4    # tests/test_torch_serve.py's logits bound (f32)
 
 
-def flash_work(case) -> tuple[int, int]:
-    """(FLOPs, bytes) the function must spend on these inputs: 4·d per
-    visible (query, key) pair (q·k and p·v) for every (n, head), and q, k,
-    v read once and the output written once."""
+def flash_work(case, dv=None) -> tuple[int, int]:
+    """(FLOPs, bytes) the function must spend on these inputs: 2·d (q·k)
+    and 2·d_v (p·v) per visible (query, key) pair for every (n, head), the
+    real head dims (``dv``, v's, defaults to q's d), not the kernel's
+    padded ones; q, k, v read once and the output written once."""
     from repro_torch.kernels.flash_attention import ref
     N, S, T, H, KV, d, causal, window, _ = case
+    dv = d if dv is None else dv
     pairs = int(ref.visible(S, T, causal, window, "cpu").sum())
-    return 4 * d * pairs * N * H, 2 * (2 * N * S * H * d + 2 * N * T * KV * d)
+    return (2 * (d + dv) * pairs * N * H,
+            2 * (N * S * H * (d + dv) + N * T * KV * (d + dv)))
 
 
-def flash_inputs(case, dtype, gen, dev):
+def flash_inputs(case, dtype, gen, dev, dv=None):
+    """q, k and v of ``case`` (v of head dim ``dv``, q's d by default)."""
     N, S, T, H, KV, d = case[:6]
+    dv = d if dv is None else dv
     return (torch.randn((N, S, H, d), generator=gen, device=dev).to(dtype),
             torch.randn((N, T, KV, d), generator=gen, device=dev).to(dtype),
-            torch.randn((N, T, KV, d), generator=gen, device=dev).to(dtype))
+            torch.randn((N, T, KV, dv), generator=gen, device=dev).to(dtype))
 
 
 def library_attention(case, q, k, v):
@@ -1511,6 +1547,81 @@ def flash_mixtral(dev, flush, bw, gen) -> dict:
     return res
 
 
+def flash_mla(dev, flush, bw, gen) -> dict:
+    """The forward with v's head dim unlike q's: on FLASH_DV_GRID (f32 and
+    bf16) and at deepseek-v3's prefill shape (bf16, d 192, d_v 128)
+    against its plain version, element by element and, at the prefill
+    shape, each row against its own rms (FLASH_ROW_REL); then timed there
+    beside SDPA (``is_causal``, which takes a v head dim unlike q's), its
+    plain version and its bound (the real head dims' work)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa, ref
+    worst = {}
+    for case, dv in FLASH_DV_GRID + [(FLASH_SERVE_MLA, MLA_DV)]:
+        kw = dict(zip(("causal", "window", "softcap"), case[6:]))
+        for dt in (torch.float32, torch.bfloat16):
+            if case == FLASH_SERVE_MLA and dt == torch.float32:
+                continue
+            q, k, v = flash_inputs(case, dt, gen, dev, dv)
+            want = ref.flash_attention_ref(q, k, v, **kw).float()
+            got = fa.flash_attention(q, k, v, **kw)
+            check(tuple(got.shape) == tuple(want.shape)
+                  == tuple(q.shape[:3]) + (dv,),
+                  f"flash_attention {case} d_v {dv}: output "
+                  f"{tuple(got.shape)}, want v's head dim")
+            diff = (got.float() - want).abs()
+            tol = FLASH_TOL[dt]
+            err = diff.max().item()
+            check(bool((diff <= tol + tol * want.abs()).all()),
+                  f"flash_attention {case} d_v {dv} {dt}: max|kernel - "
+                  f"plain| {err} over {tol} + {tol} |plain|")
+            worst[dt] = max(worst.get(dt, 0.0), err)
+    row = (diff.amax(-1) / want.square().mean(-1).sqrt()).max().item()
+    check(row <= FLASH_ROW_REL,
+          f"flash_attention {FLASH_SERVE_MLA} d_v {MLA_DV} bf16: a row's "
+          f"max|kernel - plain| {row} of its rms(plain) (bound "
+          f"{FLASH_ROW_REL})")
+    del want, got, diff
+    _release()
+    case = FLASH_SERVE_MLA
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    # the same inputs zero-padded to the route's head dim beforehand: the
+    # kernel's own time, without the wrapper's padding copies
+    dp = fa.padded_head_dim(q.dtype, case[5])
+    qp, kp, vp = (F.pad(t, (0, dp - t.shape[-1])) for t in (q, k, v))
+    res = work_bound(flash_work(case, MLA_DV), bw)
+    smi_sample("flash-mla")
+    res.update(
+        max_abs_err=max(worst.values()), max_row_rel_err=row,
+        ms=time_ms(lambda: fa.flash_attention(q, k, v), flush),
+        prepadded_ms=time_ms(lambda: fa.flash_attention(qp, kp, vp),
+                             flush),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), flush),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), flush))
+    flops = flash_work(case, MLA_DV)[0]
+    log(f"[flash] v head dim unlike q's on {len(FLASH_DV_GRID)} grid shapes "
+        f"(f32, bf16) and deepseek-v3's prefill shape: max|kernel - plain| "
+        f"f32 {worst[torch.float32]:.3e} (tol 3e-5 + 3e-5 |plain|), bf16 "
+        f"{worst[torch.bfloat16]:.3e} (tol 2e-2 + 2e-2 |plain|); at the "
+        f"prefill shape a row's max|kernel - plain| {row:.3e} of its "
+        f"rms(plain) (bound {FLASH_ROW_REL})")
+    log(f"[flash] deepseek-v3-671b prefill shape {case[:6]}, d_v {MLA_DV}, "
+        f"bf16 causal (wgmma + TMA, padded to d {dp}): kernel "
+        f"{res['ms'] * 1e3:.2f} us (on inputs padded beforehand, without "
+        f"the wrapper's padding copies, {res['prepadded_ms'] * 1e3:.2f} "
+        f"us), plain {res['plain_ms'] * 1e3:.2f} us, "
+        f"scaled_dot_product_attention (is_causal) "
+        f"{res['library_ms'] * 1e3:.2f} us, bound {res['bound_ms'] * 1e3:.2f}"
+        f" us ({flops / 1e9:.2f} GFLOP at the real head dims, "
+        f"{res['bound_by']}); kernel at "
+        f"{100 * res['bound_ms'] / res['ms']:.1f} % of its bound, "
+        f"{res['library_ms'] / res['ms']:.2f}x SDPA's speed")
+    del q, k, v, qt, kt, vt, qp, kp, vp
+    _release()
+    return res
+
+
 def check_forward_digests() -> None:
     """The d <= 128 wgmma forward's bits against the digests the card tests
     hold it to (its output and log-sum-exp as they were before the kernel
@@ -1599,8 +1710,10 @@ def phase_flash_kernel(dev, flush, bw) -> dict:
         f"path on f32 inputs of the same shape {f32_ms * 1e3:.2f} us")
     out["gemma3_serving"] = time_flash_gemma3(dev, flush, bw, gen)
     out["mixtral_serving"] = flash_mixtral(dev, flush, bw, gen)
+    out["deepseek_serving"] = flash_mla(dev, flush, bw, gen)
     out["max_abs_err"] = max(out["max_abs_err"],
-                             out["mixtral_serving"]["max_abs_err"])
+                             out["mixtral_serving"]["max_abs_err"],
+                             out["deepseek_serving"]["max_abs_err"])
     return out
 
 
@@ -2313,17 +2426,21 @@ TRAIN_ARGV = ["--arch", "qwen3-8b", "--full-size", "--layers", "4", "--dp",
 TRAIN_GRAD_TOL, TRAIN_LOSS_TOL, TRAIN_PARAM_REL = 1e-4, 5e-4, 8e-3
 
 
-def flash_bwd_work(case) -> tuple[int, int]:
-    """(FLOPs, bytes) of the backward on these inputs: five products (S, dP,
-    dV, dQ, dK) of 2·d per visible (query, key) pair for every (n, head),
-    2.5x the forward's two; q, k, v, o, dO and the f32 log-sum-exp read
-    once, dq, dk, dv written once."""
+def flash_bwd_work(case, dv=None) -> tuple[int, int]:
+    """(FLOPs, bytes) of the backward on these inputs: five products per
+    visible (query, key) pair for every (n, head), S, dQ and dK of 2·d and
+    dP and dV of 2·d_v (``dv``, v's head dim, defaults to q's d: 2.5x the
+    forward's two); q, k, v, o, dO and the f32 log-sum-exp read once, dq,
+    dk, dv written once."""
     from repro_torch.kernels.flash_attention import ref
     N, S, T, H, KV, d, causal, window, _ = case
+    dv = d if dv is None else dv
     pairs = int(ref.visible(S, T, causal, window, "cpu").sum())
-    rows, kv = N * S * H * d, N * T * KV * d
-    return (10 * d * pairs * N * H,
-            2 * (3 * rows + 2 * kv) + 4 * N * H * S + 2 * (rows + 2 * kv))
+    rows, rows_v = N * S * H * d, N * S * H * dv
+    kv, kv_v = N * T * KV * d, N * T * KV * dv
+    return (2 * (3 * d + 2 * dv) * pairs * N * H,
+            2 * (rows + 2 * rows_v + kv + kv_v) + 4 * N * H * S
+            + 2 * (rows + kv + kv_v))
 
 
 def phase_flash_bwd_kernel(dev, flush, bw) -> dict:
@@ -2405,6 +2522,90 @@ def phase_flash_bwd_kernel(dev, flush, bw) -> dict:
         q, k, v, out, dout, lse))
     del q, k, v, out, dout, lse, qt, kt, vt, lib_out, dot
     res["gemma3_training"] = time_flash_bwd_gemma3(dev, flush, bw, gen)
+    res["deepseek_training"] = flash_bwd_mla(dev, flush, bw, gen)
+    res["max_abs_err"] = max(res["max_abs_err"],
+                             res["deepseek_training"]["max_abs_err"])
+    return res
+
+
+def flash_bwd_mla(dev, flush, bw, gen) -> dict:
+    """The backward with v's head dim unlike q's (dv of v's shape): on
+    FLASH_DV_GRID (f32 on fp32 FMA, bf16 on wgmma) and at deepseek-v3's
+    training shape (bf16, N 8, 32/32 heads, d 192, d_v 128) against the
+    plain backward, two runs bitwise equal; timed there beside SDPA's
+    backward (``is_causal``), the plain backward and its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa, ref
+    worst = {}
+    for case, dv in FLASH_DV_GRID + [(FLASH_TRAIN_MLA, MLA_DV)]:
+        kw = dict(zip(("causal", "window", "softcap"), case[6:]))
+        for dt in (torch.float32, torch.bfloat16):
+            if case == FLASH_TRAIN_MLA and dt == torch.float32:
+                continue
+            q, k, v = flash_inputs(case, dt, gen, dev, dv)
+            out, lse = fa.flash_attention_lse(q, k, v, **kw)
+            dout = torch.randn(out.shape, generator=gen, device=dev).to(dt)
+            got = fa.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+            again = fa.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+            want = ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
+            tol = FLASH_BWD_TOL[dt]
+            route = fa.bwd_route(dt, max(case[5], dv))[0]
+            for name, a, b, c, t in zip(("dq", "dk", "dv"), got, want,
+                                        again, (q, k, v)):
+                check(a.shape == t.shape, f"flash_attention_bwd {case} d_v "
+                      f"{dv}: {name} {tuple(a.shape)}, want "
+                      f"{tuple(t.shape)}")
+                diff = (a.float() - b.float()).abs()
+                err = diff.max().item()
+                check(bool((diff <= tol + tol * b.float().abs()).all()),
+                      f"flash_attention_bwd {case} d_v {dv} {dt} ({route} "
+                      f"route) {name}: max|kernel - plain| {err} over {tol} "
+                      f"+ {tol} |plain|")
+                check(torch.equal(a, c), f"flash_attention_bwd {case} d_v "
+                      f"{dv} {dt} ({route} route) {name}: two runs differ")
+                worst[route] = max(worst.get(route, 0.0), err)
+            del got, again, want
+    _release()
+    case = FLASH_TRAIN_MLA
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = dout.transpose(1, 2).contiguous()
+    # every operand zero-padded to the route's head dim beforehand: the
+    # kernels' own time, without the wrapper's padding copies
+    dp = fa.bwd_route(q.dtype, case[5])[1]
+    padded = [F.pad(t, (0, dp - t.shape[-1])) for t in (q, k, v, out, dout)]
+    res = work_bound(flash_bwd_work(case, MLA_DV), bw)
+    smi_sample("flash-bwd-mla")
+    res.update(
+        max_abs_err=max(worst.values()),
+        ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse),
+                   flush),
+        prepadded_ms=time_ms(lambda: fa.flash_attention_bwd(*padded, lse),
+                             flush),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dot, retain_graph=True), flush),
+        plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, dout),
+                         flush))
+    flops = flash_bwd_work(case, MLA_DV)[0]
+    log(f"[flash-bwd] v head dim unlike q's on {len(FLASH_DV_GRID)} grid "
+        f"shapes and deepseek-v3's training shape: max|kernel - plain| "
+        f"wgmma route {worst['wgmma']:.3e} (tol 2e-2 + 2e-2 |plain|), "
+        f"fp32-FMA route {worst['fma']:.3e} (tol 1e-4 + 1e-4 |plain|); dv "
+        f"of v's shape, every case bitwise equal over two runs")
+    log(f"[flash-bwd] deepseek-v3-671b training shape {case[:6]}, d_v "
+        f"{MLA_DV}, bf16 causal (wgmma route, padded to d {dp}): kernel "
+        f"{res['ms'] * 1e3:.2f} us (on operands padded beforehand, without "
+        f"the wrapper's padding copies, {res['prepadded_ms'] * 1e3:.2f} "
+        f"us), plain backward "
+        f"{res['plain_ms'] * 1e3:.2f} us, scaled_dot_product_attention's "
+        f"backward (is_causal) {res['library_ms'] * 1e3:.2f} us, bound "
+        f"{res['bound_ms'] * 1e3:.2f} us ({flops / 1e9:.2f} GFLOP at the "
+        f"real head dims, {res['bound_by']}); kernel at "
+        f"{100 * res['bound_ms'] / res['ms']:.2f} % of its bound, "
+        f"{res['library_ms'] / res['ms']:.2f}x SDPA's speed")
+    del q, k, v, out, dout, lse, qt, kt, vt, lib_out, dot, padded
+    _release()
     return res
 
 
@@ -3808,7 +4009,7 @@ def serve_dense(dev, arch: str, argv: list) -> dict:
     args = ex.parser().parse_args(["--arch", arch] + argv)
     cfg = ex.model_config(args)
     comm = ex.COMMS[args.comm]
-    tag = cfg.family
+    tag = "mla" if cfg.use_mla else cfg.family
     _release()
     t0 = time.perf_counter()
     sess = setup.build_session(cfg, args.tp, comm, seed=args.seed,
@@ -3816,21 +4017,33 @@ def serve_dense(dev, arch: str, argv: list) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     gb = 1e9
-    first, _ = transformer.attention_layers(sess.params, cfg)[0]
-    layer_bytes = sum(t.numel() * t.element_size()
-                      for t in _leaves(first)) / gb
-    full_layers = get_config(arch).n_layers
-    cut = ("full depth" if cfg.n_layers == full_layers else
-           f"depth cut {full_layers} -> {cfg.n_layers} layers ({full_layers}"
-           f" x {layer_bytes:.2f} GB of bf16 layer weights do not fit one "
-           f"80 GB card beside the rest; {cfg.n_layers} keep the phase in "
-           f"its time)")
-    log(f"[{tag}] {arch}: full width (d_model {cfg.d_model}, "
-        f"{cfg.n_heads} q heads"
-        + (f" padded to {cfg.padded_heads}" if cfg.padded_heads else "")
-        + f" over {cfg.n_kv_heads} kv, head dim {cfg.resolved_head_dim}, "
+    # the stored bytes of one layer of each kind (the dense head and the
+    # MoE layers of the moe family), all ranks' shards
+    kind_bytes = {}
+    for p, _ in transformer.attention_layers(sess.params, cfg):
+        kind_bytes.setdefault("MoE" if "moe" in p else "dense", sum(
+            t.numel() * t.element_size() for t in _leaves(p)) / gb)
+    full = get_config(arch)
+    n_dense = full.n_dense_layers if full.family == "moe" else full.n_layers
+    counts = {"dense": n_dense, "MoE": full.n_layers - n_dense}
+    cut = ("full depth" if cfg.n_layers == full.n_layers else
+           f"depth cut {full.n_layers} -> {cfg.n_layers} layers ("
+           + " and ".join(f"{counts[k]} {k} x {b:.2f} GB"
+                          for k, b in kind_bytes.items() if counts[k])
+           + f" of bf16 layer weights do not fit one 80 GB card beside the "
+           f"rest; {cfg.n_layers} keep the phase in its time)")
+    attn = (f"{cfg.n_heads} heads of MLA (q_lora {cfg.q_lora_rank}, kv_lora "
+            f"{cfg.kv_lora_rank}, q/k head dim {cfg.qk_nope_dim} + "
+            f"{cfg.qk_rope_dim}, v {cfg.v_head_dim})" if cfg.use_mla else
+            f"{cfg.n_heads} q heads"
+            + (f" padded to {cfg.padded_heads}" if cfg.padded_heads else "")
+            + f" over {cfg.n_kv_heads} kv, head dim {cfg.resolved_head_dim}")
+    log(f"[{tag}] {arch}: full width (d_model {cfg.d_model}, {attn}, "
         f"d_ff {cfg.d_ff}, "
-        + (f"{cfg.n_experts} experts top-{cfg.n_experts_per_tok}, "
+        + (f"{cfg.n_experts} experts top-{cfg.n_experts_per_tok} of d_ff "
+           f"{cfg.moe_d_ff or cfg.d_ff}"
+           + (f" + {cfg.n_shared_experts} shared" if cfg.n_shared_experts
+              else "") + f", {cfg.n_dense_layers} dense head layers, "
            if cfg.n_experts else "")
         + f"vocab {cfg.vocab_size}), {cut}; bf16 weights "
         f"from seed {args.seed} initialised on the card in {init_s:.1f} s")
@@ -3975,44 +4188,49 @@ MIXTRAL_DECODE_STEPS = 16
 A2A_RANKS, A2A_TOKENS, A2A_RUNS = 8, 1024, 5
 
 
-def wave_drops(params, toks, rt, dev) -> list:
+def wave_drops(params, toks, rt, dev) -> tuple[list, list]:
     """The (token, expert) assignments the capacity cut drops in a prefill
-    wave of ``toks``, by layer: :func:`moe.dropped` of each MoE block's
-    input, the layers run eagerly as the prefill runs them."""
-    from repro_torch.models import attention, layers, moe, transformer
+    wave of ``toks``, by MoE layer (:func:`moe.dropped` of each MoE block's
+    input, the layers run eagerly as the prefill runs them), and each MoE
+    layer's largest expert load (tokens routed to one expert)."""
+    from repro_torch.models import layers, moe, transformer
     cfg = rt.cfg
     t = torch.as_tensor(toks, device=dev)
     x = layers.embed(params["embed"], t, rt)
     pos = transformer.positions_for(t)
-    out = []
+    out, loads = [], []
     with torch.no_grad():
         for p, window in transformer.attention_layers(params, cfg):
             h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-            x = x + attention.attention(p["attn"], h, pos, rt, window=window)
+            x = x + transformer.attend(p["attn"], h, pos, rt, window=window)
             h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-            out.append(int(moe.dropped(p["moe"], h, cfg)[0]))
-            x = x + moe.moe_block(p["moe"], h, rt)[0]
-    return out
+            if "moe" in p:
+                out.append(int(moe.dropped(p["moe"], h, cfg)[0]))
+                gates, _ = moe._route(p["moe"], h.flatten(1, 2), cfg)
+                loads.append(int((gates[0] > 0).sum(0).max()))
+                x = x + moe.moe_block(p["moe"], h, rt)[0]
+            else:
+                x = x + layers.mlp(p["mlp"], h, rt, cfg.mlp_type)
+    return out, loads
 
 
-def mixtral_waves(dev) -> dict:
-    """One wave at the serving example's mixtral shapes on a session built
-    as the example builds it, captured against eager:
-    MIXTRAL_DECODE_STEPS decode steps (the warm-up that captures, then
-    replays), tokens and logits bitwise equal at every step; a replay of
-    the captured prefill timed; the wave's (token, expert) assignments
-    that the capacity cut dropped, counted by :func:`wave_drops`."""
+def moe_waves(dev, arch: str, argv: list, gen: int, tag: str) -> dict:
+    """One wave at the serving example's shapes for ``arch`` (``argv``) on a
+    session built as the example builds it, captured against eager: ``gen``
+    decode steps (the warm-up that captures, then replays), tokens and
+    logits bitwise equal at every step; a replay of the captured prefill
+    timed; the wave's (token, expert) assignments that the capacity cut
+    dropped, counted by :func:`wave_drops`."""
     from repro_torch.launch import input_specs as isp, setup
     from repro_torch.models import decode as dec, moe
     from repro_torch.train import serve as serve_mod
     ex = load_example("serve_lm_torch")
-    args = ex.parser().parse_args(["--arch", "mixtral-8x22b"]
-                                  + MIXTRAL_SERVE_ARGV)
+    args = ex.parser().parse_args(["--arch", arch] + argv)
     cfg = ex.model_config(args)
     comm = ex.COMMS[args.comm]
     sess = setup.build_session(cfg, args.tp, comm, seed=args.seed,
                                device=dev)
-    S, B, gen = args.prompt_len, args.batch, MIXTRAL_DECODE_STEPS
+    S, B = args.prompt_len, args.batch
     toks = np.random.RandomState(2).randint(0, cfg.vocab_size, (B, S))
     runs = {}
     for captured in (False, True):
@@ -4020,7 +4238,7 @@ def mixtral_waves(dev) -> dict:
             cfg, args.tp, comm, isp.ShapeSpec("wave", S, B, "prefill"),
             cache_capacity=S + gen, device=dev, captured=captured)
         if not captured:
-            n_drop = wave_drops(sess.params, toks, rt, dev)
+            n_drop, loads = wave_drops(sess.params, toks, rt, dev)
         _, step = serve_mod.build_serve_fn(
             cfg, args.tp, comm, isp.ShapeSpec("wave", S + gen, B, "decode"),
             device=dev, captured=captured)
@@ -4042,19 +4260,22 @@ def mixtral_waves(dev) -> dict:
     del sess
     _release()
     for i, ((te, le), (tc, lc)) in enumerate(zip(runs[False], runs[True])):
-        check(torch.equal(te, tc), f"[moe] decode step {i}: captured tokens "
-              f"{tc.tolist()} differ from eager {te.tolist()}")
-        check(torch.equal(le, lc), f"[moe] decode step {i}: captured logits "
-              f"differ from eager")
+        check(torch.equal(te, tc), f"[{tag}] decode step {i}: captured "
+              f"tokens {tc.tolist()} differ from eager {te.tolist()}")
+        check(torch.equal(le, lc), f"[{tag}] decode step {i}: captured "
+              f"logits differ from eager")
     T = B * S
-    log(f"[moe] {cfg.name}: {gen} captured decode steps (one graph, "
+    log(f"[{tag}] {cfg.name}: {gen} captured decode steps (one graph, "
         f"{gen - 1} replays) bitwise equal to eager, tokens and logits; the "
         f"wave's {T} tokens x top-{cfg.n_experts_per_tok} = "
         f"{T * cfg.n_experts_per_tok} assignments a layer at capacity "
-        f"{moe.capacity(cfg, T)} an expert: dropped {n_drop} by layer "
+        f"{moe.capacity(cfg, T)} an expert (a mean load of "
+        f"{T * cfg.n_experts_per_tok / cfg.n_experts:g}; the largest load "
+        f"by MoE layer {loads}): dropped {n_drop} by MoE layer "
         f"({sum(n_drop)} in all); a replay of the captured prefill "
         f"{replay_ms:.1f} ms")
-    return dict(dropped=n_drop, decode_steps=gen, prefill_replay_ms=replay_ms)
+    return dict(dropped=n_drop, max_load=loads, decode_steps=gen,
+                prefill_replay_ms=replay_ms)
 
 
 def phase_moe_a2a(dev) -> dict:
@@ -4121,7 +4342,8 @@ def phase_moe_family(dev) -> dict:
     config and a shared-expert, dense-head variant (f32) on the card
     against the CPU.  Returns mixtral's serving reading."""
     out = serve_dense(dev, "mixtral-8x22b", MIXTRAL_SERVE_ARGV)
-    out.update(mixtral_waves(dev))
+    out.update(moe_waves(dev, "mixtral-8x22b", MIXTRAL_SERVE_ARGV,
+                         MIXTRAL_DECODE_STEPS, "moe"))
     check(out["launches"] == MIXTRAL_LAYERS,
           f"[moe] flash launches {out['launches']}, want {MIXTRAL_LAYERS}")
     log(f"[moe] mixtral-8x22b served: prefill {out['prefill_ms'][0]:.1f} ms "
@@ -4137,6 +4359,104 @@ def phase_moe_family(dev) -> dict:
     phase_serve_smoke(dev, "mixtral-8x22b", 24, 16, capacity_factor=2.0)
     phase_serve_smoke(dev, "mixtral-8x22b", 24, 16, capacity_factor=2.0,
                       n_shared_experts=1, n_dense_layers=1)
+    return out
+
+
+# ----------------------------------------------------------------------
+# Multi-head Latent Attention: deepseek-v3-671b served
+# ----------------------------------------------------------------------
+
+# deepseek-v3-671b at full width (bf16, random weights from seed 0, tp 4:
+# 32 heads and 64 whole experts a rank), depth cut to DEEPSEEK_LAYERS (61
+# layers, ~1.34 TB of bf16 weights, do not fit one card; 4 keep the
+# config's 3 dense head layers and one MoE layer, ~28 GB): one wave of 4 x
+# 1024 tokens, then DEEPSEEK_DECODE_STEPS decode steps
+DEEPSEEK_LAYERS = 4
+DEEPSEEK_SERVE_ARGV = ["--layers", str(DEEPSEEK_LAYERS), "--tp", "4",
+                       "--batch", "4", "--prompt-len", "1024", "--gen", "16",
+                       "--requests", "4", "--comm", "static"]
+DEEPSEEK_DECODE_STEPS = 16
+# the smoke config's one training step on the card against the CPU: the
+# loss within MLA_STEP_LOSS_TOL, the gradients within TRAIN_GRAD_TOL of each
+# leaf's max|grad|
+MLA_STEP_LOSS_TOL = 1e-5
+
+
+def train_step_vs_cpu(dev, arch: str) -> dict:
+    """``arch``'s smoke config (f32) on a ``(2, 2)`` stack: one training
+    step's loss and gradients (every rank's) on the card against the CPU
+    from the same weights and batch; the card's step runs the flash
+    forward and backward kernels (counts zeroed just before it and read
+    just after: the backward on the fp32-FMA route, v padded as q)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.config import CommConfig
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import mesh as mesh_mod, setup
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as ts
+    scfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    d, dv = scfg.qk_nope_dim + scfg.qk_rope_dim, scfg.v_head_dim
+    rng = np.random.RandomState(0)
+    batch = {"tokens": rng.randint(0, scfg.vocab_size, (4, 32)),
+             "labels": rng.randint(0, scfg.vocab_size, (4, 32))}
+    runs, full, counts = {}, None, None
+    for where in ("cpu", dev):
+        s = setup.build_session(scfg, mesh_mod.make_test_mesh(2, 2),
+                                CommConfig(), oc=adamw.OptConfig(zero1=False),
+                                device=where)
+        full = setup.global_params(s) if full is None else full
+        s.params = setup.stacked_params(s, full)
+        lg = ts.make_loss_and_grad(s.rt)
+        stacked = setup.shard_batch(s, batch)
+        if where == "cpu":
+            runs["cpu"] = lg(s.params, stacked)
+            continue
+        flash_counts(reset=True)
+        runs["card"] = lg(s.params, stacked)
+        counts = flash_counts()
+    (loss_c, _, g_c), (loss_k, _, g_k) = runs["cpu"], runs["card"]
+    gap_l = (loss_k.cpu() - loss_c).abs().max().item()
+    gap_g = _leaf_gap(g_k, g_c)
+    n = scfg.n_layers
+    check(counts["bwd"] == counts["bwd_fma"] == n,
+          f"{arch} smoke training step on the card: flash launches {counts}, "
+          f"want {n} backward on the fp32-FMA route")
+    check(gap_l < MLA_STEP_LOSS_TOL and gap_g < TRAIN_GRAD_TOL,
+          f"{arch} smoke training step on the card vs the CPU: loss {gap_l} "
+          f"(tol {MLA_STEP_LOSS_TOL}), gradients {gap_g} of max|grad| (tol "
+          f"{TRAIN_GRAD_TOL})")
+    log(f"[train] {arch} smoke config (f32, (2, 2)) one step on the card vs "
+        f"the CPU: loss {gap_l:.3e} (tol {MLA_STEP_LOSS_TOL}), gradients "
+        f"{gap_g:.3e} of each leaf's max|grad| (tol {TRAIN_GRAD_TOL}); flash "
+        f"launches forward {counts['fwd']}, backward {counts['bwd']} (fp32 "
+        f"FMA, d {d} and d_v {dv} padded to "
+        f"{fa.bwd_route(scfg.dtype, max(d, dv))[1]})")
+    return dict(loss_gap=gap_l, grad_gap=gap_g, counts=counts)
+
+
+def phase_mla(dev) -> dict:
+    """deepseek-v3-671b served at full width and cut depth through
+    ``examples/serve_lm_torch.py`` (flash launches exact: one a layer a
+    wave; the prefill through the kernel against the plain attention), one
+    wave captured against eager; the smoke config (f32) on the card against
+    the CPU, at its own capacity and with room for every token (decode
+    against the prefill of the extended sequence), and one training step
+    at ``(2, 2)``.  Returns deepseek-v3's serving reading."""
+    out = serve_dense(dev, "deepseek-v3-671b", DEEPSEEK_SERVE_ARGV)
+    out.update(moe_waves(dev, "deepseek-v3-671b", DEEPSEEK_SERVE_ARGV,
+                         DEEPSEEK_DECODE_STEPS, "mla"))
+    check(out["launches"] == DEEPSEEK_LAYERS,
+          f"[mla] flash launches {out['launches']}, want {DEEPSEEK_LAYERS}")
+    log(f"[mla] deepseek-v3-671b served: prefill {out['prefill_ms'][0]:.1f} "
+        f"ms (the wave, with its capture; a replay "
+        f"{out['prefill_replay_ms']:.1f} ms), decode {out['decode_ms']:.2f} "
+        f"ms/step, peak {out['peak_gb']:.2f} GB, flash launches "
+        f"{out['launches']}, dropped by the capacity cut {out['dropped']}")
+    # at its own capacity (tokens drop), and with room for every token (E /
+    # k = 4), where decode must equal the prefill of the extended sequence
+    phase_serve_smoke(dev, "deepseek-v3-671b", 24, 16)
+    phase_serve_smoke(dev, "deepseek-v3-671b", 24, 16, capacity_factor=4.0)
+    out["training_step"] = train_step_vs_cpu(dev, "deepseek-v3-671b")
     return out
 
 
@@ -4397,7 +4717,11 @@ def main() -> int:
     mixtral = phase_moe_family(dev)
     lap("13")
 
-    # -- 14. summary ---------------------------------------------------
+    # -- 14. Multi-head Latent Attention ----------------------------------
+    deepseek = phase_mla(dev)
+    lap("14")
+
+    # -- 15. summary ---------------------------------------------------
     log(f"kernels: swe_step launches={main_launches} "
         + " ".join(f"{k}={v}" for k, v in launches_by_mode.items())
         + f"; swe_step launches={elastic_launches} (elastic runs)"
@@ -4429,7 +4753,13 @@ def main() -> int:
         f"(gemma3-1b training, {gemma3_train['bwd_wgmma']} on the wgmma "
         f"route)"
         + f"; flash_attention launches={mixtral['launches']} (mixtral-8x22b "
-        f"serving)")
+        f"serving)"
+        + f"; flash_attention launches={deepseek['launches']} "
+        f"(deepseek-v3-671b serving)"
+        + f"; flash_attention launches="
+        f"{deepseek['training_step']['counts']['fwd']}, flash_attention_bwd "
+        f"launches={deepseek['training_step']['counts']['bwd']} "
+        f"(deepseek-v3 smoke training step, fp32-FMA route)")
     full, boundary = timings["full pass"], timings["boundary rows"]
     rows = [{
         "name": "swe_step", "route": "cuda",
@@ -4466,7 +4796,10 @@ def main() -> int:
         "dense_family_serving_launches": {k: d["launches"]
                                           for k, d in dense.items()},
         "gemma3_training_launches": gemma3_train["fwd"],
-        "moe_serving_launches": {"mixtral-8x22b": mixtral["launches"]},
+        "moe_serving_launches": {"mixtral-8x22b": mixtral["launches"],
+                                 "deepseek-v3-671b": deepseek["launches"]},
+        "mla_smoke_training_launches":
+            deepseek["training_step"]["counts"]["fwd"],
         "routes": {"bf16, d 64 and 128": "wgmma + TMA "
                    "(flash_attention_wgmma_kernel)",
                    "bf16, d 256": "wgmma + TMA, a producer warpgroup "
@@ -4493,6 +4826,8 @@ def main() -> int:
                                    for k, c in fsdp_counts.items()},
         "gemma3_training_launches": gemma3_train["bwd"],
         "gemma3_wgmma_launches": gemma3_train["bwd_wgmma"],
+        "mla_smoke_training_launches":
+            deepseek["training_step"]["counts"]["bwd"],
         "routes": {"bf16, d 64 and 128": "wgmma + TMA (flash_bwd_stats, "
                    "flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma)",
                    "bf16, d 256": "wgmma + TMA (flash_bwd_stats, "

@@ -34,6 +34,9 @@ Run:  PYTHONPATH=src python examples/serve_lm_torch.py            # card
       PYTHONPATH=src python examples/serve_lm_torch.py \
           --arch mixtral-8x22b --layers 4 --tp 4 --batch 2 \
           --prompt-len 6144 --gen 16 --requests 2   # 8 experts, top-2
+      PYTHONPATH=src python examples/serve_lm_torch.py \
+          --arch deepseek-v3-671b --layers 4 --tp 4 --batch 4 \
+          --prompt-len 1024 --gen 16 --requests 4   # MLA, 256 experts
       PYTHONPATH=src python examples/serve_lm_torch.py --smoke --device cpu
       PYTHONPATH=src python examples/serve_lm_torch.py --smoke --device cpu \
           --comm auto --tune-db db.json --expect-plan-hits
@@ -41,8 +44,11 @@ Run:  PYTHONPATH=src python examples/serve_lm_torch.py            # card
 Without ``--smoke`` the model is the full-width configuration (bf16,
 random weights from ``--seed``), ``--layers`` deep when given (a 104B
 model does not fit one card: command-r-plus-104b's layers are ~3.1 GB
-each, mixtral-8x22b's ~5.0 GB).  ``--arch`` takes every registered architecture whose family the
-port runs.  The ssm family's ``--prompt-len`` must
+each, mixtral-8x22b's ~5.0 GB; deepseek-v3-671b's 3 dense head layers
+~1.2 GB each and its MoE layers ~23 GB each).  ``--layers N`` keeps the
+config's dense head layers (deepseek-v3-671b's 3) and cuts the MoE layers
+after them.  ``--arch`` takes every registered architecture whose family
+the port runs.  The ssm family's ``--prompt-len`` must
 be a multiple of its chunk (``ssm_chunk``: 128 at full width, 16 in the
 smoke config): the SSD scan takes whole chunks, and no padding is done.
 """
@@ -156,7 +162,9 @@ def model_config(args):
     else:
         cfg = get_config(args.arch)
     if args.layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        cfg = dataclasses.replace(
+            cfg, n_layers=args.layers,
+            n_dense_layers=min(cfg.n_dense_layers, args.layers))
     return cfg
 
 

@@ -2,19 +2,21 @@
 kernels: the forward, and the backward of ``csrc/flash_attention_bwd.cu``.
 
 ``flash_attention(q, k, v, ...)`` takes the model layout: ``q (N, S, H,
-d)``, ``k``/``v (N, T, KV, d)`` with ``H % KV == 0``.  On CPU tensors it
-runs the plain PyTorch version (:mod:`.ref`); on CUDA tensors it launches
-the kernel of ``csrc/flash_attention.cu`` or raises — there is no fallback.
-The kernel is compiled at first use by :mod:`repro_torch.kernels._build`
-and loaded with ``ctypes``.
+d)``, ``k (N, T, KV, d)`` and ``v (N, T, KV, d_v)`` with ``H % KV == 0``
+(v's head dim may differ from q's, as MLA's does: d 192, d_v 128).  On
+CPU tensors it runs the plain PyTorch version (:mod:`.ref`); on CUDA
+tensors it launches the kernel of ``csrc/flash_attention.cu`` or raises —
+there is no fallback.  The kernel is compiled at first use by
+:mod:`repro_torch.kernels._build` and loaded with ``ctypes``.
 
 The launcher picks one of the source's kernels by dtype and head dim,
 which the wrapper first zero-pads up to one of the kernels' instantiations
-(:func:`padded_head_dim`): bf16 runs wgmma fed by TMA (at d 64 or 128 one
-kernel, at d 256 its form with a producer warpgroup; a 128-byte swizzled
-row holds 64 bf16, so bf16 head dims below 64 pad to 64), and f32 inputs,
-which are held to 3e-5 (no bf16 or TF32 tensor cores), run the fp32-FMA
-kernel.
+(:func:`padded_head_dim`; v is padded to the same one, and the output's
+columns past d_v, all zero, are dropped): bf16 runs wgmma fed by TMA (at
+d 64 or 128 one kernel, at d 256 its form with a producer warpgroup; a
+128-byte swizzled row holds 64 bf16, so bf16 head dims below 64 pad to
+64), and f32 inputs, which are held to 3e-5 (no bf16 or TF32 tensor
+cores), run the fp32-FMA kernel.
 
 ``flash_attention`` is differentiable.  On the card its forward, when a
 gradient is wanted, also writes every row's log-sum-exp (serving never asks
@@ -134,11 +136,11 @@ def _bwd_operand(t: torch.Tensor, dp: int, route: str) -> torch.Tensor:
 
 def _check(q, k, v, window, softcap) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention takes q (N, S, H, d) and k, v "
-                         "(N, T, KV, d)")
+        raise ValueError("flash_attention takes q (N, S, H, d), k (N, T, KV, "
+                         "d) and v (N, T, KV, d_v)")
     N, S, H, d = q.shape
-    if tuple(k.shape) != tuple(v.shape) or k.shape[0] != N \
-            or k.shape[3] != d:
+    if tuple(k.shape[:3]) != tuple(v.shape[:3]) or k.shape[0] != N \
+            or k.shape[3] != d or not 0 < v.shape[3] <= _D_MAX:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
     if H % k.shape[2]:
@@ -153,8 +155,8 @@ def _check(q, k, v, window, softcap) -> None:
 
 
 def _forward(q, k, v, causal, window, softcap, want_lse: bool):
-    """The forward kernel on CUDA tensors -> ``(out, lse or None)``; ``lse``
-    is ``(N, H, S)`` f32."""
+    """The forward kernel on CUDA tensors -> ``(out (N, S, H, d_v), lse or
+    None)``; ``lse`` is ``(N, H, S)`` f32."""
     global launches
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k and v must share a device")
@@ -162,13 +164,13 @@ def _forward(q, k, v, causal, window, softcap, want_lse: bool):
         raise ValueError(f"flash_attention takes float32 or bfloat16 q, k, v "
                          f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     N, S, H, d = q.shape
-    T, KV = k.shape[1], k.shape[2]
+    T, KV, dv = k.shape[1], k.shape[2], v.shape[3]
     if d > _D_MAX:
         raise ValueError(f"flash_attention: head dim {d} over {_D_MAX}")
     if H > _GRID_MAX or N > _GRID_MAX or max(S, T) >= 2**31 - 64:
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} over the "
                          f"kernel's grid")
-    out_shape = tuple(q.shape)
+    out_shape = (N, S, H, dv)
     lse = (torch.empty((N, H, S), dtype=torch.float32, device=q.device)
            if want_lse else None)
     if N * S * H == 0:
@@ -177,10 +179,10 @@ def _forward(q, k, v, causal, window, softcap, want_lse: bool):
         if lse is not None:
             lse.fill_(ref.NEG_INF)
         return q.new_zeros(out_shape), lse
-    dp = padded_head_dim(q.dtype, d)
-    if dp != d:
-        # zero columns change no product and give zero output columns
-        q, k, v = (F.pad(t, (0, dp - d)) for t in (q, k, v))
+    dp = padded_head_dim(q.dtype, max(d, dv))
+    # zero columns change no product and give zero output columns
+    q, k, v = (t if t.shape[-1] == dp else F.pad(t, (0, dp - t.shape[-1]))
+               for t in (q, k, v))
     # a view the kernels cannot read in place is copied (a fresh tensor is)
     q, k, v = (t if _rows_aligned(t)
                else t.clone(memory_format=torch.contiguous_format)
@@ -201,7 +203,7 @@ def _forward(q, k, v, causal, window, softcap, want_lse: bool):
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
-    return (out if dp == d else out[..., :d]), lse
+    return (out if dp == dv else out[..., :dv]), lse
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -225,8 +227,9 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
-    """Attention of ``q (N, S, H, d)`` over ``k``/``v (N, T, KV, d)`` ->
-    ``(N, S, H, d)`` in q's dtype (f32 or bf16 on the card), fp32 inside.
+    """Attention of ``q (N, S, H, d)`` over ``k (N, T, KV, d)`` and ``v (N,
+    T, KV, d_v)`` -> ``(N, S, H, d_v)`` in q's dtype (f32 or bf16 on the
+    card), fp32 inside, scores scaled by ``1/sqrt(d)``.
 
     Options as in the JAX package's kernel: ``causal`` (``k_pos <= q_pos``),
     a sliding ``window`` (``k_pos > q_pos - window``) and a tanh
@@ -247,8 +250,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,
                         softcap: Optional[float] = None):
-    """The forward with every row's log-sum-exp: ``(out, lse (N, H, S)
-    f32)``, the kernel on the card and the plain version on the CPU."""
+    """The forward with every row's log-sum-exp: ``(out (N, S, H, d_v), lse
+    (N, H, S) f32)``, the kernel on the card and the plain version on the
+    CPU."""
     _check(q, k, v, window, softcap)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -261,8 +265,9 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                         softcap: Optional[float] = None):
     """Gradients ``(dq, dk, dv)`` of attention at ``q``, ``k``, ``v`` for the
     output cotangent ``dout``, given the forward's output and row
-    log-sum-exp.  On CUDA tensors the backward kernel of
-    :func:`bwd_route` runs (or raises); on CPU tensors autograd
+    log-sum-exp (``dv`` has v's head dim, which may differ from q's).  On
+    CUDA tensors the backward kernel of :func:`bwd_route` at the larger
+    head dim runs (or raises); on CPU tensors autograd
     differentiates the plain version (which needs neither ``out`` nor
     ``lse``)."""
     _check(q, k, v, window, softcap)
@@ -285,20 +290,24 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                          f"the kernel's limits")
     if N * S * H == 0 or T == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    return _backward(q, k, v, out, dout, lse, bwd_route(q.dtype, d),
-                     causal, window, softcap)
+    return _backward(q, k, v, out, dout, lse,
+                     bwd_route(q.dtype, max(d, v.shape[3])), causal, window,
+                     softcap)
 
 
 def _backward(q, k, v, out, dout, lse, route: tuple[str, int], causal,
               window, softcap):
     """The backward kernels of ``route`` (``(kind, padded head dim)``, as
-    :func:`bwd_route` gives it) on checked, non-empty CUDA tensors.
-    ``("fma", dp)`` also runs bf16 (``chip_smoke.py`` times the fp32-FMA
-    kernels beside the wgmma route on the same inputs)."""
+    :func:`bwd_route` gives it) on checked, non-empty CUDA tensors: q, k,
+    v, out and dout zero-padded to that head dim (dout's padded columns are
+    zero, so the padded columns of dq, dk and dv are too), the gradients
+    sliced back to q's d and v's d_v.  ``("fma", dp)`` also runs bf16
+    (``chip_smoke.py`` times the fp32-FMA kernels beside the wgmma route on
+    the same inputs)."""
     global bwd_launches
     kind, dp = route
     N, S, H, d = q.shape
-    T, KV = k.shape[1], k.shape[2]
+    T, KV, dv_dim = k.shape[1], k.shape[2], v.shape[3]
     q, k, v, out, dout = (_bwd_operand(t, dp, kind)
                           for t in (q, k, v, out, dout))
     lse = lse.float().contiguous()
@@ -335,5 +344,7 @@ def _backward(q, k, v, out, dout, lse, route: tuple[str, int], causal,
     bwd_launches += 1
     bwd_route_launches[kind] += 1
     if dp != d:
-        dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
+        dq, dk = dq[..., :d], dk[..., :d]
+    if dp != dv_dim:
+        dv = dv[..., :dv_dim]
     return dq, dk, dv

@@ -6,8 +6,9 @@ operations and the floor of the JAX package's Pallas kernel
 ``1/sqrt(d)``, then the tanh softcap; masked scores are ``-1e30`` and their
 probabilities exactly 0; the output is ``(p @ v) / max(sum p, 1e-30)``.
 Grouped-query attention maps q head ``h`` to kv head ``h // (H / KV)``, as
-the JAX wrapper's ``jnp.repeat`` does.  It serves CPU tensors and the tests;
-the card runs the kernel.
+the JAX wrapper's ``jnp.repeat`` does; v's head dim ``d_v`` may differ from
+q's and k's ``d`` (MLA's 128 against 192), the scale staying ``1/sqrt(d)``.
+It serves CPU tensors and the tests; the card runs the kernel.
 """
 from __future__ import annotations
 
@@ -37,8 +38,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,
                         softcap: Optional[float] = None,
                         return_lse: bool = False):
-    """``q (N, S, H, d)``, ``k``/``v (N, T, KV, d)`` -> ``(N, S, H, d)`` in
-    q's dtype, computed in fp32.  With
+    """``q (N, S, H, d)``, ``k (N, T, KV, d)``, ``v (N, T, KV, d_v)`` ->
+    ``(N, S, H, d_v)`` in q's dtype, computed in fp32 (``p @ v`` takes any
+    ``d_v``).  With
     ``return_lse`` also every row's log-sum-exp of its visible scores,
     ``(N, H, S)`` (``max + log(max(sum, 1e-30))``, as the kernel writes
     it)."""
@@ -69,7 +71,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             window: Optional[int] = None,
                             softcap: Optional[float] = None):
     """The plain backward: autograd through :func:`flash_attention_ref` ->
-    ``(dq, dk, dv)`` in the inputs' dtypes."""
+    ``(dq, dk, dv)`` in the inputs' dtypes and shapes (``dv`` of v's head
+    dim ``d_v``)."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         out = flash_attention_ref(*leaves, causal=causal, window=window,

@@ -89,14 +89,14 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, device,
 
 def _sdpa(q, k, v, softcap: Optional[float], causal: bool,
           window: Optional[int]):
-    """q (P, B, S, H, hd), k/v (P, B, T, KV, hd) -> (P, B, S, H, hd): the
-    flash kernel on (P·B, ...)."""
+    """q (P, B, S, H, hd), k (P, B, T, KV, hd), v (P, B, T, KV, hd_v) ->
+    (P, B, S, H, hd_v): the flash kernel on (P·B, ...)."""
     P, B = q.shape[:2]
     out = fa_ops.flash_attention(
         q.reshape(P * B, *q.shape[2:]), k.reshape(P * B, *k.shape[2:]),
         v.reshape(P * B, *v.shape[2:]), causal=causal, window=window,
         softcap=softcap)
-    return out.reshape(q.shape)
+    return out.reshape(q.shape[:-1] + v.shape[-1:])
 
 
 def _zero_padded_heads(out: torch.Tensor, dims: AttnDims, rt: Runtime
@@ -217,29 +217,36 @@ def _sp_shards(rt: Runtime, device) -> torch.Tensor:
     return torch.zeros(rt.mesh.tp, dtype=torch.long, device=device)
 
 
-def prefill_into_cache(cache: KVCache, k_full: torch.Tensor,
-                       v_full: torch.Tensor, rt: Runtime) -> None:
-    """Scatter full-sequence K/V (P, B, S, KV, hd), replicated, into the
-    sequence-sharded cache, in place: row p keeps positions ``[shard_p·L,
-    shard_p·L + L)`` (zeros past S).  The caller sets the length."""
-    S = k_full.shape[2]
-    L = cache.seq_shard
+def scatter_into_shards(pairs, rt: Runtime) -> None:
+    """Scatter each full-sequence ``(P, B, S, ...)`` tensor of ``pairs``
+    (``(full, buf)``), replicated, into its sequence-sharded cache buffer
+    ``(P, B, L, ...)``, in place: row p keeps positions ``[shard_p·L,
+    shard_p·L + L)`` (zeros past S)."""
+    full0, buf0 = pairs[0]
+    S, L = full0.shape[2], buf0.shape[2]
     pad = rt.sp_size * L - S
     if pad < 0:
         raise ValueError(f"a cache of {rt.sp_size} x {L} positions cannot "
                          f"hold {S} tokens")
-    start = _sp_shards(rt, k_full.device) * L
-    for full, buf in ((k_full, cache.k), (v_full, cache.v)):
+    start = _sp_shards(rt, full0.device) * L
+    for full, buf in pairs:
         if pad > 0:
-            full = F.pad(full, (0, 0, 0, 0, 0, pad))
+            full = F.pad(full, (0, 0) * (full.dim() - 3) + (0, pad))
         buf.copy_(layers.rank_slice(full, start, L, dim=1))
 
 
-def append_to_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
-                    rt: Runtime) -> KVCache:
-    """Write one new (P, B, 1, KV, hd) entry at global position
-    ``cache.length``: only the row that owns that position writes (in
-    place), at its local offset.
+def prefill_into_cache(cache: KVCache, k_full: torch.Tensor,
+                       v_full: torch.Tensor, rt: Runtime) -> None:
+    """Scatter full-sequence K/V (P, B, S, KV, hd), replicated, into the
+    sequence-sharded cache, in place (:func:`scatter_into_shards`).  The
+    caller sets the length."""
+    scatter_into_shards(((k_full, cache.k), (v_full, cache.v)), rt)
+
+
+def write_at_length(pairs, length: torch.Tensor, rt: Runtime) -> None:
+    """Write each new ``(P, B, 1, ...)`` entry of ``pairs`` (``(new, buf
+    (P, B, L, ...))``) at global position ``length``: only the row that owns
+    that position writes (in place), at its local offset.
 
     Owner and offset are computed on the device from the length tensor, so
     the write reads nothing on the host and can be captured: every row
@@ -247,21 +254,27 @@ def append_to_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     position writes back the value already there (row ``p`` owns shard
     ``p``, or every row shard 0 without sequence sharding; no row once the
     cache is full)."""
-    L = cache.seq_shard
-    P = cache.k.shape[0]
-    owner = torch.div(cache.length, L, rounding_mode="floor")
+    buf0 = pairs[0][1]
+    P, L = buf0.shape[0], buf0.shape[2]
+    owner = torch.div(length, L, rounding_mode="floor")
     if rt.sp_size == 1:
         mine = (owner == 0).expand(P)
     else:
-        mine = _sp_shards(rt, cache.k.device) == owner
-    rows = torch.arange(P, device=cache.k.device)
-    offs = torch.remainder(cache.length, L).expand(P)
-    mine = mine.view(P, 1, 1, 1)
-    for new, buf in ((k_new, cache.k), (v_new, cache.v)):
-        # advanced indices on dims 0 and 2: (P, B, KV, hd) at each row's
-        # offset
-        buf[rows, :, offs] = torch.where(mine, new[:, :, 0].to(buf.dtype),
+        mine = _sp_shards(rt, buf0.device) == owner
+    rows = torch.arange(P, device=buf0.device)
+    offs = torch.remainder(length, L).expand(P)
+    for new, buf in pairs:
+        # advanced indices on dims 0 and 2: (P, B, ...) at each row's offset
+        m = mine.view((P,) + (1,) * (buf.dim() - 2))
+        buf[rows, :, offs] = torch.where(m, new[:, :, 0].to(buf.dtype),
                                          buf[rows, :, offs])
+
+
+def append_to_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                    rt: Runtime) -> KVCache:
+    """Write one new (P, B, 1, KV, hd) entry at global position
+    ``cache.length`` (:func:`write_at_length`)."""
+    write_at_length(((k_new, cache.k), (v_new, cache.v)), cache.length, rt)
     return KVCache(k=cache.k, v=cache.v, length=cache.length + 1)
 
 

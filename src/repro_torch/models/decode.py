@@ -8,7 +8,9 @@ local/global attention each block's local layers, its global layer, then
 the trailing layers; in the moe family the dense head, then the MoE
 layers; all sharing one length; the JAX package nests them as
 ``{"blocks": {"local", "global"}, "trailing"}`` and ``{"dense",
-"moe"}``), every cache
+"moe"}``); under MLA (deepseek-v3) they are the compressed latents,
+``MLACache(ckv (L, P, B, S_shard, kv_lora_rank), k_rope (L, P, B, S_shard,
+rope_dim), ...)``, in the same layer order.  Every cache is
 **sequence-sharded over the model axis**: row ``p`` holds positions
 ``[p·S_shard, (p+1)·S_shard)`` of every layer, and decode's partial
 attention combines via two small ACCL-X all-reduces (the LSE trick).  The
@@ -19,11 +21,12 @@ sequence length, sharded over heads when they divide.
 Unlike the JAX package's functional update, :func:`prefill` and
 :func:`decode_step` write into a state's buffers (the caches, the last
 logits and the cache position) and return it: the state passed to a
-decode step is consumed.  ``ServeState.length`` (and ``KVCache.length``,
-the same tensor) is a 0-d long tensor on the device, as the JAX package's
-is a traced scalar, and both functions set it on the device: a step reads
-nothing on the host, so it can be captured as one CUDA graph whose static
-state is the one it writes (:mod:`repro_torch.train.serve`).
+decode step is consumed.  ``ServeState.length`` (and the caches'
+``length``, the same tensor) is a 0-d long tensor on the device, as the
+JAX package's is a traced scalar, and both functions set it on the
+device: a step reads nothing on the host, so it can be captured as one
+CUDA graph whose static state is the one it writes
+(:mod:`repro_torch.train.serve`).
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from typing import NamedTuple, Union
 
 import torch
 
-from repro_torch.models import attention, layers, moe, ssm
+from repro_torch.models import attention, layers, mla, moe, ssm
 from repro_torch.models.common import Runtime
 from repro_torch.models.transformer import (attention_layers, layer_params,
                                             positions_for,
@@ -39,15 +42,19 @@ from repro_torch.models.transformer import (attention_layers, layer_params,
 
 
 class ServeState(NamedTuple):
-    # leading layer axis on every leaf: the KV caches (dense) or the
-    # stacked SSM state (ssm)
-    caches: Union[attention.KVCache, ssm.SSMState]
+    # leading layer axis on every leaf: the KV caches (dense, moe), the
+    # latent caches (MLA) or the stacked SSM state (ssm)
+    caches: Union[attention.KVCache, mla.MLACache, ssm.SSMState]
     last_logits: torch.Tensor     # (P, B, V/tp) vocab-sharded, f32
     length: torch.Tensor          # 0-d long, on the device
 
 
-def layer_cache(caches: attention.KVCache, i: int) -> attention.KVCache:
-    """Layer ``i``'s view of the stacked caches (writes go through)."""
+def layer_cache(caches, i: int):
+    """Layer ``i``'s view of the stacked KV or latent caches (writes go
+    through)."""
+    if isinstance(caches, mla.MLACache):
+        return mla.MLACache(ckv=caches.ckv[i], k_rope=caches.k_rope[i],
+                            length=caches.length)
     return attention.KVCache(k=caches.k[i], v=caches.v[i],
                              length=caches.length)
 
@@ -63,6 +70,12 @@ def _ffn(p, x, rt: Runtime):
 
 def _prefill_layer(p, x, positions, rt: Runtime, cache, window=None):
     h = layers.rms_norm(x, p["ln1"], rt.cfg.norm_eps)
+    if rt.cfg.use_mla:
+        a, (ckv, k_rope) = mla.mla_attention(p["attn"], h, positions, rt,
+                                             return_latents=True)
+        x = _ffn(p, x + a, rt)
+        mla.mla_prefill_cache(cache, ckv, k_rope, rt)
+        return x
     a, (k, v) = attention.attention(p["attn"], h, positions, rt,
                                     window=window, return_kv=True)
     x = _ffn(p, x + a, rt)
@@ -72,8 +85,11 @@ def _prefill_layer(p, x, positions, rt: Runtime, cache, window=None):
 
 def _decode_layer(p, x, cache, rt: Runtime, window=None):
     h = layers.rms_norm(x, p["ln1"], rt.cfg.norm_eps)
-    a, cache = attention.decode_attention(p["attn"], h, cache, rt,
-                                          window=window)
+    if rt.cfg.use_mla:
+        a, cache = mla.mla_decode(p["attn"], h, cache, rt)
+    else:
+        a, cache = attention.decode_attention(p["attn"], h, cache, rt,
+                                              window=window)
     return _ffn(p, x + a, rt), cache
 
 
@@ -88,6 +104,9 @@ def init_state(params, rt: Runtime, batch: int, max_len: int,
     if cfg.family == "ssm":
         caches = ssm.init_ssm_state(cfg, batch, rt.mesh.tp, dev,
                                     cfg.n_layers)
+    elif cfg.use_mla:
+        caches = mla.init_mla_cache(cfg, batch, max_len, rt.sp_size,
+                                    cfg.dtype, rt.mesh.tp, dev, cfg.n_layers)
     else:
         caches = attention.init_kv_cache(cfg, batch, max_len, rt.sp_size,
                                          cfg.dtype, rt.mesh.tp, dev,
@@ -108,7 +127,7 @@ def _store(state: ServeState, last: torch.Tensor, length: torch.Tensor
     state.last_logits.copy_(last)
     state.length.copy_(length)
     c = state.caches
-    if isinstance(c, attention.KVCache) and c.length is not state.length:
+    if not isinstance(c, ssm.SSMState) and c.length is not state.length:
         c.length.copy_(length)
     return state
 

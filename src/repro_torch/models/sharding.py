@@ -13,6 +13,9 @@ TP rules (model axis), with ``tp`` the stacked rank count:
   attn wq            (D, Heff*hd)   -> (None, 'model')   col-parallel
   attn wk/wv         (D, KV*hd)     -> (None, 'model') if kv_sharded
   attn wo            (Heff*hd, D)   -> ('model', None)   row-parallel
+  MLA w_uq/w_uk/w_uv (lora, H*·)    -> (None, 'model')   col-parallel
+  MLA wo             (H*v_hd, D)    -> ('model', None)   row-parallel
+  MLA w_dq/w_dkv/w_kr, q_norm/kv_norm -> replicated
   mlp w_up/w_gate    (D, F)         -> (None, 'model')
   mlp w_down         (F, D)         -> ('model', None)
   moe router         (D, E)         -> replicated
@@ -101,7 +104,13 @@ def _base_spec(names: list[str], cfg: ModelConfig, tp: int):
     if leaf in ("wk", "wv"):
         return (None, "model") if dims.kv_sharded else (None, None)
     if leaf == "wo":
+        if cfg.use_mla:
+            return ("model", None) if tp > 1 else (None, None)
         return ("model", None) if dims.q_sharded else (None, None)
+    if leaf in ("w_uq", "w_uk", "w_uv"):
+        return (None, "model") if tp > 1 else (None, None)
+    if leaf in ("w_dq", "w_dkv", "w_kr"):
+        return (None, None)
     if leaf in ("w_up", "w_gate"):
         return (None, "model") if mlp_shardable else (None, None)
     if leaf == "w_down":
@@ -244,11 +253,12 @@ def grad_model_sum_mask(params: Any, cfg: ModelConfig, tp: int,
     """1 where the gradient must be SUMMED over the model axis at sync
     time: parameters stored replicated but *used* shardwise (each rank
     back-propagates only the slice it consumed) — replicated-KV weights
-    under head-sharded attention, the q/k norms of sharded heads, the
-    sliced SSM scalars, the MoE router (each rank back-propagates the
-    gates of its own experts), and under Megatron-SP the block norms,
-    which run on sequence shards (SP is off under local/global attention,
-    whose stack runs the plain block)."""
+    under head-sharded attention, the q/k norms of sharded heads, MLA's
+    down-projections and their norms (each rank back-propagates its own
+    heads' share), the sliced SSM scalars, the MoE router (each rank
+    back-propagates the gates of its own experts), and under Megatron-SP
+    the block norms, which run on sequence shards (SP is off under
+    local/global attention, whose stack runs the plain block)."""
     dims = attention.attn_dims(cfg, tp)
     _, ssm_sharded = ssm.ssm_dims(cfg, tp)
     sp_active = (seq_parallel and tp > 1 and dims.q_sharded
@@ -262,7 +272,11 @@ def grad_model_sum_mask(params: Any, cfg: ModelConfig, tp: int,
         parent = names[-2] if len(names) >= 2 else ""
         if sp_active and leaf_name in ("ln1", "ln2") and "layers" in names:
             return 1
-        if leaf_name in ("q_norm", "k_norm") and dims.q_sharded:
+        if cfg.use_mla and leaf_name in ("w_dq", "w_dkv", "w_kr", "q_norm",
+                                         "kv_norm"):
+            return 1
+        if not cfg.use_mla and leaf_name in ("q_norm", "k_norm") \
+                and dims.q_sharded:
             return 1
         if leaf_name in ("wk", "wv") and dims.q_sharded \
                 and not dims.kv_sharded:
@@ -362,8 +376,9 @@ def from_reference(np_params: Any, cfg: ModelConfig, tp: int, device=None,
                    dp: int = 1, fsdp_dp: int = 1):
     """The JAX package's parameter tree (numpy arrays; ``layers``, or
     gemma3's ``blocks/{local,global}`` and ``trailing``, or the moe
-    family's ``layers`` and ``dense_layers``; an MoE tree built at the same
-    ``tp``, its expert layout depending on it) -> the port's
+    family's ``layers`` and ``dense_layers``, with GQA or MLA attention;
+    an MoE tree built at the same ``tp``, its expert layout depending on
+    it) -> the port's
     stacked per-rank shards on ``device`` (FSDP leaves cut over ``fsdp_dp``
     data ranks), each leaf in its own float type (the SSM layer's ``A_log``,
     ``D`` and ``dt_bias`` stay float32 under a bf16 config, as in the JAX

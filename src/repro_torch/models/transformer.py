@@ -12,8 +12,10 @@ package's: ``blocks`` of ``r`` windowed local layers and one global layer
 (one recomputed unit each), then the ``trailing`` windowed layers.  The
 moe family runs its leading ``dense_layers`` (unwindowed) and then its
 MoE ``layers`` at ``cfg.sliding_window``, one recomputed unit each that
-carries the layer's load-balance loss.  The other families (MLA, hybrid,
-VLM, audio) come with later slices and raise here.
+carries the layer's load-balance loss; under ``use_mla`` (deepseek-v3)
+every layer's attention is Multi-head Latent Attention
+(:mod:`repro_torch.models.mla`).  The other families (hybrid, VLM, audio)
+come with later slices and raise here.
 """
 from __future__ import annotations
 
@@ -25,17 +27,18 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers, moe, sharding, ssm
+from repro_torch.models import attention, layers, mla, moe, sharding, ssm
 from repro_torch.models.common import ModelConfig, Runtime
 
 
 def require_ported_family(cfg: ModelConfig) -> None:
     """Raise unless the port runs ``cfg``'s family: dense (local/global
-    attention included) or moe, without MLA, or ssm."""
-    if cfg.use_mla or cfg.family not in ("dense", "moe", "ssm"):
+    attention included), moe (with or without MLA), or ssm."""
+    if (cfg.use_mla and cfg.family != "moe") \
+            or cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
-            f"the port runs the dense, moe (without MLA) and ssm families "
-            f"so far, not {cfg.name} ({cfg.family}"
+            f"the port runs the dense, moe (MLA in the moe family only) and "
+            f"ssm families so far, not {cfg.name} ({cfg.family}"
             + (", MLA" if cfg.use_mla else "") + "); see ROADMAP.md Queue 1")
 
 
@@ -85,11 +88,19 @@ def attention_layers(params, cfg: ModelConfig):
 # Initialization (full, unsharded arrays; sharding.shard_params cuts them)
 # ----------------------------------------------------------------------
 
+def init_attn(gen: torch.Generator, cfg: ModelConfig, tp: int,
+              device) -> dict:
+    """A layer's attention weights: MLA's under ``use_mla``, else GQA's."""
+    if cfg.use_mla:
+        return mla.init_mla(gen, cfg, cfg.dtype, device)
+    return attention.init_attention(gen, cfg, cfg.dtype, device, tp)
+
+
 def init_dense_layer(gen: torch.Generator, cfg: ModelConfig, tp: int,
                      device) -> dict:
     return {
         "ln1": torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device),
-        "attn": attention.init_attention(gen, cfg, cfg.dtype, device, tp),
+        "attn": init_attn(gen, cfg, tp, device),
         "ln2": torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device),
         "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type,
                                cfg.dtype, device),
@@ -100,7 +111,7 @@ def init_moe_layer(gen: torch.Generator, cfg: ModelConfig, tp: int,
                    device) -> dict:
     return {
         "ln1": torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device),
-        "attn": attention.init_attention(gen, cfg, cfg.dtype, device, tp),
+        "attn": init_attn(gen, cfg, tp, device),
         "ln2": torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device),
         "moe": moe.init_moe(gen, cfg, cfg.dtype, device, tp),
     }
@@ -189,9 +200,17 @@ def init_model(seed: int, cfg: ModelConfig, tp: int = 1, device=None):
 # Forward
 # ----------------------------------------------------------------------
 
+def attend(p, h, positions, rt: Runtime, window=None):
+    """A layer's self-attention of the normed ``h``: MLA under ``use_mla``
+    (which takes no window), else GQA at ``window``."""
+    if rt.cfg.use_mla:
+        return mla.mla_attention(p, h, positions, rt)
+    return attention.attention(p, h, positions, rt, window=window)
+
+
 def dense_block(p, x, positions, rt: Runtime, window=None):
     h = layers.rms_norm(x, p["ln1"], rt.cfg.norm_eps)
-    x = x + attention.attention(p["attn"], h, positions, rt, window=window)
+    x = x + attend(p["attn"], h, positions, rt, window=window)
     h = layers.rms_norm(x, p["ln2"], rt.cfg.norm_eps)
     return x + layers.mlp(p["mlp"], h, rt, rt.cfg.mlp_type)
 
@@ -212,7 +231,7 @@ def dense_block_sp(p, x_s, positions, rt: Runtime, window=None):
 def moe_layer(p, x, positions, rt: Runtime, window=None):
     """Attention, then the MoE block: ``(x, aux (P,))``."""
     h = layers.rms_norm(x, p["ln1"], rt.cfg.norm_eps)
-    x = x + attention.attention(p["attn"], h, positions, rt, window=window)
+    x = x + attend(p["attn"], h, positions, rt, window=window)
     h = layers.rms_norm(x, p["ln2"], rt.cfg.norm_eps)
     y, aux = moe.moe_block(p["moe"], h, rt)
     return x + y, aux

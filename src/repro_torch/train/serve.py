@@ -43,7 +43,7 @@ from repro_torch.core.config import CommConfig
 from repro_torch.core.scheduler import CapturedGraph
 from repro_torch.device import resolve_device
 from repro_torch.launch import input_specs as isp
-from repro_torch.models import attention
+from repro_torch.models import attention, mla
 from repro_torch.models import decode as dec
 from repro_torch.models.common import MeshContext, ModelConfig, Runtime
 
@@ -104,8 +104,12 @@ def _tokens(t, device) -> torch.Tensor:
 
 def _state_buffers(state: dec.ServeState) -> list[torch.Tensor]:
     c = state.caches
-    caches = ([c.k, c.v] if isinstance(c, attention.KVCache)
-              else [c.conv, c.h])
+    if isinstance(c, attention.KVCache):
+        caches = [c.k, c.v]
+    elif isinstance(c, mla.MLACache):
+        caches = [c.ckv, c.k_rope]
+    else:
+        caches = [c.conv, c.h]
     return caches + [state.last_logits, state.length]
 
 
@@ -211,8 +215,9 @@ def build_serve_fn(cfg: ModelConfig, tp: int, comm, shape: isp.ShapeSpec,
       ``batch["tokens"]`` of exactly ``(global_batch, seq_len)``;
       ``fn.new_state(params)`` allocates a state for ``out``;
     - decode kind: ``fn(params, token, state) -> ServeState``, ``token``
-      ``(global_batch,)``, on caches of ``cache_len(cfg, shape)`` positions
-      (dense) or on the fixed-size SSM state (ssm), updated in place.
+      ``(global_batch,)``, on KV or latent caches of ``cache_len(cfg,
+      shape)`` positions (dense, moe) or on the fixed-size SSM state (ssm),
+      updated in place.
 
     ``comm`` may be a concrete ``CommConfig`` or ``"auto"`` (per-phase
     TuneDB selection at ``tune_db_path`` by ``objective``; the resolved
@@ -257,8 +262,9 @@ def build_serve_fn(cfg: ModelConfig, tp: int, comm, shape: isp.ShapeSpec,
         capacity = -(-cache_len(cfg, shape) // rt.sp_size)
 
         def check_caches(caches):
-            if caches.k.shape[3] != capacity:
+            got = (caches.seq_shard if isinstance(caches, mla.MLACache)
+                   else caches.k.shape[3])
+            if got != capacity:
                 raise ValueError(f"decode built for caches of {capacity} "
-                                 f"positions per shard, got "
-                                 f"{caches.k.shape[3]}")
+                                 f"positions per shard, got {got}")
     return rt, _Decode(rt, B, check_caches, dev, captured)

@@ -288,8 +288,8 @@ def test_configs_match_jax(ref, arch, width):
 
 
 def test_list_archs_names_the_ported_archs():
-    assert list_archs() == sorted(ARCHS + ("mamba2-130m", "mixtral-8x22b",
-                                           "qwen3-8b"))
+    assert list_archs() == sorted(ARCHS + ("deepseek-v3-671b", "mamba2-130m",
+                                           "mixtral-8x22b", "qwen3-8b"))
 
 
 @pytest.mark.parametrize("tp,dp,fsdp_dp", [(4, 1, 1), (4, 2, 2)])

@@ -360,11 +360,12 @@ def test_configs_match_jax(ref, width):
     transformer.require_ported_family(cfg)
 
 
-@pytest.mark.parametrize("family,mla", [("moe", True), ("hybrid", False),
+@pytest.mark.parametrize("family,mla", [("dense", True), ("hybrid", False),
                                         ("vlm", False), ("audio", False)])
 def test_unported_families_still_raise(family, mla):
-    """MLA (deepseek-v3's attention) and the hybrid, VLM and audio
-    families still raise ``NotImplementedError``."""
+    """MLA outside the moe family (deepseek-v3's attention runs in the moe
+    family only) and the hybrid, VLM and audio families still raise
+    ``NotImplementedError``."""
     cfg = dataclasses.replace(_cfg(), family=family, use_mla=mla)
     with pytest.raises(NotImplementedError):
         transformer.require_ported_family(cfg)
