@@ -1370,16 +1370,22 @@ FLASH_ROW_FAULTS = {"window + 64": 4096 + 64, "window - 64": 4096 - 64,
 # deepseek-v3-671b's prefill shape: a wave of 4 x 1024 tokens on tp 4 (N =
 # 16 stacked sequences), 32 heads a rank (MLA folds the shared rope key into
 # every head: no GQA), q/k head dim 192 (128 nope + 64 rope), v head dim
-# MLA_DV, causal; the bf16 kernel zero-pads q, k and v to its d 256 route.
-# Its training shape takes 8 sequences
+# MLA_DV, causal; bf16 takes the kernels' d_qk 192 / d_v 128 route, which
+# reads q, k and v in place.  Its training shape takes 8 sequences
 FLASH_SERVE_MLA = (16, 1024, 1024, 32, 32, 192, True, None, None)
 FLASH_TRAIN_MLA = (8, 1024, 1024, 32, 32, 192, True, None, None)
 MLA_DV = 128
-# small shapes whose v head dim differs from q's, each on both routes (f32:
-# fp32 FMA; bf16: wgmma, padded to 64 or 256): (case, v head dim)
+# small shapes whose v head dim differs from q's, each in f32 (fp32 FMA) and
+# bf16 (wgmma: padded to 64, or the d_qk 192 / d_v 128 route, which pads
+# (160, 96) to it): lengths no multiple of 64 or 128, S != T both ways, q
+# heads over kv heads at rep 1, 2 and 4, windows and softcaps: (case, v
+# head dim)
 FLASH_DV_GRID = [((2, 64, 64, 4, 4, 24, True, None, None), 16),
                  ((2, 130, 130, 4, 4, 192, True, None, None), 128),
-                 ((1, 100, 77, 4, 2, 48, True, 20, None), 32)]
+                 ((1, 100, 77, 4, 2, 48, True, 20, None), 32),
+                 ((1, 333, 129, 8, 4, 192, True, None, None), 128),
+                 ((2, 77, 301, 4, 1, 160, False, 40, 5.0), 96),
+                 ((1, 260, 260, 4, 2, 192, True, 50, 3.0), 128)]
 FLASH_GRID = [
     (2, 64, 64, 4, 2, 16, True, None, None),
     (2, 100, 77, 4, 4, 32, False, None, None),
@@ -1547,24 +1553,63 @@ def flash_mixtral(dev, flush, bw, gen) -> dict:
     return res
 
 
+def sdpa_backend(fn, *args, **kw) -> str:
+    """Which backend ``scaled_dot_product_attention`` takes on ``args``:
+    PyTorch's own choice (``torch._fused_sdp_choice``, where this build has
+    it), and the names of the kernels that one profiled call of ``fn`` (the
+    call, or its backward) runs, longest first."""
+    try:
+        from torch.nn.attention import SDPBackend
+        choice = SDPBackend(torch._fused_sdp_choice(*args, **kw)).name
+    except (AttributeError, ImportError, RuntimeError, TypeError,
+            ValueError) as e:
+        choice = f"not read ({type(e).__name__})"
+    fn()
+    prof, _ = profiled(fn)
+    names = [key[:60] for _, _, key in sorted(device_rows(prof),
+                                              reverse=True)[:3]]
+    return f"{choice}; kernels {names}"
+
+
+def mla_views(gen, dev, d=192, dv=MLA_DV):
+    """bf16 q and k as views of one fused (N, S, 2, H, d) projection and v
+    as the first d_v columns of a wider tensor: strided views whose every
+    stride is a multiple of 16 bytes, which the kernels read in place."""
+    N, S, H = 2, 150, 4
+    qk = torch.randn((N, S, 2, H, d), generator=gen, device=dev).bfloat16()
+    vw = torch.randn((N, S, H, 2 * dv), generator=gen, device=dev).bfloat16()
+    return qk[:, :, 0], qk[:, :, 1], vw[..., :dv]
+
+
 def flash_mla(dev, flush, bw, gen) -> dict:
     """The forward with v's head dim unlike q's: on FLASH_DV_GRID (f32 and
-    bf16) and at deepseek-v3's prefill shape (bf16, d 192, d_v 128)
-    against its plain version, element by element and, at the prefill
-    shape, each row against its own rms (FLASH_ROW_REL); then timed there
-    beside SDPA (``is_causal``, which takes a v head dim unlike q's), its
-    plain version and its bound (the real head dims' work)."""
+    bf16), on strided views (``mla_views``) and at deepseek-v3's prefill
+    shape (bf16, d 192, d_v 128) against its plain version, element by
+    element and, at the prefill shape, each row against its own rms
+    (FLASH_ROW_REL), every bf16 case of d_qk 129-192 and d_v <= 128 on the
+    d_qk 192 / d_v 128 route (its launch counter); then timed there beside
+    the d 256 route on the same inputs zero-padded beforehand (the route
+    that ran MLA before), SDPA (``is_causal``, which takes a v head dim
+    unlike q's; the backend it picks is logged), its plain version and its
+    bound (the real head dims' work)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa, ref
     worst = {}
+    mla_cases = 0
     for case, dv in FLASH_DV_GRID + [(FLASH_SERVE_MLA, MLA_DV)]:
         kw = dict(zip(("causal", "window", "softcap"), case[6:]))
         for dt in (torch.float32, torch.bfloat16):
             if case == FLASH_SERVE_MLA and dt == torch.float32:
                 continue
             q, k, v = flash_inputs(case, dt, gen, dev, dv)
+            kind = fa.route(dt, case[5], dv)[0]
             want = ref.flash_attention_ref(q, k, v, **kw).float()
+            r0 = fa.route_launches[kind]
             got = fa.flash_attention(q, k, v, **kw)
+            check(fa.route_launches[kind] == r0 + 1,
+                  f"flash_attention {case} d_v {dv} {dt}: no launch on its "
+                  f"route ({kind})")
+            mla_cases += kind == "wgmma192"
             check(tuple(got.shape) == tuple(want.shape)
                   == tuple(q.shape[:3]) + (dv,),
                   f"flash_attention {case} d_v {dv}: output "
@@ -1573,50 +1618,78 @@ def flash_mla(dev, flush, bw, gen) -> dict:
             tol = FLASH_TOL[dt]
             err = diff.max().item()
             check(bool((diff <= tol + tol * want.abs()).all()),
-                  f"flash_attention {case} d_v {dv} {dt}: max|kernel - "
-                  f"plain| {err} over {tol} + {tol} |plain|")
+                  f"flash_attention {case} d_v {dv} {dt} ({kind} route): "
+                  f"max|kernel - plain| {err} over {tol} + {tol} |plain|")
             worst[dt] = max(worst.get(dt, 0.0), err)
     row = (diff.amax(-1) / want.square().mean(-1).sqrt()).max().item()
     check(row <= FLASH_ROW_REL,
           f"flash_attention {FLASH_SERVE_MLA} d_v {MLA_DV} bf16: a row's "
           f"max|kernel - plain| {row} of its rms(plain) (bound "
           f"{FLASH_ROW_REL})")
+    check(mla_cases == 1 + sum(d > 128 and dv <= 128
+                               for (_, _, _, _, _, d, *_), dv in
+                               FLASH_DV_GRID),
+          f"the d_qk 192 / d_v 128 route ran {mla_cases} bf16 cases")
     del want, got, diff
+    vq, vk, vv = mla_views(gen, dev)
+    check(all(fa._rows_aligned(t) and not t.is_contiguous()
+              for t in (vq, vk, vv)), "mla_views: not strided TMA views")
+    r0 = fa.route_launches["wgmma192"]
+    got = fa.flash_attention(vq, vk, vv, window=40, softcap=4.0)
+    want = ref.flash_attention_ref(vq, vk, vv, window=40,
+                                   softcap=4.0).float()
+    tol = FLASH_TOL[torch.bfloat16]
+    view_err = (got.float() - want).abs().max().item()
+    check(fa.route_launches["wgmma192"] == r0 + 1 and bool(
+        ((got.float() - want).abs() <= tol + tol * want.abs()).all()),
+          f"flash_attention on strided views (d_qk 192 / d_v 128 route): "
+          f"max|kernel - plain| {view_err}")
+    worst[torch.bfloat16] = max(worst[torch.bfloat16], view_err)
+    del vq, vk, vv, got, want
     _release()
     case = FLASH_SERVE_MLA
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    # the same inputs zero-padded to the route's head dim beforehand: the
-    # kernel's own time, without the wrapper's padding copies
+    # the same inputs zero-padded to 256 beforehand: the d 256 route, which
+    # ran MLA's shape before the d_qk 192 / d_v 128 route, without the
+    # padding copies it then made
     dp = fa.padded_head_dim(q.dtype, case[5])
     qp, kp, vp = (F.pad(t, (0, dp - t.shape[-1])) for t in (q, k, v))
+    check(fa.route(q.dtype, dp, dp) == ("wgmma", dp, dp),
+          f"the padded inputs take {fa.route(q.dtype, dp, dp)}")
     res = work_bound(flash_work(case, MLA_DV), bw)
     smi_sample("flash-mla")
     res.update(
         max_abs_err=max(worst.values()), max_row_rel_err=row,
         ms=time_ms(lambda: fa.flash_attention(q, k, v), flush),
-        prepadded_ms=time_ms(lambda: fa.flash_attention(qp, kp, vp),
-                             flush),
+        d256_prepadded_ms=time_ms(lambda: fa.flash_attention(qp, kp, vp),
+                                  flush),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), flush),
         plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), flush))
+    res["library_backend"] = sdpa_backend(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        qt, kt, vt, is_causal=True)
     flops = flash_work(case, MLA_DV)[0]
     log(f"[flash] v head dim unlike q's on {len(FLASH_DV_GRID)} grid shapes "
-        f"(f32, bf16) and deepseek-v3's prefill shape: max|kernel - plain| "
-        f"f32 {worst[torch.float32]:.3e} (tol 3e-5 + 3e-5 |plain|), bf16 "
-        f"{worst[torch.bfloat16]:.3e} (tol 2e-2 + 2e-2 |plain|); at the "
-        f"prefill shape a row's max|kernel - plain| {row:.3e} of its "
-        f"rms(plain) (bound {FLASH_ROW_REL})")
+        f"(f32, bf16), strided views and deepseek-v3's prefill shape: "
+        f"max|kernel - plain| f32 {worst[torch.float32]:.3e} (tol 3e-5 + "
+        f"3e-5 |plain|), bf16 {worst[torch.bfloat16]:.3e} (tol 2e-2 + 2e-2 "
+        f"|plain|), {mla_cases} bf16 cases and the views on the d_qk 192 / "
+        f"d_v 128 route; at the prefill shape a row's max|kernel - plain| "
+        f"{row:.3e} of its rms(plain) (bound {FLASH_ROW_REL})")
     log(f"[flash] deepseek-v3-671b prefill shape {case[:6]}, d_v {MLA_DV}, "
-        f"bf16 causal (wgmma + TMA, padded to d {dp}): kernel "
-        f"{res['ms'] * 1e3:.2f} us (on inputs padded beforehand, without "
-        f"the wrapper's padding copies, {res['prepadded_ms'] * 1e3:.2f} "
-        f"us), plain {res['plain_ms'] * 1e3:.2f} us, "
-        f"scaled_dot_product_attention (is_causal) "
-        f"{res['library_ms'] * 1e3:.2f} us, bound {res['bound_ms'] * 1e3:.2f}"
-        f" us ({flops / 1e9:.2f} GFLOP at the real head dims, "
-        f"{res['bound_by']}); kernel at "
+        f"bf16 causal (wgmma + TMA, the d_qk 192 / d_v 128 route, read in "
+        f"place): kernel {res['ms'] * 1e3:.2f} us; the d 256 route on the "
+        f"inputs zero-padded to {dp} beforehand "
+        f"{res['d256_prepadded_ms'] * 1e3:.2f} us; plain "
+        f"{res['plain_ms'] * 1e3:.2f} us; scaled_dot_product_attention "
+        f"(is_causal) {res['library_ms'] * 1e3:.2f} us (backend "
+        f"{res['library_backend']}); bound {res['bound_ms'] * 1e3:.2f} us "
+        f"({flops / 1e9:.2f} GFLOP, {res['bound_by']}); kernel at "
         f"{100 * res['bound_ms'] / res['ms']:.1f} % of its bound, "
-        f"{res['library_ms'] / res['ms']:.2f}x SDPA's speed")
+        f"{res['library_ms'] / res['ms']:.2f}x SDPA's speed, "
+        f"{res['d256_prepadded_ms'] / res['ms']:.2f}x the padded d 256 "
+        f"route's")
     del q, k, v, qt, kt, vt, qp, kp, vp
     _release()
     return res
@@ -2499,9 +2572,10 @@ def phase_flash_bwd_kernel(dev, flush, bw) -> dict:
     smi_sample("flash-bwd")
     k_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse),
                    flush)
+    dp = FLASH_TRAIN[5]
     fma_ms = time_ms(lambda: fa._backward(q, k, v, out, dout, lse,
-                                          ("fma", FLASH_TRAIN[5]), True, None,
-                                          None), flush)
+                                          ("fma", dp, dp), True, None, None),
+                     flush)
     p_ms = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, dout), flush)
     l_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
                                                retain_graph=True), flush)
@@ -2530,13 +2604,33 @@ def phase_flash_bwd_kernel(dev, flush, bw) -> dict:
 
 def flash_bwd_mla(dev, flush, bw, gen) -> dict:
     """The backward with v's head dim unlike q's (dv of v's shape): on
-    FLASH_DV_GRID (f32 on fp32 FMA, bf16 on wgmma) and at deepseek-v3's
-    training shape (bf16, N 8, 32/32 heads, d 192, d_v 128) against the
-    plain backward, two runs bitwise equal; timed there beside SDPA's
-    backward (``is_causal``), the plain backward and its bound."""
+    FLASH_DV_GRID (f32 on fp32 FMA, bf16 on wgmma: d_qk 129-192 with d_v <=
+    128 on the d_qk 192 / d_v 128 route, by its launch counter), on strided
+    views (``mla_views``) and at deepseek-v3's training shape (bf16, N 8,
+    32/32 heads, d 192, d_v 128) against the plain backward, two runs
+    bitwise equal; timed there beside the d 256 route on the operands
+    zero-padded beforehand (the route that ran MLA before), SDPA's backward
+    (``is_causal``; the backend it picks is logged), the plain backward and
+    its bound."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa, ref
     worst = {}
+    mla_cases = 0
+
+    def check_grads(label, kind, got, want, again, inputs, tol):
+        for name, a, b, c, t in zip(("dq", "dk", "dv"), got, want, again,
+                                    inputs):
+            check(a.shape == t.shape, f"flash_attention_bwd {label}: {name} "
+                  f"{tuple(a.shape)}, want {tuple(t.shape)}")
+            diff = (a.float() - b.float()).abs()
+            err = diff.max().item()
+            check(bool((diff <= tol + tol * b.float().abs()).all()),
+                  f"flash_attention_bwd {label} ({kind} route) {name}: "
+                  f"max|kernel - plain| {err} over {tol} + {tol} |plain|")
+            check(torch.equal(a, c), f"flash_attention_bwd {label} ({kind} "
+                  f"route) {name}: two runs differ")
+            worst[kind] = max(worst.get(kind, 0.0), err)
+
     for case, dv in FLASH_DV_GRID + [(FLASH_TRAIN_MLA, MLA_DV)]:
         kw = dict(zip(("causal", "window", "softcap"), case[6:]))
         for dt in (torch.float32, torch.bfloat16):
@@ -2545,65 +2639,89 @@ def flash_bwd_mla(dev, flush, bw, gen) -> dict:
             q, k, v = flash_inputs(case, dt, gen, dev, dv)
             out, lse = fa.flash_attention_lse(q, k, v, **kw)
             dout = torch.randn(out.shape, generator=gen, device=dev).to(dt)
+            kind = fa.route(dt, case[5], dv)[0]
+            r0 = fa.bwd_route_launches[kind]
             got = fa.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
             again = fa.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+            check(fa.bwd_route_launches[kind] == r0 + 2,
+                  f"flash_attention_bwd {case} d_v {dv} {dt}: not on its "
+                  f"route ({kind})")
+            mla_cases += kind == "wgmma192"
             want = ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
-            tol = FLASH_BWD_TOL[dt]
-            route = fa.bwd_route(dt, max(case[5], dv))[0]
-            for name, a, b, c, t in zip(("dq", "dk", "dv"), got, want,
-                                        again, (q, k, v)):
-                check(a.shape == t.shape, f"flash_attention_bwd {case} d_v "
-                      f"{dv}: {name} {tuple(a.shape)}, want "
-                      f"{tuple(t.shape)}")
-                diff = (a.float() - b.float()).abs()
-                err = diff.max().item()
-                check(bool((diff <= tol + tol * b.float().abs()).all()),
-                      f"flash_attention_bwd {case} d_v {dv} {dt} ({route} "
-                      f"route) {name}: max|kernel - plain| {err} over {tol} "
-                      f"+ {tol} |plain|")
-                check(torch.equal(a, c), f"flash_attention_bwd {case} d_v "
-                      f"{dv} {dt} ({route} route) {name}: two runs differ")
-                worst[route] = max(worst.get(route, 0.0), err)
+            check_grads(f"{case} d_v {dv} {dt}", kind, got, want, again,
+                        (q, k, v), FLASH_BWD_TOL[dt])
             del got, again, want
+    check(mla_cases == 1 + sum(d > 128 and dv <= 128
+                               for (_, _, _, _, _, d, *_), dv in
+                               FLASH_DV_GRID),
+          f"the d_qk 192 / d_v 128 backward ran {mla_cases} bf16 cases")
+    vq, vk, vv = mla_views(gen, dev)
+    kw = dict(window=40, softcap=4.0)
+    vout, vlse = fa.flash_attention_lse(vq, vk, vv, **kw)
+    vdout = torch.randn(vout.shape[:3] + (2 * MLA_DV,), generator=gen,
+                        device=dev).bfloat16()[..., MLA_DV:]
+    check(fa._rows_aligned(vdout) and not vdout.is_contiguous(),
+          "the strided cotangent is no TMA view")
+    r0 = fa.bwd_route_launches["wgmma192"]
+    got = fa.flash_attention_bwd(vq, vk, vv, vout, vdout, vlse, **kw)
+    again = fa.flash_attention_bwd(vq, vk, vv, vout, vdout, vlse, **kw)
+    check(fa.bwd_route_launches["wgmma192"] == r0 + 2,
+          "the strided views' backward is not on the d_qk 192 / d_v 128 "
+          "route")
+    check_grads("on strided views", "wgmma192", got,
+                ref.flash_attention_bwd_ref(vq, vk, vv, vdout, **kw), again,
+                (vq, vk, vv), FLASH_BWD_TOL[torch.bfloat16])
+    del vq, vk, vv, vout, vlse, vdout, got, again
     _release()
     case = FLASH_TRAIN_MLA
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                   for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     dot = dout.transpose(1, 2).contiguous()
-    # every operand zero-padded to the route's head dim beforehand: the
-    # kernels' own time, without the wrapper's padding copies
+    # every operand zero-padded to 256 beforehand: the d 256 route, which
+    # ran MLA's shape before the d_qk 192 / d_v 128 route, without the
+    # padding copies it then made
     dp = fa.bwd_route(q.dtype, case[5])[1]
     padded = [F.pad(t, (0, dp - t.shape[-1])) for t in (q, k, v, out, dout)]
     res = work_bound(flash_bwd_work(case, MLA_DV), bw)
     smi_sample("flash-bwd-mla")
+    lib_bwd = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                          retain_graph=True)
     res.update(
         max_abs_err=max(worst.values()),
         ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse),
                    flush),
-        prepadded_ms=time_ms(lambda: fa.flash_attention_bwd(*padded, lse),
-                             flush),
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            lib_out, (qt, kt, vt), dot, retain_graph=True), flush),
+        d256_prepadded_ms=time_ms(
+            lambda: fa.flash_attention_bwd(*padded, lse), flush),
+        library_ms=time_ms(lib_bwd, flush),
         plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, dout),
                          flush))
+    res["library_backend"] = sdpa_backend(lib_bwd, qt, kt, vt,
+                                          is_causal=True)
     flops = flash_bwd_work(case, MLA_DV)[0]
     log(f"[flash-bwd] v head dim unlike q's on {len(FLASH_DV_GRID)} grid "
-        f"shapes and deepseek-v3's training shape: max|kernel - plain| "
-        f"wgmma route {worst['wgmma']:.3e} (tol 2e-2 + 2e-2 |plain|), "
-        f"fp32-FMA route {worst['fma']:.3e} (tol 1e-4 + 1e-4 |plain|); dv "
-        f"of v's shape, every case bitwise equal over two runs")
+        f"shapes, strided views and deepseek-v3's training shape: "
+        f"max|kernel - plain| wgmma routes "
+        f"{max(worst['wgmma'], worst['wgmma192']):.3e} (d_qk 192 / d_v 128 "
+        f"{worst['wgmma192']:.3e}; tol 2e-2 + 2e-2 |plain|), fp32-FMA route "
+        f"{worst['fma']:.3e} (tol 1e-4 + 1e-4 |plain|); dv of v's shape, "
+        f"{mla_cases} bf16 cases and the views on the d_qk 192 / d_v 128 "
+        f"route, every case bitwise equal over two runs")
     log(f"[flash-bwd] deepseek-v3-671b training shape {case[:6]}, d_v "
-        f"{MLA_DV}, bf16 causal (wgmma route, padded to d {dp}): kernel "
-        f"{res['ms'] * 1e3:.2f} us (on operands padded beforehand, without "
-        f"the wrapper's padding copies, {res['prepadded_ms'] * 1e3:.2f} "
-        f"us), plain backward "
-        f"{res['plain_ms'] * 1e3:.2f} us, scaled_dot_product_attention's "
-        f"backward (is_causal) {res['library_ms'] * 1e3:.2f} us, bound "
-        f"{res['bound_ms'] * 1e3:.2f} us ({flops / 1e9:.2f} GFLOP at the "
-        f"real head dims, {res['bound_by']}); kernel at "
+        f"{MLA_DV}, bf16 causal (the d_qk 192 / d_v 128 route, read in "
+        f"place): kernel {res['ms'] * 1e3:.2f} us; the d 256 route on the "
+        f"operands zero-padded to {dp} beforehand "
+        f"{res['d256_prepadded_ms'] * 1e3:.2f} us; plain backward "
+        f"{res['plain_ms'] * 1e3:.2f} us; scaled_dot_product_attention's "
+        f"backward (is_causal) {res['library_ms'] * 1e3:.2f} us (backend "
+        f"{res['library_backend']}); bound {res['bound_ms'] * 1e3:.2f} us "
+        f"({flops / 1e9:.2f} GFLOP, {res['bound_by']}); kernel at "
         f"{100 * res['bound_ms'] / res['ms']:.2f} % of its bound, "
-        f"{res['library_ms'] / res['ms']:.2f}x SDPA's speed")
+        f"{res['library_ms'] / res['ms']:.2f}x SDPA's speed, "
+        f"{res['d256_prepadded_ms'] / res['ms']:.2f}x the padded d 256 "
+        f"route's")
+    profile_device_time("flash-bwd-mla", lambda: fa.flash_attention_bwd(
+        q, k, v, out, dout, lse))
     del q, k, v, out, dout, lse, qt, kt, vt, lib_out, dot, padded
     _release()
     return res
@@ -2638,8 +2756,8 @@ def time_flash_bwd_gemma3(dev, flush, bw, gen) -> dict:
             ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, out_, dout,
                                                       lse, **kw), flush),
             fma_ms=time_ms(lambda: fa._backward(
-                q, k, v, out_, dout, lse, ("fma", route[1]), True, case[7],
-                None), flush),
+                q, k, v, out_, dout, lse, ("fma", route[1], route[1]), True,
+                case[7], None), flush),
             library_ms=time_ms(lambda: torch.autograd.grad(
                 lib_out, (qt, kt, vt), dot, retain_graph=True), flush))
         if label == "local":
@@ -3985,13 +4103,16 @@ WIDE_SERVE_ARGV = ["--layers", str(WIDE_LAYERS), "--tp", "4", "--batch",
 
 
 def flash_counts(reset: bool = False) -> dict:
-    """The flash kernels' launch counts (zeroed first with ``reset``)."""
+    """The flash kernels' launch counts, forward and backward, in all and
+    by route (zeroed first with ``reset``)."""
     from repro_torch.kernels.flash_attention import ops as fa
     if reset:
         fa.launches = fa.bwd_launches = 0
-        for k in fa.bwd_route_launches:
-            fa.bwd_route_launches[k] = 0
+        for counter in (fa.route_launches, fa.bwd_route_launches):
+            for k in counter:
+                counter[k] = 0
     return dict(fwd=fa.launches, bwd=fa.bwd_launches,
+                **{f"fwd_{k}": v for k, v in fa.route_launches.items()},
                 **{f"bwd_{k}": v for k, v in fa.bwd_route_launches.items()})
 
 
@@ -4049,7 +4170,8 @@ def serve_dense(dev, arch: str, argv: list) -> dict:
         f"from seed {args.seed} initialised on the card in {init_s:.1f} s")
     flash_counts(reset=True)
     out = ex.run(args, log=lambda *_: None, sess=sess)
-    launches = flash_counts()["fwd"]
+    counts = flash_counts()
+    launches = counts["fwd"]
     waves = len(out["prefill_ms"])
     check(launches == out["flash_launches"] == cfg.n_layers * waves,
           f"[{tag}] {arch}: flash launches {launches}, want {cfg.n_layers} "
@@ -4082,7 +4204,7 @@ def serve_dense(dev, arch: str, argv: list) -> dict:
         f"{PREFILL_REL})")
     del pre, got, want, sess
     _release()
-    return dict(launches=launches, waves=waves, gap=gap,
+    return dict(launches=launches, waves=waves, gap=gap, counts=counts,
                 prefill_ms=out["prefill_ms"],
                 decode_ms=out["decode_ms_per_token_median"],
                 peak_gb=out["peak_mem_gb"])
@@ -4445,13 +4567,18 @@ def phase_mla(dev) -> dict:
     out = serve_dense(dev, "deepseek-v3-671b", DEEPSEEK_SERVE_ARGV)
     out.update(moe_waves(dev, "deepseek-v3-671b", DEEPSEEK_SERVE_ARGV,
                          DEEPSEEK_DECODE_STEPS, "mla"))
-    check(out["launches"] == DEEPSEEK_LAYERS,
-          f"[mla] flash launches {out['launches']}, want {DEEPSEEK_LAYERS}")
+    check(out["launches"] == DEEPSEEK_LAYERS
+          == out["counts"]["fwd_wgmma192"],
+          f"[mla] flash launches {out['launches']}, on the d_qk 192 / d_v 128 "
+          f"route {out['counts']['fwd_wgmma192']}, want {DEEPSEEK_LAYERS} "
+          f"each")
     log(f"[mla] deepseek-v3-671b served: prefill {out['prefill_ms'][0]:.1f} "
         f"ms (the wave, with its capture; a replay "
         f"{out['prefill_replay_ms']:.1f} ms), decode {out['decode_ms']:.2f} "
         f"ms/step, peak {out['peak_gb']:.2f} GB, flash launches "
-        f"{out['launches']}, dropped by the capacity cut {out['dropped']}")
+        f"{out['launches']} (on the d_qk 192 / d_v 128 route "
+        f"{out['counts']['fwd_wgmma192']}), dropped by the capacity cut "
+        f"{out['dropped']}")
     # at its own capacity (tokens drop), and with room for every token (E /
     # k = 4), where decode must equal the prefill of the extended sequence
     phase_serve_smoke(dev, "deepseek-v3-671b", 24, 16)
@@ -4502,10 +4629,10 @@ def main() -> int:
     bw = card_bandwidth(name)
     swe_ptxas = ptxas_summary(swe_ops.LIBRARY.log)
     log(f"[build] swe_step registers and spills: {swe_ptxas}")
-    # the forward's wgmma kernel at d 64 and 128 and its d 256 form; the
-    # backward's dQ and dK/dV kernels at each
-    check_wgmma_build("flash forward", flash_ops.LIBRARY, 3)
-    check_wgmma_build("flash backward", flash_ops.BWD_LIBRARY, 6)
+    # the forward's wgmma kernel at d 64 and 128, its d 256 form and its
+    # d_qk 192 / d_v 128 form; the backward's dQ and dK/dV kernels at each
+    check_wgmma_build("flash forward", flash_ops.LIBRARY, 4)
+    check_wgmma_build("flash backward", flash_ops.BWD_LIBRARY, 8)
     # all eight of the SSD backward's kernels: the f32 route's U, grads
     # and ddt, the bf16 route's, and the shared hand-off and dA
     ssd_bwd_ptxas = check_wgmma_build(
@@ -4798,12 +4925,16 @@ def main() -> int:
         "gemma3_training_launches": gemma3_train["fwd"],
         "moe_serving_launches": {"mixtral-8x22b": mixtral["launches"],
                                  "deepseek-v3-671b": deepseek["launches"]},
+        "mla_serving_wgmma192_launches": deepseek["counts"]["fwd_wgmma192"],
         "mla_smoke_training_launches":
             deepseek["training_step"]["counts"]["fwd"],
         "routes": {"bf16, d 64 and 128": "wgmma + TMA "
                    "(flash_attention_wgmma_kernel)",
                    "bf16, d 256": "wgmma + TMA, a producer warpgroup "
                    "(flash_attention_wgmma256_kernel)",
+                   "bf16, d_qk 192 and d_v 128": "wgmma + TMA, a producer "
+                   "warpgroup, read in place "
+                   "(flash_attention_wgmma192_kernel)",
                    "f32": "fp32 FMA (flash_attention_kernel)"},
         **flash_timing})
     rows.append({
@@ -4832,6 +4963,9 @@ def main() -> int:
                    "flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma)",
                    "bf16, d 256": "wgmma + TMA (flash_bwd_stats, "
                    "flash_bwd_dq_wgmma256, flash_bwd_dkdv_wgmma256)",
+                   "bf16, d_qk 192 and d_v 128": "wgmma + TMA, read in place "
+                   "(flash_bwd_stats at 128, flash_bwd_dq_wgmma192, "
+                   "flash_bwd_dkdv_wgmma192)",
                    "f32": "fp32 FMA (flash_bwd_delta, flash_bwd_dq, "
                    "flash_bwd_dkdv)"},
         **flash_bwd_timing})

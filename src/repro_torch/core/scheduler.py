@@ -54,13 +54,14 @@ class Phase:
 # Counters under a graph
 # ----------------------------------------------------------------------
 
-# The kernels' launch counters: (module, key), key naming a dict entry.
+# The kernels' launch counters: (module, attribute), an int or a dict of
+# ints (by kernel or by route), every entry of which is counted.
 _KERNEL_COUNTERS = (
-    ("repro_torch.kernels.swe_step.ops", None),
-    ("repro_torch.kernels.quant.ops", "quantize"),
-    ("repro_torch.kernels.quant.ops", "dequantize"),
-    ("repro_torch.kernels.flash_attention.ops", None),
-    ("repro_torch.kernels.ssd_scan.ops", None),
+    ("repro_torch.kernels.swe_step.ops", "launches"),
+    ("repro_torch.kernels.quant.ops", "launches"),
+    ("repro_torch.kernels.flash_attention.ops", "launches"),
+    ("repro_torch.kernels.flash_attention.ops", "route_launches"),
+    ("repro_torch.kernels.ssd_scan.ops", "launches"),
 )
 # Registry counters a replay runs again: the collectives' and the wire's.
 _COUNTER_PREFIXES = ("comm.", "wire.")
@@ -68,9 +69,12 @@ _COUNTER_PREFIXES = ("comm.", "wire.")
 
 def _read_counts() -> dict:
     out: dict = {}
-    for mod, key in _KERNEL_COUNTERS:
-        m = importlib.import_module(mod)
-        out[mod, key] = m.launches if key is None else m.launches[key]
+    for mod, attr in _KERNEL_COUNTERS:
+        c = getattr(importlib.import_module(mod), attr)
+        if isinstance(c, dict):
+            out.update({(mod, attr, key): v for key, v in c.items()})
+        else:
+            out[mod, attr, None] = c
     for c in obs_metrics.registry().counters(_COUNTER_PREFIXES):
         out[c] = c.value
     return out
@@ -81,11 +85,12 @@ def _add_counts(delta: dict, sign: int = 1) -> None:
         if isinstance(k, obs_metrics.Counter):
             k.inc(sign * d)
             continue
-        m = importlib.import_module(k[0])
-        if k[1] is None:
-            m.launches += sign * d
+        mod, attr, key = k
+        m = importlib.import_module(mod)
+        if key is None:
+            setattr(m, attr, getattr(m, attr) + sign * d)
         else:
-            m.launches[k[1]] += sign * d
+            getattr(m, attr)[key] += sign * d
 
 
 # ----------------------------------------------------------------------

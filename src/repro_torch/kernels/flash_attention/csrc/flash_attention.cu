@@ -5,14 +5,15 @@
 // flash_attention_pallas (body _kernel), the JAX package's Pallas TPU
 // kernel, with its GQA wrapper repro/kernels/flash_attention/ops.py.
 //
-// Layout, the model's: q (N, S, H, d), k and v (N, T, KV, d), read through
-// three strides each with a unit inner stride; out (N, S, H, d) in q's
-// dtype.  N is stacked ranks x batch.  Grouped-query attention reads kv
-// head h / (H / KV) for q head h: the repeated K and V of the JAX wrapper
-// are never materialised.  f32 or bf16 inputs; every product, the running
-// max m, the running sum l and the accumulator are fp32.  d is one of 16,
-// 32, 64, 128, 256 for f32 and one of 64, 128, 256 for bf16 (the wrapper
-// zero-pads any other d up to one of them).
+// Layout, the model's: q (N, S, H, d), k (N, T, KV, d) and v (N, T, KV,
+// d_v), read through three strides each with a unit inner stride; out (N,
+// S, H, d_v) in q's dtype.  N is stacked ranks x batch.  Grouped-query
+// attention reads kv head h / (H / KV) for q head h: the repeated K and V
+// of the JAX wrapper are never materialised.  f32 or bf16 inputs; every
+// product, the running max m, the running sum l and the accumulator are
+// fp32.  d = d_v is one of 16, 32, 64, 128, 256 for f32 and one of 64,
+// 128, 256 for bf16, or bf16 d 192 with d_v 128 (MLA's); the wrapper
+// zero-pads any other pair up to one of them (ops.py::route).
 //
 // Semantics, those of the Pallas kernel:
 // - s = (q . k) * scale, then the tanh softcap c * tanh(s / c) when c != 0;
@@ -82,6 +83,35 @@
 //   m64n256k16 a k-step.  Items are walked in the backward's snake order
 //   (every other round of blocks reversed), which evens out the causal
 //   items' lengths across blocks;
+// - bf16 with q/k head dim 192 and v head dim 128 (deepseek-v3's MLA:
+//   128 nope + 64 rope; bf16 pairs with 128 < d <= 192 and d_v <= 128
+//   are padded to it), flash_attention_wgmma192_kernel.  At its prefill
+//   shape (N 16, S = T = 1024, 32 q heads over 32 kv heads, causal) it
+//   must move 671 MB and do 172 GFLOP, ~256 operations per byte: bytes,
+//   just, and no K/V tile is shared by two heads.  The d 256 form on
+//   inputs zero-padded to 256 did 1.6x the work and spent ~46 % of its
+//   call on the padding copies.  This form maps q and k at 192 columns
+//   (three 64-column slices) and v at 128 (two), so it reads MLA's
+//   tensors in place and does no product over a padded column.  Shared
+//   memory: two Q buffers (48 KB each) and a 3-stage ring of 64-row K
+//   (24 KB) and V (16 KB) tiles, 216 KB.  Registers a consumer thread: O
+//   64 (at n 128), S 32, P 16, against the d 256 form's O of 128; that
+//   room buys FA3's intra-warpgroup overlap: a warpgroup issues tile i's
+//   S = Q . K^T, rescales O by tile i - 1's softmax while S runs, issues
+//   tile i - 1's O += P . V (wgmma m64n128k16), waits for S alone, and
+//   runs tile i's softmax while P . V runs.  Items are (n, head) slowest
+//   and their q tiles longest first, so that the blocks at work read the
+//   K and V of few (n, kv head)s, which stay in L2 (with 32 kv heads a
+//   rank each q head has its own), and the snake order still evens out
+//   the blocks' shares (q tile lengths 2, 4, ..., 16 kv tiles pair up to
+//   18 a round at 132 SMs; examples/flash_tiling_torch.py times this
+//   order against the other forms').  The softmax is theirs
+//   (wg::softmax_probs).  Tried and dropped as slower: 128-row kv tiles with
+//   one Q buffer (they spill at 232 registers), FA3's ping-pong of the
+//   two warpgroups, a second S buffer to issue tile i + 1's S before tile
+//   i's softmax (ptxas serialises the wgmmas, C7513 or C7515), three
+//   consumer warpgroups (they spill at 160 registers); Q held as register
+//   fragments gained next to nothing;
 // - f32 inputs, which must hold 3e-5 against the plain version (no TF32 or
 //   bf16 tensor cores), run on fp32 FMA, flash_attention_kernel:
 //   - one block of 256 threads per (q tile of 64 rows, q head, n); a loop
@@ -406,15 +436,18 @@ __device__ __forceinline__ void score_tile(float (&sc)[R], uint32_t& ok,
 }
 
 // The online-softmax update by one 64-row score tile of R registers a
-// thread (the accumulator fragment): scale, softcap and mask it (the mask
-// only where `full` is false, a tile some score of which is hidden), move
-// (m, l) and rescale o; the scores become p = 2^(score - m), 0 where hidden
-template <int R, int NO>
-__device__ __forceinline__ void softmax_tile(float (&sc)[R], float (&o)[NO],
-                                             float (&m)[2], float (&l)[2],
-                                             const Args& a, bool full,
-                                             bool cap, float scale2, float f,
-                                             int qp0, int k0, int c) {
+// thread (the accumulator fragment), but for the output: scale, softcap
+// and mask it (the mask only where `full` is false, a tile some score of
+// which is hidden) and move (m, l); the scores become p = 2^(score - m), 0
+// where hidden, and corr the factor by which the output's rows rescale
+template <int R>
+__device__ __forceinline__ void softmax_probs(float (&sc)[R],
+                                              float (&corr)[2],
+                                              float (&m)[2], float (&l)[2],
+                                              const Args& a, bool full,
+                                              bool cap, float scale2,
+                                              float f, int qp0, int k0,
+                                              int c) {
   float rmax[2] = {NEG_INF, NEG_INF};
   uint32_t ok = 0;
   if (full) {
@@ -428,7 +461,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[R], float (&o)[NO],
     else
       score_tile<true, false>(sc, ok, rmax, a, scale2, qp0, k0, c);
   }
-  float corr[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     rmax[e] = fmax_nan(rmax[e], __shfl_xor_sync(0xffffffffu, rmax[e], 1));
@@ -459,8 +491,26 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[R], float (&o)[NO],
     rsum[e] += __shfl_xor_sync(0xffffffffu, rsum[e], 2);
     l[e] = l[e] * corr[e] + rsum[e];
   }
+}
+
+// o's rows times corr (the accumulator fragment's rows qp0, qp0 + 8)
+template <int NO>
+__device__ __forceinline__ void rescale(float (&o)[NO],
+                                        const float (&corr)[2]) {
 #pragma unroll
   for (int r = 0; r < NO; ++r) o[r] *= corr[(r >> 1) & 1];
+}
+
+// softmax_probs, then o rescaled: the update of a tile whose P . V follows
+template <int R, int NO>
+__device__ __forceinline__ void softmax_tile(float (&sc)[R], float (&o)[NO],
+                                             float (&m)[2], float (&l)[2],
+                                             const Args& a, bool full,
+                                             bool cap, float scale2, float f,
+                                             int qp0, int k0, int c) {
+  float corr[2];
+  softmax_probs(sc, corr, m, l, a, full, cap, scale2, f, qp0, k0, c);
+  rescale(o, corr);
 }
 
 // the probability fragments of keys 16kt .. 16kt + 15 are the A fragment of
@@ -945,6 +995,303 @@ flash_attention_wgmma256_kernel(const __grid_constant__ CUtensorMap tmq,
   }
 }
 
+// ---------------------------------------------------------------------
+// bf16, q/k head dim 192 and v head dim 128 (MLA): read in place; inside a
+// consumer warpgroup the softmax of one tile runs while P . V of the tile
+// before it does
+// ---------------------------------------------------------------------
+
+namespace wg192 {
+
+constexpr int DQK = 192, DV = 128;
+constexpr int QS = DQK / 64, VS = DV / 64;  // 64-column slices
+constexpr int BM = wg::BM, BN = wg::BN;     // q rows an item, kv rows a tile
+
+// QBUF Q buffers of BM rows (QS slices), then the K stages (QS slices of BN
+// rows), then the V stages (VS slices), then the mbarriers: Q full and Q
+// empty per buffer, then per stage K full, V full, K empty, V empty
+template <int QBUF, int STAGES>
+struct Smem {
+  static constexpr uint32_t Q_BYTES = BM * DQK * 2;  // 48 KB
+  static constexpr uint32_t K_BYTES = BN * DQK * 2;  // 24 KB
+  static constexpr uint32_t V_BYTES = BN * DV * 2;   // 16 KB
+  static constexpr uint32_t K_OFF = QBUF * Q_BYTES;
+  static constexpr uint32_t V_OFF = K_OFF + STAGES * K_BYTES;
+  static constexpr uint32_t BAR_OFF = V_OFF + STAGES * V_BYTES;
+  static constexpr int BARS = 2 * QBUF + 4 * STAGES;
+  // + 1024 to align the dynamic buffer's start
+  static constexpr size_t BYTES = BAR_OFF + 8 * BARS + 1024;
+};
+
+// Work item w of the nq * H * N: (n, q head) slowest, then its q tiles
+// longest first, so that the blocks at work at one time read the K and V
+// of few (n, kv head)s, which stay in L2 between them
+__device__ __forceinline__ wg::Item item(int w, int nq, int H,
+                                         const Args& a) {
+  wg::Item it;
+  const int nh = w / nq;
+  it.q0 = (nq - 1 - w % nq) * BM;
+  it.h = nh % H;
+  it.n = nh / H;
+  // kv tiles that can hold a visible key for some row of this item
+  int hi = a.T;
+  if (a.causal) hi = min(hi, it.q0 + BM);
+  it.lo = 0;
+  if (a.has_window) it.lo = max(0, it.q0 - a.window + 1) / BN * BN;
+  it.nt = hi > it.lo ? (hi - it.lo + BN - 1) / BN : 0;
+  return it;
+}
+
+// S (64 x BN) = Q (64 rows of the warpgroup) . K^T over the QS 64-column
+// slices, one commit group a slice (four descriptors of each operand live
+// at once)
+__device__ __forceinline__ void issue_qk(float (&sc)[BN / 2], uint32_t q_wg,
+                                         uint32_t k_s) {
+  using namespace hopper;
+  fence_regs(sc);
+#pragma unroll
+  for (int hf = 0; hf < QS; ++hf) {
+    uint64_t dq[4], dk[4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      dq[kk] = desc_sw128(q_wg + hf * BM * wg::ROW + kk * 32, 16, 1024);
+      dk[kk] = desc_sw128(k_s + hf * BN * wg::ROW + kk * 32, 16, 1024);
+    }
+    fence_regs(dq);
+    fence_regs(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n64(sc, dq[kk], dk[kk], hf > 0 || kk > 0);
+    wgmma_commit();
+  }
+}
+
+// O (64 x DV) += P (64 x BN, bf16 registers) . V: V read MN-major over its
+// VS slices (BN * 128 bytes apart), a k-step 16 kv rows; one commit group
+__device__ __forceinline__ void issue_pv(float (&o)[DV / 2],
+                                         uint32_t (&p)[BN / 16][4],
+                                         uint32_t v_s) {
+  using namespace hopper;
+  uint64_t dv[BN / 16];
+#pragma unroll
+  for (int kt = 0; kt < BN / 16; ++kt)
+    dv[kt] = desc_sw128(v_s + kt * 16 * wg::ROW, BN * wg::ROW, 1024);
+  fence_regs(dv);
+#pragma unroll
+  for (int kt = 0; kt < BN / 16; ++kt) fence_regs(p[kt]);
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kt = 0; kt < BN / 16; ++kt) wgmma_rs_n128(o, p[kt], dv[kt]);
+  wgmma_commit();
+}
+
+}  // namespace wg192
+
+// The forward at q/k head dim 192 and v head dim 128 (see the header): q
+// and k mapped at 192 columns, v and the output at 128, nothing padded; a
+// producer warpgroup at 40 registers and two consumer warpgroups at 232,
+// QBUF Q buffers and a STAGES-deep ring of 64-row kv tiles (the launcher
+// takes 2 and 3; examples/flash_tiling_torch.py times 1 and 4).  A
+// consumer warpgroup walks the kv tiles [ia, ib) that show some of its
+// rows a key: it issues tile i's S, rescales O by tile i - 1's softmax
+// while S runs, issues tile i - 1's P . V, waits for S alone and runs tile
+// i's softmax while P . V runs (FA3's intra-warpgroup overlap).  The tiles
+// before ia and from ib on only take part in the ring's hand-shakes.
+template <int QBUF, int STAGES>
+__global__ void __launch_bounds__(wg256::THREADS, 1)
+flash_attention_wgmma192_kernel(const __grid_constant__ CUtensorMap tmq,
+                                const __grid_constant__ CUtensorMap tmk,
+                                const __grid_constant__ CUtensorMap tmv,
+                                const Args a, const int nq, const int H,
+                                const int N) {
+  using namespace hopper;
+  using L = wg192::Smem<QBUF, STAGES>;
+  constexpr int BM = wg192::BM, BN = wg192::BN, ROW = wg::ROW;
+  constexpr int CONSUMERS = wg256::CONSUMERS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = base + L::K_OFF, sV = base + L::V_OFF;
+  const uint32_t bars = base + L::BAR_OFF;
+  auto q_full = [bars](int b) { return bars + 8u * b; };
+  auto q_empty = [bars](int b) { return bars + 8u * (QBUF + b); };
+  auto k_full = [bars](int s) { return bars + 8u * (2 * QBUF + s); };
+  auto v_full = [bars](int s) {
+    return bars + 8u * (2 * QBUF + STAGES + s);
+  };
+  auto k_empty = [bars](int s) {
+    return bars + 8u * (2 * QBUF + 2 * STAGES + s);
+  };
+  auto v_empty = [bars](int s) {
+    return bars + 8u * (2 * QBUF + 3 * STAGES + s);
+  };
+  const int items = nq * H * N;
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < QBUF; ++b) {
+      mbar_init(q_full(b), 1);
+      mbar_init(q_empty(b), 4 * CONSUMERS);  // one arrival a consumer warp
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 4 * CONSUMERS);
+      mbar_init(v_empty(s), 4 * CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // warp-uniform (a shuffle from lane 0): the paths split here once
+  const int wgi = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128,
+                              0);
+  if (wgi == CONSUMERS) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    regs_dec<wg256::PRODUCER_REGS>();
+    if (threadIdx.x == 128 * CONSUMERS) {
+      int tile = 0;  // tiles issued so far, across items
+      for (int j = 0, w = nth_item(0); w < items; w = nth_item(++j)) {
+        const wg::Item it = wg192::item(w, nq, H, a);
+        const int kvh = it.h / a.rep;
+        const int qb = j % QBUF;
+        mbar_wait(q_empty(qb), ((j / QBUF) & 1) ^ 1);
+        mbar_expect_tx(q_full(qb), L::Q_BYTES);
+#pragma unroll
+        for (int hf = 0; hf < wg192::QS; ++hf)
+          tma_load_4d(base + qb * L::Q_BYTES + hf * BM * ROW, &tmq,
+                      q_full(qb), 64 * hf, it.h, it.q0, it.n);
+        for (int i = 0; i < it.nt; ++i, ++tile) {
+          const int s = tile % STAGES;
+          const uint32_t free_parity = ((tile / STAGES) & 1) ^ 1;
+          const int k0 = it.lo + i * BN;
+          mbar_wait(k_empty(s), free_parity);
+          mbar_expect_tx(k_full(s), L::K_BYTES);
+#pragma unroll
+          for (int hf = 0; hf < wg192::QS; ++hf)
+            tma_load_4d(sK + s * L::K_BYTES + hf * BN * ROW, &tmk, k_full(s),
+                        64 * hf, kvh, k0, it.n);
+          mbar_wait(v_empty(s), free_parity);
+          mbar_expect_tx(v_full(s), L::V_BYTES);
+#pragma unroll
+          for (int hf = 0; hf < wg192::VS; ++hf)
+            tma_load_4d(sV + s * L::V_BYTES + hf * BN * ROW, &tmv, v_full(s),
+                        64 * hf, kvh, k0, it.n);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wgi owns q rows [q0 + 64 wgi, + 64) ----
+    regs_inc<wg256::CONSUMER_REGS>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int c = lane % 4;
+    const bool cap = a.softcap != 0.f;
+    const float scale2 = cap ? a.scale : a.scale * LOG2E;
+    const float f = cap ? 1.f : scale2;
+    // tile tl's hand-shakes alone (a tile that hides every row of this
+    // warpgroup): it must have landed before its stage is handed back
+    auto pass = [&](int tl) {
+      const int s = tl % STAGES;
+      const uint32_t parity = (tl / STAGES) & 1;
+      mbar_wait(k_full(s), parity);
+      mbar_wait(v_full(s), parity);
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(k_empty(s));
+        mbar_arrive(v_empty(s));
+      }
+    };
+    int tile = 0;
+    for (int j = 0, w = nth_item(0); w < items; w = nth_item(++j)) {
+      const wg::Item it = wg192::item(w, nq, H, a);
+      const int wq0 = it.q0 + 64 * wgi;
+      const int qp0 = wq0 + 16 * warp + lane / 4;  // rows qp0, qp0 + 8
+      const int qb = j % QBUF;
+      const uint32_t q_wg = base + qb * L::Q_BYTES + 64 * wgi * ROW;
+      // the tiles [ia, ib) show a key to some row of this warpgroup: a
+      // window hides a prefix of the item's tiles, causality a suffix
+      int ia = 0, ib = it.nt;
+      if (a.has_window)
+        while (ia < ib && it.lo + ia * BN + BN - 1 <= wq0 - a.window) ++ia;
+      if (a.causal)
+        while (ib > ia && it.lo + (ib - 1) * BN > wq0 + 63) --ib;
+      // whether tile k0 shows every row of this warpgroup its every key
+      auto full = [&](int k0) {
+        return k0 + BN <= a.T && (!a.causal || k0 + BN - 1 <= wq0) &&
+               (!a.has_window || k0 > wq0 + 63 - a.window);
+      };
+
+      float o[wg192::DV / 2], sc[BN / 2], corr[2];
+#pragma unroll
+      for (int r = 0; r < wg192::DV / 2; ++r) o[r] = 0.f;
+#pragma unroll
+      for (int r = 0; r < BN / 2; ++r) sc[r] = 0.f;
+      float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+      uint32_t p[BN / 16][4];
+
+      mbar_wait(q_full(qb), (j / QBUF) & 1);
+      for (int i = 0; i < ia; ++i) pass(tile + i);
+      if (ia < ib) {
+        // tile ia: S, then its softmax (O is still 0: nothing to rescale)
+        int tl = tile + ia, s = tl % STAGES;
+        mbar_wait(k_full(s), (tl / STAGES) & 1);
+        wg192::issue_qk(sc, q_wg, sK + s * L::K_BYTES);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(k_empty(s));
+        int k0 = it.lo + ia * BN;
+        wg::softmax_probs(sc, corr, m, l, a, full(k0), cap, scale2, f, qp0,
+                          k0, c);
+        wg::pack_p(sc, p);
+        for (int i = ia + 1; i < ib; ++i) {
+          // tile i's S; O rescaled by tile i - 1's softmax while S runs;
+          // tile i - 1's P . V; S is waited for alone
+          tl = tile + i;
+          s = tl % STAGES;
+          const int sp = (tl - 1) % STAGES;
+          mbar_wait(k_full(s), (tl / STAGES) & 1);
+          wg192::issue_qk(sc, q_wg, sK + s * L::K_BYTES);
+          wg::rescale(o, corr);
+          mbar_wait(v_full(sp), ((tl - 1) / STAGES) & 1);
+          wg192::issue_pv(o, p, sV + sp * L::V_BYTES);
+          wgmma_wait<1>();
+          fence_regs(sc);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(k_empty(s));
+          k0 = it.lo + i * BN;
+          wg::softmax_probs(sc, corr, m, l, a, full(k0), cap, scale2, f,
+                            qp0, k0, c);
+          wgmma_wait<0>();
+          fence_regs(o);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(v_empty(sp));
+          wg::pack_p(sc, p);
+        }
+        // every S has read this warpgroup's Q rows: the buffer is free for
+        // the item QBUF on; then the last tile's P . V
+        __syncwarp();
+        if (lane == 0) mbar_arrive(q_empty(qb));
+        tl = tile + ib - 1;
+        s = tl % STAGES;
+        wg::rescale(o, corr);
+        mbar_wait(v_full(s), (tl / STAGES) & 1);
+        wg192::issue_pv(o, p, sV + s * L::V_BYTES);
+        wgmma_wait<0>();
+        fence_regs(o);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(v_empty(s));
+      } else {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(q_empty(qb));
+      }
+      for (int i = ib; i < it.nt; ++i) pass(tile + i);
+      tile += it.nt;
+      wg::store_rows(o, m, l, a, it, H, qp0, c);
+    }
+  }
+}
+
 template <int D>
 cudaError_t launch(const Args& a, int N, int H, cudaStream_t stream) {
   const size_t smem = Smem<D>::BYTES;
@@ -985,27 +1332,31 @@ cudaError_t launch_wgmma(const Args& a, int N, int H, int KV,
   return cudaGetLastError();
 }
 
-template <int BN, int QBUF>
-cudaError_t launch_wgmma256(const Args& a, int N, int H, int KV,
-                            cudaStream_t stream) {
-  constexpr int D = wg256::D;
+// a forward kernel with a producer warpgroup (the d 256 and MLA forms)
+using HandoverKernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, Args,
+                                int, int, int);
+
+// Launches `kernel`, of 384 threads and `smem` bytes of dynamic shared
+// memory, one block per SM over the (q tile, head, n) items, q and k mapped
+// at d_qk columns and v at d_v, k and v in boxes of kv_rows rows.
+// setmaxnreg.inc waits for the registers the producer gave back: the block
+// must be launched with enough of them, or the consumers would wait forever
+// (ptxas sets the count from __launch_bounds__: 168 a thread)
+cudaError_t launch_handover(HandoverKernel kernel, size_t smem, int d_qk,
+                            int d_v, int kv_rows, const Args& a, int N,
+                            int H, int KV, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   cudaError_t err =
-      make_map(&tq, a.q, D, H, a.S, N, a.qs2, a.qs1, a.qs0, wg::BM);
+      make_map(&tq, a.q, d_qk, H, a.S, N, a.qs2, a.qs1, a.qs0, wg::BM);
   if (err == cudaSuccess)
-    err = make_map(&tk, a.k, D, KV, a.T, N, a.ks2, a.ks1, a.ks0, BN);
+    err = make_map(&tk, a.k, d_qk, KV, a.T, N, a.ks2, a.ks1, a.ks0, kv_rows);
   if (err == cudaSuccess)
-    err = make_map(&tv, a.v, D, KV, a.T, N, a.vs2, a.vs1, a.vs0, BN);
+    err = make_map(&tv, a.v, d_v, KV, a.T, N, a.vs2, a.vs1, a.vs0, kv_rows);
   if (err != cudaSuccess) return err;
-  const auto kernel = flash_attention_wgmma256_kernel<BN, QBUF>;
-  const size_t smem = wg256::Smem<BN, QBUF>::BYTES;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  // setmaxnreg.inc waits for the registers the producer gave back: the
-  // block must be launched with enough of them, or the consumers would wait
-  // forever (ptxas sets the count from __launch_bounds__: 168 a thread)
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
@@ -1023,6 +1374,22 @@ cudaError_t launch_wgmma256(const Args& a, int N, int H, int KV,
   return cudaGetLastError();
 }
 
+template <int BN, int QBUF>
+cudaError_t launch_wgmma256(const Args& a, int N, int H, int KV,
+                            cudaStream_t stream) {
+  return launch_handover(flash_attention_wgmma256_kernel<BN, QBUF>,
+                         wg256::Smem<BN, QBUF>::BYTES, wg256::D, wg256::D,
+                         BN, a, N, H, KV, stream);
+}
+
+template <int QBUF, int STAGES>
+cudaError_t launch_wgmma192(const Args& a, int N, int H, int KV,
+                            cudaStream_t stream) {
+  return launch_handover(flash_attention_wgmma192_kernel<QBUF, STAGES>,
+                         wg192::Smem<QBUF, STAGES>::BYTES, wg192::DQK,
+                         wg192::DV, wg::BN, a, N, H, KV, stream);
+}
+
 cudaError_t launch_d(const Args& a, int d, int N, int H,
                      cudaStream_t stream) {
   switch (d) {
@@ -1037,10 +1404,12 @@ cudaError_t launch_d(const Args& a, int d, int N, int H,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d is an instantiated head dim (the
-// wrapper zero-pads any other, ops.py::padded_head_dim).  bf16 at d = 64 or
-// 128 runs the wgmma + TMA kernel, bf16 at d = 256 its d 256 form; f32 at
-// any d the fp32-FMA kernel; anything else is refused.  Strides in
+// dtype: 0 = float32, 1 = bfloat16; d (q's and k's head dim) and dv (v's and
+// the output's) are a route's instantiated head dims (the wrapper zero-pads
+// any other, ops.py::route).  bf16 at d = dv = 64 or 128 runs the wgmma +
+// TMA kernel, bf16 at d = dv = 256 its d 256 form, bf16 at d 192 with dv
+// 128 its MLA form; f32 at any d = dv the fp32-FMA kernel; anything else is
+// refused.  Strides in
 // elements; the inner stride of every tensor is 1.  window < 0 means no
 // window, softcap 0 no softcap.  A non-null lse receives every row's
 // log-sum-exp of its scores, (N, H, S) f32 contiguous (training; the
@@ -1050,7 +1419,7 @@ cudaError_t launch_d(const Args& a, int d, int N, int H,
 // view that is not).  Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int d,
-    int N, int S, int T, int H, int KV, long long qs0, long long qs1,
+    int dv, int N, int S, int T, int H, int KV, long long qs0, long long qs1,
     long long qs2, long long ks0, long long ks1, long long ks2,
     long long vs0, long long vs1, long long vs2, long long os0,
     long long os1, long long os2, float scale, int causal, int window,
@@ -1061,6 +1430,9 @@ extern "C" int flash_attention_launch(
          vs1, vs2, os0, os1, os2, S,   T,   H / KV, scale, causal,
          window >= 0 ? 1 : 0, window, softcap, lse};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && d == wg192::DQK && dv == wg192::DV)
+    return launch_wgmma192<2, 3>(a, N, H, KV, st);
+  if (dv != d) return cudaErrorInvalidValue;
   if (dtype == 0) return launch_d(a, d, N, H, st);
   if (dtype == 1 && d == 64) return launch_wgmma<64>(a, N, H, KV, st);
   if (dtype == 1 && d == 128) return launch_wgmma<128>(a, N, H, KV, st);

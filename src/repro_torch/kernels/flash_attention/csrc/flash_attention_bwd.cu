@@ -6,8 +6,9 @@
 // defaults to False); this is the backward of the port's forward kernel,
 // flash_attention.cu, which writes the row log-sum-exp L it needs.
 //
-// Layout, the forward's: q, o, do, dq (N, S, H, D); k, v, dk, dv (N, T,
-// KV, D); L (N, H, S) f32.  f32 or bf16 inputs and outputs, fp32 inside.
+// Layout, the forward's: q, dq (N, S, H, D) and o, do (N, S, H, D_v); k,
+// dk (N, T, KV, D) and v, dv (N, T, KV, D_v); L (N, H, S) f32.  f32 or bf16
+// inputs and outputs, fp32 inside.  D_v = D but on the MLA route below.
 //
 // Semantics, the forward's masks and softcap:
 // - x = (q . k) * scale, s = c tanh(x / c) with a softcap c, else s = x;
@@ -121,6 +122,38 @@
 //   ring's stats the block takes 225 KB of the 227 it may have.
 // Both launch through the same host path (wg::launch) with the same
 // register hand-over and launch check; the stats pass runs one warp a row.
+//
+// bf16 with q/k head dim 192 and v head dim 128 (deepseek-v3's MLA; bf16
+// pairs with 128 < d <= 192 and d_v <= 128 are padded to it): the stats
+// pass at d_v 128 (it reads O and dO, 128 columns), then
+// flash_bwd_dq_wgmma192 and flash_bwd_dkdv_wgmma192, which map q, k, dq
+// and dk at 192 columns (three 64-column slices) and v, o, dO and dv at
+// 128 (two), so MLA's tensors are read in place and no product runs over a
+// padded column (the d 256 route on operands padded to 256 did 1.6x the
+// work, and the padding copies took ~0.7 ms of a 2.4 ms call).  At
+// deepseek-v3's training shape (N 8, S = T = 1024, 32 q heads over 32 kv
+// heads, causal) the five products are 224 GFLOP against 672 MB, ~333
+// operations per byte: operations, just.
+// - dQ: the d 256 kernel's single (Q, dO) buffer (48 + 32 KB), freed after
+//   the item's last S and dP, with a 2-stage ring of 64-row (K, V) tiles
+//   (24 + 16 KB): 160 KB.  S (k 192) and dP (k 128) are m64n64k16 (32 +
+//   32 registers), issued a 64-column slice at a time; dQ += dS . K is one
+//   m64n192k16 a k-step of 16 keys: 96 registers of dQ against 128 at d
+//   256, two halves of the keys as at d 128.
+// - dK/dV: dK (96 registers) and dV (64) fit one warpgroup, so each
+//   consumer warpgroup owns its own 64 kv rows, as at d 128, and the d 256
+//   kernel's shared item, staged P^T/dS^T tiles and named barrier are not
+//   needed.  The streamed q tiles are 32 rows: S^T = K . Q^T and dP^T = V
+//   . dO^T are m64n32k16 (16 + 16 registers), P^T and dS^T stay in
+//   registers as the A operands of dV += P^T . dO (m64n128k16) and dK +=
+//   dS^T . Q (m64n192k16), one k-step of 16 queries formed while the
+//   other's products run.  Two (K, V) item buffers (80 KB each) and a
+//   2-stage (Q, dO) ring (12 + 8 KB a stage) with its stats: 201 KB.
+// - Both walk their items (n, head) slowest, then q tiles (dQ) or kv tiles
+//   (dK/dV) longest first: with 32 kv heads a rank no K/V (dQ) or Q/dO
+//   (dK/dV) is shared across heads, so the blocks at work keep the tensors
+//   of few (n, head)s in L2 between them, while the snake order still
+//   evens out the causal lengths.
 //
 // f32 inputs (held to 1e-4 against the plain version: no tensor-core type
 // keeps that): fp32 FMA, every tensor contiguous (the wrapper copies), D
@@ -643,22 +676,23 @@ __device__ __forceinline__ void dq_grads(bool mask, bool cap, float (&sc)[R],
   }
 }
 
-// P^T and dS^T of score registers 16 H .. 16 H + 15 (queries 32 H .. 32 H
-// + 31 of the tile, whose l2 and delta are sl[] and sl[TILE + ]) in place,
-// kv rows kp0 and kp0 + 8, and their bf16 A fragments, k-steps 2 H and
-// 2 H + 1 of dV += P^T . dO and dK += dS^T . Q; with MASK, hidden pairs
-// give 0
-template <int H, bool MASK, bool CAP>
-__device__ __forceinline__ void dkv_grads(float (&st)[32], float (&dpt)[32],
+// P^T and dS^T of score registers R/2 H .. R/2 (H + 1) - 1 of a tile of R
+// registers a thread, 2 R queries (queries R H .. R (H + 1) - 1 of the
+// tile, whose l2 and delta are sl[] and sl[2 R + ]) in place, kv rows kp0
+// and kp0 + 8, and their bf16 A fragments, k-steps R/16 H .. R/16 (H + 1) -
+// 1 of dV += P^T . dO and dK += dS^T . Q; with MASK, hidden pairs give 0
+template <int H, bool MASK, bool CAP, int R>
+__device__ __forceinline__ void dkv_grads(float (&st)[R], float (&dpt)[R],
                                           const float* sl,
-                                          uint32_t (&pa)[4][4],
-                                          uint32_t (&ga)[4][4], const Args& a,
-                                          int q0, int kp0, int c) {
+                                          uint32_t (&pa)[R / 8][4],
+                                          uint32_t (&ga)[R / 8][4],
+                                          const Args& a, int q0, int kp0,
+                                          int c) {
 #pragma unroll
-  for (int jj = 4 * H; jj < 4 * H + 4; ++jj) {
+  for (int jj = R / 8 * H; jj < R / 8 * (H + 1); ++jj) {
     const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * jj + 2 * c);
     const float2 dl =
-        *reinterpret_cast<const float2*>(sl + TILE + 8 * jj + 2 * c);
+        *reinterpret_cast<const float2*>(sl + 2 * R + 8 * jj + 2 * c);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int r = 4 * jj + u;
@@ -675,7 +709,7 @@ __device__ __forceinline__ void dkv_grads(float (&st)[32], float (&dpt)[32],
     }
   }
 #pragma unroll
-  for (int kt = 2 * H; kt < 2 * H + 2; ++kt)
+  for (int kt = R / 16 * H; kt < R / 16 * (H + 1); ++kt)
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
       pa[kt][x] = pack_bf16(st[8 * kt + 2 * x], st[8 * kt + 2 * x + 1]);
@@ -683,13 +717,14 @@ __device__ __forceinline__ void dkv_grads(float (&st)[32], float (&dpt)[32],
     }
 }
 
-template <int H>
+template <int H, int R>
 __device__ __forceinline__ void dkv_grads(bool mask, bool cap,
-                                          float (&st)[32], float (&dpt)[32],
+                                          float (&st)[R], float (&dpt)[R],
                                           const float* sl,
-                                          uint32_t (&pa)[4][4],
-                                          uint32_t (&ga)[4][4], const Args& a,
-                                          int q0, int kp0, int c) {
+                                          uint32_t (&pa)[R / 8][4],
+                                          uint32_t (&ga)[R / 8][4],
+                                          const Args& a, int q0, int kp0,
+                                          int c) {
   if (mask) {
     if (cap) dkv_grads<H, true, true>(st, dpt, sl, pa, ga, a, q0, kp0, c);
     else dkv_grads<H, true, false>(st, dpt, sl, pa, ga, a, q0, kp0, c);
@@ -1715,6 +1750,477 @@ flash_bwd_dkdv_wgmma256(const __grid_constant__ CUtensorMap tmq,
   }
 }
 
+// ---- q/k head dim 192, v head dim 128 (MLA) -----------------------------
+
+constexpr int DQK192 = 192, DV128 = 128;
+constexpr int QS192 = DQK192 / 64, VS128 = DV128 / 64;  // 64-column slices
+
+// dQ at (192, 128): one (Q, dO) buffer of BLOCK rows (Q in QS192 slices, dO
+// in VS128), then a 2-stage ring of (K, V) tiles of TILE rows
+struct Dq192Smem {
+  static constexpr uint32_t Q_BYTES = BLOCK * DQK192 * 2;  // 48 KB
+  static constexpr uint32_t DO_BYTES = BLOCK * DV128 * 2;  // 32 KB
+  static constexpr uint32_t K_BYTES = TILE * DQK192 * 2;   // 24 KB
+  static constexpr uint32_t V_BYTES = TILE * DV128 * 2;    // 16 KB
+  static constexpr uint32_t KV_OFF = Q_BYTES + DO_BYTES;
+  static constexpr uint32_t BAR_OFF = KV_OFF + STAGES * (K_BYTES + V_BYTES);
+  static constexpr int BARS = 4 + 2 * STAGES;
+  static constexpr size_t BYTES = BAR_OFF + 8 * BARS + 1024;
+};
+
+// (n, q head) slowest, then its q tiles longest first (causal): the blocks
+// at work at one time read the K and V of few (n, kv head)s, which stay in
+// L2 between them
+__device__ __forceinline__ DqItem dq_item192(int w, int nq, const Args& a) {
+  DqItem it;
+  const int nh = w / nq;
+  it.q0 = (nq - 1 - w % nq) * BLOCK;
+  it.h = nh % a.H;
+  it.n = nh / a.H;
+  int hi = a.T;
+  if (a.causal) hi = min(hi, it.q0 + BLOCK);
+  it.lo = 0;
+  if (a.has_window) it.lo = max(0, it.q0 - a.window + 1) / TILE * TILE;
+  it.nt = hi > it.lo ? (hi - it.lo + TILE - 1) / TILE : 0;
+  return it;
+}
+
+// dQ at (192, 128) (see the header): flash_bwd_dq_wgmma's design with one
+// (Q, dO) buffer, freed after the item's last S and dP so that the next
+// item's lands during the last tile's dQ and the epilogue; S = Q . K^T over
+// three 64-column slices and dP = dO . V^T over two, a commit group a
+// slice; dQ += dS . K one m64n192k16 a k-step (96 registers of dQ), in two
+// halves of the keys as at d 128.
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wgmma192(const __grid_constant__ CUtensorMap tmq,
+                      const __grid_constant__ CUtensorMap tmdo,
+                      const __grid_constant__ CUtensorMap tmk,
+                      const __grid_constant__ CUtensorMap tmv, const Args a,
+                      const int nq) {
+  using namespace hopper;
+  using L = Dq192Smem;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::BAR_OFF;
+  auto bar = [bars](int i) { return bars + 8u * i; };
+  const int items = nq * a.H * a.N;
+  if (threadIdx.x == 0) init_bars(bars);
+  __syncthreads();
+
+  const int wgi = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128,
+                              0);
+  if (wgi == CONSUMERS) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 128 * CONSUMERS) {
+      int tile = 0;  // key tiles issued so far, across items
+      for (int j = 0, w = nth_item(0); w < items; w = nth_item(++j)) {
+        const DqItem it = dq_item192(w, nq, a);
+        const int kvh = it.h / a.rep;
+        mbar_wait(bar(bar_item_empty(0)), (j & 1) ^ 1);
+        mbar_expect_tx(bar(bar_item_full(0)), L::Q_BYTES + L::DO_BYTES);
+#pragma unroll
+        for (int hf = 0; hf < QS192; ++hf)
+          tma_load_4d(base + hf * BLOCK * ROW, &tmq, bar(bar_item_full(0)),
+                      64 * hf, it.h, it.q0, it.n);
+#pragma unroll
+        for (int hf = 0; hf < VS128; ++hf)
+          tma_load_4d(base + L::Q_BYTES + hf * BLOCK * ROW, &tmdo,
+                      bar(bar_item_full(0)), 64 * hf, it.h, it.q0, it.n);
+        for (int i = 0; i < it.nt; ++i, ++tile) {
+          const int s = tile % STAGES;
+          const int k0 = it.lo + i * TILE;
+          const uint32_t ks = base + L::KV_OFF + s * (L::K_BYTES + L::V_BYTES);
+          mbar_wait(bar(bar_empty(s)), ((tile / STAGES) & 1) ^ 1);
+          mbar_expect_tx(bar(bar_full(s)), L::K_BYTES + L::V_BYTES);
+#pragma unroll
+          for (int hf = 0; hf < QS192; ++hf)
+            tma_load_4d(ks + hf * TILE * ROW, &tmk, bar(bar_full(s)),
+                        64 * hf, kvh, k0, it.n);
+#pragma unroll
+          for (int hf = 0; hf < VS128; ++hf)
+            tma_load_4d(ks + L::K_BYTES + hf * TILE * ROW, &tmv,
+                        bar(bar_full(s)), 64 * hf, kvh, k0, it.n);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wgi owns q rows [q0 + 64 wgi, + 64) ----
+    regs_inc<CONSUMER_REGS>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int c = lane % 4;
+    const bool cap = a.softcap != 0.f;
+    const long long nhs = static_cast<long long>(a.N) * a.H * a.S_pad;
+    const uint32_t q_wg = base + 64 * wgi * ROW, do_wg = q_wg + L::Q_BYTES;
+    int tile = 0;
+    for (int j = 0, w = nth_item(0); w < items; w = nth_item(++j)) {
+      const DqItem it = dq_item192(w, nq, a);
+      const int wq0 = it.q0 + 64 * wgi;
+      const int qp0 = wq0 + 16 * warp + lane / 4;  // rows qp0, qp0 + 8
+      float l2[2], dl[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const long long li =
+            (static_cast<long long>(it.n) * a.H + it.h) * a.S_pad + qp0 +
+            8 * e;
+        l2[e] = a.stats[li];
+        dl[e] = a.stats[nhs + li];
+      }
+      float dq[DQK192 / 2], sc[TILE / 2], dp[TILE / 2];
+#pragma unroll
+      for (int r = 0; r < DQK192 / 2; ++r) dq[r] = 0.f;
+#pragma unroll
+      for (int r = 0; r < TILE / 2; ++r) sc[r] = dp[r] = 0.f;
+
+      mbar_wait(bar(bar_item_full(0)), j & 1);
+      for (int i = 0; i < it.nt; ++i, ++tile) {
+        const int s = tile % STAGES;
+        const int k0 = it.lo + i * TILE;
+        const bool skip = wq0 >= a.S || (a.causal && k0 > wq0 + 63) ||
+                          (a.has_window && k0 + TILE - 1 <= wq0 - a.window);
+        const uint32_t ks = base + L::KV_OFF + s * (L::K_BYTES + L::V_BYTES);
+        const uint32_t vs = ks + L::K_BYTES;
+        mbar_wait(bar(bar_full(s)), (tile / STAGES) & 1);
+        if (!skip) {
+          // S = Q . K^T over three 64-column slices, dP = dO . V^T over two
+          fence_regs(sc);
+          fence_regs(dp);
+#pragma unroll
+          for (int hf = 0; hf < QS192; ++hf) {
+            uint64_t qa[4], kb[4];
+            descs_kmajor<64>(qa, kb, q_wg + hf * BLOCK * ROW, 0,
+                             ks + hf * TILE * ROW, 0);
+            fence_regs(qa);
+            fence_regs(kb);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_ss_n64(sc, qa[kk], kb[kk], hf > 0 || kk > 0);
+            wgmma_commit();
+          }
+#pragma unroll
+          for (int hf = 0; hf < VS128; ++hf) {
+            uint64_t oa[4], vb[4];
+            descs_kmajor<64>(oa, vb, do_wg + hf * BLOCK * ROW, 0,
+                             vs + hf * TILE * ROW, 0);
+            fence_regs(oa);
+            fence_regs(vb);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_ss_n64(dp, oa[kk], vb[kk], hf > 0 || kk > 0);
+            wgmma_commit();
+          }
+          wgmma_wait<0>();
+          fence_regs(sc);
+          fence_regs(dp);
+        }
+        // the item's last S and dP have read this warpgroup's Q and dO
+        __syncwarp();
+        if (lane == 0 && i == it.nt - 1) mbar_arrive(bar(bar_item_empty(0)));
+        if (!skip) {
+          // dS in place of the scores, the masks only on a tile that hides
+          // some pair; dQ += dS . K (K read MN-major over its three slices)
+          // in two halves of the keys
+          const bool full = k0 + TILE <= a.T && wq0 + 64 <= a.S &&
+                            (!a.causal || k0 + TILE - 1 <= wq0) &&
+                            (!a.has_window || k0 > wq0 + 63 - a.window);
+          uint64_t kb[4];
+          descs_mnmajor(kb, ks);
+          fence_regs(kb);
+          uint32_t g[4][4];
+          dq_grads<0, 2>(!full, cap, sc, dp, l2, dl, g, a, qp0, k0, c);
+          fence_regs(g[0]);
+          fence_regs(g[1]);
+          fence_regs(dq);
+          wgmma_fence();
+          wgmma_rs_n192(dq, g[0], kb[0]);
+          wgmma_rs_n192(dq, g[1], kb[1]);
+          wgmma_commit();
+          dq_grads<1, 2>(!full, cap, sc, dp, l2, dl, g, a, qp0, k0, c);
+          fence_regs(g[2]);
+          fence_regs(g[3]);
+          wgmma_fence();
+          wgmma_rs_n192(dq, g[2], kb[2]);
+          wgmma_rs_n192(dq, g[3], kb[3]);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dq);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar(bar_empty(s)));
+      }
+      if (it.nt == 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar(bar_item_empty(0)));
+      }
+
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qr = qp0 + 8 * e;
+        if (qr >= a.S) continue;
+        __nv_bfloat16* out =
+            a.dq + ((static_cast<long long>(it.n) * a.S + qr) * a.H + it.h) *
+                       static_cast<long long>(DQK192);
+#pragma unroll
+        for (int jj = 0; jj < DQK192 / 8; ++jj)
+          *reinterpret_cast<__nv_bfloat162*>(out + 8 * jj + 2 * c) =
+              __floats2bfloat162_rn(dq[4 * jj + 2 * e], dq[4 * jj + 2 * e + 1]);
+      }
+    }
+  }
+}
+
+// dK/dV at (192, 128): two (K, V) buffers of BLOCK rows (K in QS192
+// slices, V in VS128), then a 2-stage ring of (Q, dO) tiles of QT192 rows,
+// then the ring's stats (l2 and delta of each streamed tile's rows)
+constexpr int QT192 = 32;
+struct Kv192Smem {
+  static constexpr uint32_t K_BYTES = BLOCK * DQK192 * 2;   // 48 KB
+  static constexpr uint32_t V_BYTES = BLOCK * DV128 * 2;    // 32 KB
+  static constexpr uint32_t ITEM_BYTES = K_BYTES + V_BYTES;
+  static constexpr uint32_t Q_BYTES = QT192 * DQK192 * 2;   // 12 KB
+  static constexpr uint32_t DO_BYTES = QT192 * DV128 * 2;   // 8 KB
+  static constexpr uint32_t STAGE_BYTES = Q_BYTES + DO_BYTES;
+  static constexpr uint32_t Q_OFF = 2 * ITEM_BYTES;
+  static constexpr uint32_t STAT_OFF = Q_OFF + STAGES * STAGE_BYTES;
+  static constexpr uint32_t STAT_BYTES = QT192 * 4;         // l2 or delta
+  static constexpr uint32_t BAR_OFF = STAT_OFF + STAGES * 2 * STAT_BYTES;
+  static constexpr int BARS = 4 + 2 * STAGES;
+  static constexpr size_t BYTES = BAR_OFF + 8 * BARS + 1024;
+};
+
+// (n, kv head) slowest, then its kv tiles first (causal: the most queries)
+// first: the blocks at work at one time read the Q and dO of few (n, kv
+// head)s, which stay in L2 between them
+__device__ __forceinline__ KvItem kv_item192(int w, int nkv, const Args& a) {
+  KvItem it;
+  const int nk = w / nkv;
+  it.k0 = (w % nkv) * BLOCK;
+  it.kvh = nk % a.KV;
+  it.n = nk / a.KV;
+  // q tiles that can see a key of the item
+  it.lo = a.causal ? it.k0 : 0;
+  int hi = a.S;
+  if (a.has_window) hi = min(hi, it.k0 + BLOCK - 1 + a.window);
+  it.nt = hi > it.lo ? (hi - it.lo + QT192 - 1) / QT192 : 0;
+  return it;
+}
+
+// dK/dV at (192, 128) (see the header): flash_bwd_dkdv_wgmma's design,
+// each consumer warpgroup owning 64 kv rows (dK 96 and dV 64 registers a
+// thread), over streamed q tiles of 32 rows: S^T = K . Q^T over three
+// 64-column slices and dP^T = V . dO^T over two (m64n32k16, 16 + 16
+// registers), P^T and dS^T in registers, then dV += P^T . dO (m64n128k16)
+// and dK += dS^T . Q (m64n192k16), dO and Q read MN-major, a k-step of 16
+// queries at a time, the second half formed while the first half's
+// products run.
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_wgmma192(const __grid_constant__ CUtensorMap tmq,
+                        const __grid_constant__ CUtensorMap tmdo,
+                        const __grid_constant__ CUtensorMap tmk,
+                        const __grid_constant__ CUtensorMap tmv, const Args a,
+                        const int nkv) {
+  using namespace hopper;
+  using L = Kv192Smem;
+  constexpr int QT = QT192;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::BAR_OFF;
+  auto bar = [bars](int i) { return bars + 8u * i; };
+  const int items = nkv * a.KV * a.N;
+  const long long nhs = static_cast<long long>(a.N) * a.H * a.S_pad;
+  if (threadIdx.x == 0) init_bars(bars);
+  __syncthreads();
+
+  const int wgi = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128,
+                              0);
+  if (wgi == CONSUMERS) {
+    // ---- producer warpgroup: one thread issues every load ----
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 128 * CONSUMERS) {
+      int tile = 0;  // q tiles issued so far, across items
+      for (int j = 0, w = nth_item(0); w < items; w = nth_item(++j)) {
+        const KvItem it = kv_item192(w, nkv, a);
+        const int b = j & 1;
+        const uint32_t kvs = base + b * L::ITEM_BYTES;
+        mbar_wait(bar(bar_item_empty(b)), ((j >> 1) & 1) ^ 1);
+        mbar_expect_tx(bar(bar_item_full(b)), L::ITEM_BYTES);
+#pragma unroll
+        for (int hf = 0; hf < QS192; ++hf)
+          tma_load_4d(kvs + hf * BLOCK * ROW, &tmk, bar(bar_item_full(b)),
+                      64 * hf, it.kvh, it.k0, it.n);
+#pragma unroll
+        for (int hf = 0; hf < VS128; ++hf)
+          tma_load_4d(kvs + L::K_BYTES + hf * BLOCK * ROW, &tmv,
+                      bar(bar_item_full(b)), 64 * hf, it.kvh, it.k0, it.n);
+        // the group's q heads in order, each over its q tiles
+        for (int hh = 0; hh < a.rep; ++hh) {
+          const int h = it.kvh * a.rep + hh;
+          const long long row0 =
+              (static_cast<long long>(it.n) * a.H + h) * a.S_pad;
+          for (int i = 0; i < it.nt; ++i, ++tile) {
+            const int s = tile % STAGES;
+            const int q0 = it.lo + i * QT;
+            const uint32_t qs = base + L::Q_OFF + s * L::STAGE_BYTES;
+            const uint32_t st = base + L::STAT_OFF + s * 2 * L::STAT_BYTES;
+            mbar_wait(bar(bar_empty(s)), ((tile / STAGES) & 1) ^ 1);
+            mbar_expect_tx(bar(bar_full(s)),
+                           L::STAGE_BYTES + 2 * L::STAT_BYTES);
+#pragma unroll
+            for (int hf = 0; hf < QS192; ++hf)
+              tma_load_4d(qs + hf * QT * ROW, &tmq, bar(bar_full(s)),
+                          64 * hf, h, q0, it.n);
+#pragma unroll
+            for (int hf = 0; hf < VS128; ++hf)
+              tma_load_4d(qs + L::Q_BYTES + hf * QT * ROW, &tmdo,
+                          bar(bar_full(s)), 64 * hf, h, q0, it.n);
+            bulk_load(st, a.stats + row0 + q0, L::STAT_BYTES,
+                      bar(bar_full(s)));
+            bulk_load(st + L::STAT_BYTES, a.stats + nhs + row0 + q0,
+                      L::STAT_BYTES, bar(bar_full(s)));
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wgi owns kv rows [k0 + 64 wgi, + 64) ----
+    regs_inc<CONSUMER_REGS>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int c = lane % 4;
+    const bool cap = a.softcap != 0.f;
+    int tile = 0;
+    for (int j = 0, w = nth_item(0); w < items; w = nth_item(++j)) {
+      const KvItem it = kv_item192(w, nkv, a);
+      const int wk0 = it.k0 + 64 * wgi;
+      const int kp0 = wk0 + 16 * warp + lane / 4;  // rows kp0, kp0 + 8
+      const int b = j & 1;
+      const uint32_t k_wg = base + b * L::ITEM_BYTES + 64 * wgi * ROW;
+      const uint32_t v_wg = k_wg + L::K_BYTES;
+      float dk[DQK192 / 2], dv[DV128 / 2], st[QT / 2], dpt[QT / 2];
+#pragma unroll
+      for (int r = 0; r < DQK192 / 2; ++r) dk[r] = 0.f;
+#pragma unroll
+      for (int r = 0; r < DV128 / 2; ++r) dv[r] = 0.f;
+#pragma unroll
+      for (int r = 0; r < QT / 2; ++r) st[r] = dpt[r] = 0.f;
+
+      mbar_wait(bar(bar_item_full(b)), (j >> 1) & 1);
+      for (int hh = 0; hh < a.rep; ++hh) {
+        for (int i = 0; i < it.nt; ++i, ++tile) {
+          const int s = tile % STAGES;
+          const int q0 = it.lo + i * QT;
+          const bool skip =
+              wk0 >= a.T || (a.causal && q0 + QT - 1 < wk0) ||
+              (a.has_window && q0 >= wk0 + 63 + a.window);
+          mbar_wait(bar(bar_full(s)), (tile / STAGES) & 1);
+          if (!skip) {
+            const uint32_t qs = base + L::Q_OFF + s * L::STAGE_BYTES;
+            const uint32_t dos = qs + L::Q_BYTES;
+            // S^T = K . Q^T over three 64-column slices, dP^T = V . dO^T
+            // over two
+            fence_regs(st);
+            fence_regs(dpt);
+#pragma unroll
+            for (int hf = 0; hf < QS192; ++hf) {
+              uint64_t ka[4], qb[4];
+              descs_kmajor<64>(ka, qb, k_wg + hf * BLOCK * ROW, 0,
+                               qs + hf * QT * ROW, 0);
+              fence_regs(ka);
+              fence_regs(qb);
+              wgmma_fence();
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+                wgmma_ss_n32(st, ka[kk], qb[kk], hf > 0 || kk > 0);
+              wgmma_commit();
+            }
+#pragma unroll
+            for (int hf = 0; hf < VS128; ++hf) {
+              uint64_t va[4], ob[4];
+              descs_kmajor<64>(va, ob, v_wg + hf * BLOCK * ROW, 0,
+                               dos + hf * QT * ROW, 0);
+              fence_regs(va);
+              fence_regs(ob);
+              wgmma_fence();
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+                wgmma_ss_n32(dpt, va[kk], ob[kk], hf > 0 || kk > 0);
+              wgmma_commit();
+            }
+            wgmma_wait<0>();
+            fence_regs(st);
+            fence_regs(dpt);
+
+            // P^T and dS^T in place, the masks only on a tile that hides
+            // some pair; dV += P^T . dO and dK += dS^T . Q (dO and Q read
+            // MN-major: a k-step is 16 queries, the next 64 columns QT rows
+            // on), a k-step at a time, the second formed while the first
+            // one's products run
+            const float* sl = reinterpret_cast<const float*>(
+                smem_raw + (base - smem_u32(smem_raw)) + L::STAT_OFF +
+                s * 2 * L::STAT_BYTES);
+            const bool full = wk0 + 64 <= a.T && q0 + QT <= a.S &&
+                              (!a.causal || wk0 + 63 <= q0) &&
+                              (!a.has_window ||
+                               wk0 > q0 + QT - 1 - a.window);
+            uint64_t ob2[QT / 16], qb2[QT / 16];
+#pragma unroll
+            for (int kt = 0; kt < QT / 16; ++kt) {
+              ob2[kt] = desc_sw128(dos + kt * 16 * ROW, QT * ROW, 1024);
+              qb2[kt] = desc_sw128(qs + kt * 16 * ROW, QT * ROW, 1024);
+            }
+            fence_regs(ob2);
+            fence_regs(qb2);
+            uint32_t pa[QT / 16][4], ga[QT / 16][4];
+            dkv_grads<0>(!full, cap, st, dpt, sl, pa, ga, a, q0, kp0, c);
+            fence_regs(pa[0]);
+            fence_regs(ga[0]);
+            fence_regs(dv);
+            fence_regs(dk);
+            wgmma_fence();
+            wgmma_rs_n128(dv, pa[0], ob2[0]);
+            wgmma_rs_n192(dk, ga[0], qb2[0]);
+            wgmma_commit();
+            dkv_grads<1>(!full, cap, st, dpt, sl, pa, ga, a, q0, kp0, c);
+            fence_regs(pa[1]);
+            fence_regs(ga[1]);
+            wgmma_fence();
+            wgmma_rs_n128(dv, pa[1], ob2[1]);
+            wgmma_rs_n192(dk, ga[1], qb2[1]);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(dv);
+            fence_regs(dk);
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bar(bar_empty(s)));
+        }
+      }
+      // this item's K and V buffer is free for the item after next
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar(bar_item_empty(b)));
+
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kr = kp0 + 8 * e;
+        if (kr >= a.T) continue;
+        const long long row =
+            (static_cast<long long>(it.n) * a.T + kr) * a.KV + it.kvh;
+        __nv_bfloat16* gk = a.dk + row * DQK192;
+        __nv_bfloat16* gv = a.dv + row * DV128;
+#pragma unroll
+        for (int jj = 0; jj < DQK192 / 8; ++jj)
+          *reinterpret_cast<__nv_bfloat162*>(gk + 8 * jj + 2 * c) =
+              __floats2bfloat162_rn(dk[4 * jj + 2 * e], dk[4 * jj + 2 * e + 1]);
+#pragma unroll
+        for (int jj = 0; jj < DV128 / 8; ++jj)
+          *reinterpret_cast<__nv_bfloat162*>(gv + 8 * jj + 2 * c) =
+              __floats2bfloat162_rn(dv[4 * jj + 2 * e], dv[4 * jj + 2 * e + 1]);
+      }
+    }
+  }
+}
+
 // a dQ or dK/dV kernel of the wgmma route
 using Kernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
                         Args, int);
@@ -1737,14 +2243,15 @@ cudaError_t prepare(Kernel fn, size_t smem) {
 }
 
 // The stats pass, then the dQ and the dK/dV kernels, each persistent: one
-// block per SM walks its items.  The dQ kernel's items are BLOCK q rows
-// over key tiles of dq_tile rows; the dK/dV kernel's kv_block kv rows over
-// q tiles of TILE rows.
-template <int D>
+// block per SM walks its items.  q and k have head dim DQK, v, o and dO
+// DV.  The dQ kernel's items are BLOCK q rows over key tiles of dq_tile
+// rows; the dK/dV kernel's kv_block kv rows over q tiles of kv_qtile rows.
+template <int DQK, int DV>
 cudaError_t launch(const Args& a, const void* q, const void* k,
                    const void* v, const long long (&st)[4][3],
                    cudaStream_t stream, Kernel dq_fn, size_t dq_smem,
-                   int dq_tile, Kernel kv_fn, size_t kv_smem, int kv_block) {
+                   int dq_tile, Kernel kv_fn, size_t kv_smem, int kv_block,
+                   int kv_qtile) {
   const int sms = sm_count();
   if (sms <= 0) return cudaErrorInvalidDevice;
   const int nq = (a.S + BLOCK - 1) / BLOCK;
@@ -1752,33 +2259,34 @@ cudaError_t launch(const Args& a, const void* q, const void* k,
   const long long dq_items = static_cast<long long>(nq) * a.H * a.N;
   const long long kv_items = static_cast<long long>(nkv) * a.KV * a.N;
   const long long stat_threads =
-      static_cast<long long>(a.N) * a.S_pad * a.H * (D / 8);
+      static_cast<long long>(a.N) * a.S_pad * a.H * (DV / 8);
   if (dq_items > INT_MAX || kv_items > INT_MAX ||
       (stat_threads + 255) / 256 > INT_MAX)
     return cudaErrorInvalidValue;
   // (q, dO) with boxes of BLOCK rows and (k, v) of dq_tile rows for dQ;
-  // (q, dO) of TILE rows and (k, v) of kv_block rows for dK/dV
+  // (q, dO) of kv_qtile rows and (k, v) of kv_block rows for dK/dV
   CUtensorMap mq[2], mdo[2], mk[2], mv[2];
   cudaError_t err = cudaSuccess;
   for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
-    const int qbox = i == 0 ? BLOCK : TILE, kbox = i == 0 ? dq_tile : kv_block;
-    err = make_map(&mq[i], q, D, a.H, a.S, a.N, st[0][2], st[0][1],
+    const int qbox = i == 0 ? BLOCK : kv_qtile;
+    const int kbox = i == 0 ? dq_tile : kv_block;
+    err = make_map(&mq[i], q, DQK, a.H, a.S, a.N, st[0][2], st[0][1],
                    st[0][0], qbox);
     if (err == cudaSuccess)
-      err = make_map(&mdo[i], a.dout, D, a.H, a.S, a.N, st[3][2], st[3][1],
+      err = make_map(&mdo[i], a.dout, DV, a.H, a.S, a.N, st[3][2], st[3][1],
                      st[3][0], qbox);
     if (err == cudaSuccess)
-      err = make_map(&mk[i], k, D, a.KV, a.T, a.N, st[1][2], st[1][1],
+      err = make_map(&mk[i], k, DQK, a.KV, a.T, a.N, st[1][2], st[1][1],
                      st[1][0], kbox);
     if (err == cudaSuccess)
-      err = make_map(&mv[i], v, D, a.KV, a.T, a.N, st[2][2], st[2][1],
+      err = make_map(&mv[i], v, DV, a.KV, a.T, a.N, st[2][2], st[2][1],
                      st[2][0], kbox);
   }
   if (err == cudaSuccess) err = prepare(dq_fn, dq_smem);
   if (err == cudaSuccess) err = prepare(kv_fn, kv_smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_stats<D><<<static_cast<unsigned>((stat_threads + 255) / 256), 256,
-                       0, stream>>>(a);
+  flash_bwd_stats<DV><<<static_cast<unsigned>((stat_threads + 255) / 256),
+                        256, 0, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dq_fn<<<static_cast<int>(dq_items < sms ? dq_items : sms), THREADS, dq_smem,
@@ -1794,18 +2302,27 @@ template <int D>
 cudaError_t launch_d(const Args& a, const void* q, const void* k,
                      const void* v, const long long (&st)[4][3],
                      cudaStream_t stream) {
-  return launch<D>(a, q, k, v, st, stream, flash_bwd_dq_wgmma<D>,
-                   DqSmem<D>::BYTES, TILE, flash_bwd_dkdv_wgmma<D>,
-                   KvSmem<D>::BYTES, BLOCK);
+  return launch<D, D>(a, q, k, v, st, stream, flash_bwd_dq_wgmma<D>,
+                      DqSmem<D>::BYTES, TILE, flash_bwd_dkdv_wgmma<D>,
+                      KvSmem<D>::BYTES, BLOCK, TILE);
 }
 
 template <>
 cudaError_t launch_d<256>(const Args& a, const void* q, const void* k,
                           const void* v, const long long (&st)[4][3],
                           cudaStream_t stream) {
-  return launch<256>(a, q, k, v, st, stream, flash_bwd_dq_wgmma256,
-                     Dq256Smem::BYTES, TILE256, flash_bwd_dkdv_wgmma256,
-                     Kv256Smem::BYTES, BLOCK256);
+  return launch<256, 256>(a, q, k, v, st, stream, flash_bwd_dq_wgmma256,
+                          Dq256Smem::BYTES, TILE256, flash_bwd_dkdv_wgmma256,
+                          Kv256Smem::BYTES, BLOCK256, TILE);
+}
+
+cudaError_t launch_d192(const Args& a, const void* q, const void* k,
+                        const void* v, const long long (&st)[4][3],
+                        cudaStream_t stream) {
+  return launch<DQK192, DV128>(a, q, k, v, st, stream, flash_bwd_dq_wgmma192,
+                               Dq192Smem::BYTES, TILE,
+                               flash_bwd_dkdv_wgmma192, Kv192Smem::BYTES,
+                               BLOCK, QT192);
 }
 
 }  // namespace wg
@@ -1832,18 +2349,20 @@ extern "C" int flash_attention_bwd_launch(
   return cudaErrorInvalidValue;
 }
 
-// bf16 at d = 64 or 128 (the wrapper zero-pads smaller head dims to 64):
-// the wgmma + TMA route.  Strides in elements, the inner stride of every
-// input 1, every row 16-byte aligned and every stride of an extent over 1 a
-// positive multiple of 16 bytes (ops.py::_rows_aligned copies a view that
-// is not); dq, dk, dv contiguous; stats is 2 * N * H * s_pad floats of
-// scratch, s_pad a multiple of 128 no smaller than S.  window < 0 means no
-// window, softcap 0 no softcap.  Returns the CUDA error of the launches (0
-// on success).
+// bf16, the wgmma + TMA route: q and k of head dim d, v, o and dout of dv,
+// at d = dv = 64, 128 or 256, or d 192 with dv 128 (the wrapper zero-pads
+// any other pair up to one of them, ops.py::route).  Strides in elements,
+// the inner stride of every input 1, every row 16-byte aligned and every
+// stride of an extent over 1 a positive multiple of 16 bytes
+// (ops.py::_rows_aligned copies a view that is not); dq, dk (head dim d)
+// and dv (dv) contiguous; stats is 2 * N * H * s_pad floats of scratch,
+// s_pad a multiple of 128 no smaller than S.  window < 0 means no window,
+// softcap 0 no softcap.  Returns the CUDA error of the launches (0 on
+// success).
 extern "C" int flash_attention_bwd_wgmma_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* stats, void* dq, void* dk,
-    void* dv, int d, int N, int S, int T, int H, int KV, int s_pad,
+    void* dv, int d, int d_v, int N, int S, int T, int H, int KV, int s_pad,
     long long qs0, long long qs1, long long qs2, long long ks0,
     long long ks1, long long ks2, long long vs0, long long vs1,
     long long vs2, long long os0, long long os1, long long os2,
@@ -1863,6 +2382,9 @@ extern "C" int flash_attention_bwd_wgmma_launch(
                               {vs0, vs1, vs2},
                               {ds0, ds1, ds2}};
   const cudaStream_t sm = static_cast<cudaStream_t>(stream);
+  if (d == wg::DQK192 && d_v == wg::DV128)
+    return wg::launch_d192(a, q, k, v, st, sm);
+  if (d_v != d) return cudaErrorInvalidValue;
   if (d == 64) return wg::launch_d<64>(a, q, k, v, st, sm);
   if (d == 128) return wg::launch_d<128>(a, q, k, v, st, sm);
   if (d == 256) return wg::launch_d<256>(a, q, k, v, st, sm);

@@ -9,14 +9,18 @@ tensors it launches the kernel of ``csrc/flash_attention.cu`` or raises —
 there is no fallback.  The kernel is compiled at first use by
 :mod:`repro_torch.kernels._build` and loaded with ``ctypes``.
 
-The launcher picks one of the source's kernels by dtype and head dim,
-which the wrapper first zero-pads up to one of the kernels' instantiations
-(:func:`padded_head_dim`; v is padded to the same one, and the output's
-columns past d_v, all zero, are dropped): bf16 runs wgmma fed by TMA (at
-d 64 or 128 one kernel, at d 256 its form with a producer warpgroup; a
-128-byte swizzled row holds 64 bf16, so bf16 head dims below 64 pad to
-64), and f32 inputs, which are held to 3e-5 (no bf16 or TF32 tensor
-cores), run the fp32-FMA kernel.
+The launcher picks one of the source's kernels by dtype and the two head
+dims, q's and k's d and v's d_v, which the wrapper first zero-pads up to
+one of the kernels' instantiations (:func:`route`; the output is
+allocated at the padded d_v and its columns past d_v, all zero, are
+dropped): bf16 runs wgmma fed by TMA, at d = d_v 64 or 128 one kernel, at
+d = d_v 256 its form with a producer warpgroup (a 128-byte swizzled row
+holds 64 bf16, so bf16 head dims below 64 pad to 64, and both are padded
+to the larger one's instantiation), and at d 192 with d_v 128 (MLA's) a
+form that reads q and k at 192 columns and v at 128, so that MLA's
+tensors are neither padded nor copied (bf16 pairs with 128 < d <= 192 and
+d_v <= 128 pad to it); f32 inputs, which are held to 3e-5 (no bf16 or TF32
+tensor cores), run the fp32-FMA kernel at one padded head dim.
 
 ``flash_attention`` is differentiable.  On the card its forward, when a
 gradient is wanted, also writes every row's log-sum-exp (serving never asks
@@ -24,11 +28,12 @@ for it, so its launches and outputs are unchanged), and its backward is the
 backward kernel (:func:`flash_attention_bwd`): deterministic, with no
 atomics.  On the CPU autograd differentiates the plain version.
 
-The backward has two routes of ``csrc/flash_attention_bwd.cu``, picked by
-:func:`bwd_route`: bf16 at d 64, 128 or 256 (other bf16 head dims padded as
-the forward pads them) runs wgmma fed by TMA, reading views in place by the
-forward's rule (:func:`_rows_aligned`); f32 inputs, held to 1e-4, run the
-fp32-FMA kernels on contiguous copies.
+The backward's kernels in ``csrc/flash_attention_bwd.cu`` are picked by
+the same :func:`route` (:func:`bwd_route` gives it for one head dim): bf16
+runs wgmma fed by TMA at the forward's padded head dims (d = d_v 64, 128
+or 256, or d 192 with d_v 128), reading views in place by the forward's
+rule (:func:`_rows_aligned`); f32 inputs, held to 1e-4, run the fp32-FMA
+kernels on contiguous copies.
 """
 from __future__ import annotations
 
@@ -48,10 +53,11 @@ BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 
 # Kernel launches issued by `flash_attention` (forward) and by
 # `flash_attention_bwd` (one per call: its three kernels in one launch),
-# the latter also by route.
+# each also by route (:func:`route`'s kinds).
 launches = 0
+route_launches = {"wgmma": 0, "wgmma192": 0, "fma": 0}
 bwd_launches = 0
-bwd_route_launches = {"wgmma": 0, "fma": 0}
+bwd_route_launches = {"wgmma": 0, "wgmma192": 0, "fma": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels' instantiated head dims, by dtype
@@ -59,13 +65,15 @@ HEAD_DIMS = {torch.float32: (16, 32, 64, 128, 256),
              torch.bfloat16: (64, 128, 256)}
 _D_MAX = 256
 _GRID_MAX = 65535                    # grid.y (heads) and grid.z (N)
+# the bf16 route for MLA's head dims: q/k 192 (128 nope + 64 rope), v 128
+_MLA_DIMS = (192, 128)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_float)
     fn = lib.flash_attention_launch
-    fn.argtypes = [vp] * 4 + [i] * 7 + [ll] * 12 + [f, i, i, f, vp, vp]
+    fn.argtypes = [vp] * 4 + [i] * 8 + [ll] * 12 + [f, i, i, f, vp, vp]
     fn.restype = i
 
 
@@ -76,7 +84,7 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
     fn.argtypes = [vp] * 10 + [i] * 7 + [f, i, i, f, vp]
     fn.restype = i
     fn = lib.flash_attention_bwd_wgmma_launch
-    fn.argtypes = [vp] * 10 + [i] * 7 + [ll] * 15 + [f, i, i, f, vp]
+    fn.argtypes = [vp] * 10 + [i] * 8 + [ll] * 15 + [f, i, i, f, vp]
     fn.restype = i
 
 
@@ -111,6 +119,19 @@ def _rows_aligned(t: torch.Tensor) -> bool:
         for n, st in zip(t.shape[:3], t.stride()[:3]))
 
 
+def route(dtype: torch.dtype, d: int, d_v: int) -> tuple[str, int, int]:
+    """The kernels that ``dtype`` inputs of q/k head dim ``d`` and v head
+    dim ``d_v`` take, forward and backward, and the head dims they are
+    zero-padded to: ``("wgmma192", 192, 128)`` for bf16 with 128 < d <= 192
+    and d_v <= 128 (MLA's 192 and 128 pad nothing); else one head dim for
+    both, :func:`bwd_route`'s at the larger of the two."""
+    if dtype == torch.bfloat16 and 128 < d <= _MLA_DIMS[0] \
+            and d_v <= _MLA_DIMS[1]:
+        return ("wgmma192",) + _MLA_DIMS
+    kind, dp = bwd_route(dtype, max(d, d_v))
+    return kind, dp, dp
+
+
 def bwd_route(dtype: torch.dtype, d: int) -> tuple[str, int]:
     """The backward kernel that ``dtype`` inputs of head dim ``d`` take and
     the head dim they are zero-padded to: ``("wgmma", 64, 128 or 256)`` for
@@ -121,17 +142,27 @@ def bwd_route(dtype: torch.dtype, d: int) -> tuple[str, int]:
     return "fma", next(h for h in BWD_HEAD_DIMS if h >= d)
 
 
-def _bwd_operand(t: torch.Tensor, dp: int, route: str) -> torch.Tensor:
-    """What the backward kernel of ``route`` reads for ``t``: zero-padded to
-    head dim ``dp``; the wgmma route reads a view in place where
-    :func:`_rows_aligned` allows it (TMA, as the forward), the fp32-FMA
-    route a contiguous tensor."""
+def _fwd_operand(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """What the forward kernel reads for ``t``: zero-padded to head dim
+    ``dp`` (zero columns change no product and give zero output columns),
+    and ``t`` itself where it is already so wide and :func:`_rows_aligned`
+    lets the kernels read it in place; else a fresh copy."""
     if t.shape[-1] != dp:
         t = F.pad(t, (0, dp - t.shape[-1]))
-    if route == "fma":
-        return t.contiguous()
     return t if _rows_aligned(t) else t.clone(
         memory_format=torch.contiguous_format)
+
+
+def _bwd_operand(t: torch.Tensor, dp: int, route: str) -> torch.Tensor:
+    """What the backward kernel of ``route`` reads for ``t``: zero-padded to
+    head dim ``dp``; the wgmma routes read a view in place where
+    :func:`_rows_aligned` allows it (TMA, as the forward), the fp32-FMA
+    route a contiguous tensor."""
+    if route == "fma":
+        if t.shape[-1] != dp:
+            t = F.pad(t, (0, dp - t.shape[-1]))
+        return t.contiguous()
+    return _fwd_operand(t, dp)
 
 
 def _check(q, k, v, window, softcap) -> None:
@@ -179,20 +210,15 @@ def _forward(q, k, v, causal, window, softcap, want_lse: bool):
         if lse is not None:
             lse.fill_(ref.NEG_INF)
         return q.new_zeros(out_shape), lse
-    dp = padded_head_dim(q.dtype, max(d, dv))
-    # zero columns change no product and give zero output columns
-    q, k, v = (t if t.shape[-1] == dp else F.pad(t, (0, dp - t.shape[-1]))
-               for t in (q, k, v))
-    # a view the kernels cannot read in place is copied (a fresh tensor is)
-    q, k, v = (t if _rows_aligned(t)
-               else t.clone(memory_format=torch.contiguous_format)
-               for t in (q, k, v))
-    out = torch.empty((N, S, H, dp), dtype=q.dtype, device=q.device)
+    kind, dp, dvp = route(q.dtype, d, dv)
+    q, k = (_fwd_operand(t, dp) for t in (q, k))
+    v = _fwd_operand(v, dvp)
+    out = torch.empty((N, S, H, dvp), dtype=q.dtype, device=q.device)
     lib = load_library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], dp, N, S, T, H, KV,
+            _DTYPES[q.dtype], dp, dvp, N, S, T, H, KV,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], 1.0 / math.sqrt(d), int(causal),
             -1 if window is None else int(window),
@@ -203,7 +229,8 @@ def _forward(q, k, v, causal, window, softcap, want_lse: bool):
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
-    return (out if dp == dv else out[..., :dv]), lse
+    route_launches[kind] += 1
+    return (out if dvp == dv else out[..., :dv]), lse
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -266,8 +293,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     """Gradients ``(dq, dk, dv)`` of attention at ``q``, ``k``, ``v`` for the
     output cotangent ``dout``, given the forward's output and row
     log-sum-exp (``dv`` has v's head dim, which may differ from q's).  On
-    CUDA tensors the backward kernel of :func:`bwd_route` at the larger
-    head dim runs (or raises); on CPU tensors autograd
+    CUDA tensors the backward kernels of the forward's :func:`route` run
+    (or raise); on CPU tensors autograd
     differentiates the plain version (which needs neither ``out`` nor
     ``lse``)."""
     _check(q, k, v, window, softcap)
@@ -291,25 +318,24 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     if N * S * H == 0 or T == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     return _backward(q, k, v, out, dout, lse,
-                     bwd_route(q.dtype, max(d, v.shape[3])), causal, window,
-                     softcap)
+                     route(q.dtype, d, v.shape[3]), causal, window, softcap)
 
 
-def _backward(q, k, v, out, dout, lse, route: tuple[str, int], causal,
-              window, softcap):
-    """The backward kernels of ``route`` (``(kind, padded head dim)``, as
-    :func:`bwd_route` gives it) on checked, non-empty CUDA tensors: q, k,
-    v, out and dout zero-padded to that head dim (dout's padded columns are
-    zero, so the padded columns of dq, dk and dv are too), the gradients
-    sliced back to q's d and v's d_v.  ``("fma", dp)`` also runs bf16
-    (``chip_smoke.py`` times the fp32-FMA kernels beside the wgmma route on
-    the same inputs)."""
+def _backward(q, k, v, out, dout, lse, kernels: tuple, causal, window,
+              softcap):
+    """The backward kernels of ``kernels``, ``(kind, padded d, padded
+    d_v)`` as :func:`route` gives it, on checked, non-empty CUDA tensors:
+    q and k zero-padded to the first head dim, v, out and dout to the second
+    (dout's padded columns are zero, so the padded columns of dq, dk and dv
+    are too), the gradients sliced back to q's d and v's d_v.  ``("fma",
+    dp, dvp)`` also runs bf16 (``chip_smoke.py`` times the fp32-FMA kernels
+    beside the wgmma route on the same inputs)."""
     global bwd_launches
-    kind, dp = route
+    kind, dp, dvp = kernels
     N, S, H, d = q.shape
     T, KV, dv_dim = k.shape[1], k.shape[2], v.shape[3]
-    q, k, v, out, dout = (_bwd_operand(t, dp, kind)
-                          for t in (q, k, v, out, dout))
+    q, k = (_bwd_operand(t, dp, kind) for t in (q, k))
+    v, out, dout = (_bwd_operand(t, dvp, kind) for t in (v, out, dout))
     lse = lse.float().contiguous()
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
                   for t in (q, k, v))
@@ -319,15 +345,15 @@ def _backward(q, k, v, out, dout, lse, route: tuple[str, int], causal,
             float(softcap) if softcap else 0.0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if kind == "wgmma":
+        if kind != "fma":
             s_pad = -(-S // _STATS_ROWS) * _STATS_ROWS
             stats = torch.empty((2, N, H, s_pad), dtype=torch.float32,
                                 device=q.device)
             err = lib.flash_attention_bwd_wgmma_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 dout.data_ptr(), lse.data_ptr(), stats.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dp, N, S, T, H,
-                KV, s_pad, *q.stride()[:3], *k.stride()[:3],
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dp, dvp, N, S,
+                T, H, KV, s_pad, *q.stride()[:3], *k.stride()[:3],
                 *v.stride()[:3], *out.stride()[:3], *dout.stride()[:3],
                 scale, *opts, stream)
         else:
@@ -345,6 +371,6 @@ def _backward(q, k, v, out, dout, lse, route: tuple[str, int], causal,
     bwd_route_launches[kind] += 1
     if dp != d:
         dq, dk = dq[..., :d], dk[..., :d]
-    if dp != dv_dim:
+    if dvp != dv_dim:
         dv = dv[..., :dv_dim]
     return dq, dk, dv

@@ -1139,7 +1139,8 @@ def test_flash_backward_takes_its_route(card, dtype, d, route):
     out, lse = fa_ops.flash_attention_lse(q, k, v)
     want = fa_ref.flash_attention_bwd_ref(q, k, v, dout)
     assert fa_ops.bwd_route(dtype, d)[0] == route
-    fma = ("fma", fa_ops.bwd_route(torch.float32, d)[1])
+    dp = fa_ops.bwd_route(torch.float32, d)[1]
+    fma = ("fma", dp, dp)
     for took, run in (
             (route, lambda: fa_ops.flash_attention_bwd(q, k, v, out, dout,
                                                        lse)),
@@ -1171,6 +1172,98 @@ def test_flash_backward_reads_strided_views_in_place(card, d):
         got = fa_ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
         want = fa_ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
         _assert_grads_close(got, want, torch.bfloat16)
+
+
+# (N, S, T, H, KV, d, causal, window, softcap, d_v) on the d_qk 192 / d_v
+# 128 route (bf16: MLA's head dims read in place, or (160, 96) padded to
+# them): lengths no multiple of 64 or 128, S != T both ways, q heads over kv
+# heads at rep 1, 2 and 4, a window, softcaps, and more work items than SMs
+# (deepseek-v3's 32 heads a rank)
+MLA_ROUTE_CASES = [(2, 200, 200, 8, 8, 192, True, None, None, 128),
+                   (1, 333, 129, 8, 4, 192, True, None, None, 128),
+                   (2, 77, 301, 8, 2, 192, False, None, None, 128),
+                   (1, 260, 260, 4, 1, 192, True, 50, 3.0, 128),
+                   (3, 130, 130, 4, 2, 160, True, 37, None, 96),
+                   (2, 190, 190, 4, 4, 192, False, None, 5.0, 128),
+                   (4, 513, 513, 32, 32, 192, True, None, None, 128)]
+
+
+def _mla_inputs(case, dev):
+    """bf16 q, k, v (v of head dim d_v) and a cotangent of the output."""
+    N, S, T, H, KV, d = case[:6]
+    dv = case[9]
+    g = torch.Generator(device=dev).manual_seed(sum(case[:6]) + dv)
+    return tuple(torch.randn(shape, generator=g, device=dev).bfloat16()
+                 for shape in ((N, S, H, d), (N, T, KV, d), (N, T, KV, dv),
+                               (N, S, H, dv)))
+
+
+@pytest.mark.parametrize("case", MLA_ROUTE_CASES)
+def test_flash_mla_route_forward_matches_plain(card, case):
+    """The d_qk 192 / d_v 128 forward (one launch on its route) against the
+    plain version within 2e-2 + 2e-2 |plain|, an output of v's head dim and
+    the plain version's log-sum-exp."""
+    kw = dict(zip(("causal", "window", "softcap"), case[6:9]))
+    assert fa_ops.route(torch.bfloat16, case[5], case[9]) == (
+        "wgmma192", 192, 128)
+    q, k, v, _ = _mla_inputs(case, card)
+    r0 = fa_ops.route_launches["wgmma192"]
+    out, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.route_launches["wgmma192"] == r0 + 1
+    want, want_lse = fa_ref.flash_attention_ref(q, k, v, return_lse=True,
+                                                **kw)
+    assert out.shape == want.shape == q.shape[:3] + (case[9],)
+    want = want.float()
+    assert ((out.float() - want).abs() <= 2e-2 + 2e-2 * want.abs()).all()
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", MLA_ROUTE_CASES)
+def test_flash_mla_route_backward_matches_plain(card, case):
+    """The d_qk 192 / d_v 128 backward (launches on its route) against the
+    plain backward within 2e-2 + 2e-2 |plain|, dv of v's head dim, two runs
+    bitwise equal."""
+    kw = dict(zip(("causal", "window", "softcap"), case[6:9]))
+    q, k, v, dout = _mla_inputs(case, card)
+    out, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
+    r0 = fa_ops.bwd_route_launches["wgmma192"]
+    got = fa_ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    again = fa_ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.bwd_route_launches["wgmma192"] == r0 + 2
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
+    _assert_grads_close(got, want, torch.bfloat16)
+    for name, a, c in zip(("dq", "dk", "dv"), got, again):
+        assert torch.equal(a, c), name
+
+
+def test_flash_mla_route_reads_strided_views_in_place(card):
+    """q and k as views of one fused (N, S, 2, H, 192) projection, v and the
+    cotangent as 128 columns of wider tensors: every stride a multiple of
+    16 bytes, so both directions read them in place on the d_qk 192 / d_v
+    128 route (autograd included) and agree with the plain version."""
+    qk = torch.randn(2, 150, 2, 4, 192, device=card).bfloat16()
+    q, k = qk.unbind(2)
+    v = torch.randn(2, 150, 4, 256, device=card).bfloat16()[..., :128]
+    dout = torch.randn(2, 150, 4, 256, device=card).bfloat16()[..., 128:]
+    assert all(fa_ops._rows_aligned(t) and not t.is_contiguous()
+               for t in (q, k, v, dout))
+    kw = dict(window=40, softcap=4.0)
+    f0 = fa_ops.route_launches["wgmma192"]
+    b0 = fa_ops.bwd_route_launches["wgmma192"]
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = fa_ops.flash_attention(*leaves, **kw)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert fa_ops.route_launches["wgmma192"] == f0 + 1
+    assert fa_ops.bwd_route_launches["wgmma192"] == b0 + 1
+    want = fa_ref.flash_attention_ref(q, k, v, **kw).float()
+    assert ((out.detach().float() - want).abs()
+            <= 2e-2 + 2e-2 * want.abs()).all()
+    _assert_grads_close(tuple(t.grad for t in leaves),
+                        fa_ref.flash_attention_bwd_ref(q, k, v, dout, **kw),
+                        torch.bfloat16)
 
 
 # sha256 of the wgmma forward's output and log-sum-exp on numpy-seeded bf16

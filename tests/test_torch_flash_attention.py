@@ -17,10 +17,12 @@ the same tolerances (``tests/test_torch_cuda.py``, ``cuda`` marker).
 
 The head dim the wrapper pads to by dtype, which picks the kernel
 (``padded_head_dim``), the backward's route by dtype and head dim
-(``bwd_route``), the rule by which either reads a view in place or copies
-it (TMA's alignment), and the build loader's naming of a library by all
-its sources are checked here too; the kernels themselves run only on the
-card.
+(``bwd_route``), the route both directions take by dtype and the two head
+dims (``route``: the d_qk 192 / d_v 128 route reads MLA's tensors with no
+padding and no copy), the rule by which either reads a view in place or
+copies it (TMA's alignment), and the build loader's naming of a library by
+all its sources are checked here too; the kernels themselves run only on
+the card.
 
 JAX runs in this process (one CPU device suffices): no subprocess."""
 import jax.numpy as jnp
@@ -203,6 +205,100 @@ def test_backward_reads_in_place_by_the_forward_rule(view):
         assert padded.is_contiguous() and padded.shape[-1] == 128
         assert torch.equal(padded[..., :100], t[..., :100])
         assert not padded[..., 100:].any()
+
+
+# (dtype, q/k head dim, v head dim) -> (kind, padded d, padded d_v): the
+# kernels both directions take (``route``).  bf16 with 128 < d <= 192 and
+# d_v <= 128 takes the d_qk 192 / d_v 128 route (MLA's dims pad nothing);
+# every other pair keeps one head dim for both, its single-head-dim route
+# at the larger of the two (bf16 wgmma at 64, 128 or 256; f32 fp32 FMA)
+ROUTES = {("bf16", 192, 128): ("wgmma192", 192, 128),
+          ("bf16", 160, 96): ("wgmma192", 192, 128),
+          ("bf16", 129, 128): ("wgmma192", 192, 128),
+          ("bf16", 192, 16): ("wgmma192", 192, 128),
+          ("bf16", 192, 192): ("wgmma", 256, 256),
+          ("bf16", 256, 256): ("wgmma", 256, 256),
+          ("bf16", 192, 129): ("wgmma", 256, 256),
+          ("bf16", 128, 192): ("wgmma", 256, 256),
+          ("bf16", 200, 128): ("wgmma", 256, 256),
+          ("bf16", 128, 128): ("wgmma", 128, 128),
+          ("bf16", 128, 64): ("wgmma", 128, 128),
+          ("bf16", 24, 16): ("wgmma", 64, 64),
+          ("f32", 192, 128): ("fma", 256, 256),
+          ("f32", 160, 96): ("fma", 256, 256),
+          ("f32", 128, 128): ("fma", 128, 128),
+          ("f32", 24, 16): ("fma", 32, 32)}
+
+
+@pytest.mark.parametrize("dtype,d,dv", list(ROUTES))
+def test_route_by_dtype_and_head_dims(dtype, d, dv):
+    tdt = DTYPES[dtype][0]
+    assert ops.route(tdt, d, dv) == ROUTES[(dtype, d, dv)]
+
+
+@pytest.mark.parametrize("dtype,d,dv", list(ROUTES))
+def test_backward_route_agrees_with_the_forwards(dtype, d, dv):
+    """Both directions take ``route``'s kernels; off the d_qk 192 / d_v 128
+    route that is the backward's single-head-dim route (``bwd_route``) at
+    the larger head dim, and for bf16 the forward's ``padded_head_dim``, as
+    before v's head dim could differ; on it, no head dim pads further than
+    that route would pad it."""
+    tdt = DTYPES[dtype][0]
+    kind, dp, dvp = ops.route(tdt, d, dv)
+    old_kind, old_dp = ops.bwd_route(tdt, max(d, dv))
+    assert d <= dp and dv <= dvp and kind in ops.bwd_route_launches
+    assert kind in ops.route_launches
+    if kind == "wgmma192":
+        assert old_kind == "wgmma" and max(dp, dvp) <= old_dp
+    else:
+        assert (kind, dp, dvp) == (old_kind, old_dp, old_dp)
+        if tdt == torch.bfloat16:
+            assert dp == ops.padded_head_dim(tdt, max(d, dv))
+
+
+def test_mla_operands_are_read_in_place():
+    """At MLA's head dims (192, 128) the wrapper hands the kernels q, k, v,
+    the output and its cotangent as they are, contiguous or as views of
+    16-byte strides (no padding, no copy); (160, 96) is zero-padded up to
+    the route's (192, 128)."""
+    qkv = torch.randn(2, 64, 2, 4, 192).bfloat16()
+    wide = torch.randn(2, 64, 4, 256).bfloat16()
+    for q in (torch.randn(2, 64, 4, 192).bfloat16(), qkv[:, :, 0],
+              qkv[:, :, 1]):
+        assert ops._fwd_operand(q, 192) is q
+        assert ops._bwd_operand(q, 192, "wgmma192") is q
+    for v in (torch.randn(2, 64, 4, 128).bfloat16(), wide[..., :128],
+              wide[..., 128:]):
+        assert ops._fwd_operand(v, 128) is v
+        assert ops._bwd_operand(v, 128, "wgmma192") is v
+    small = torch.randn(2, 64, 4, 160).bfloat16()
+    padded = ops._fwd_operand(small, 192)
+    assert padded.shape[-1] == 192 and ops._rows_aligned(padded)
+    assert torch.equal(padded[..., :160], small)
+    assert not padded[..., 160:].any()
+
+
+@pytest.mark.parametrize("d,dv", [(192, 128), (160, 96)])
+def test_cpu_wrapper_returns_v_head_dim(d, dv):
+    """On CPU tensors of the d_qk 192 / d_v 128 route's pairs the wrapper is
+    the plain version: outputs of v's head dim, the same bits, no launch
+    counted on any route; its backward gives dv of v's head dim."""
+    rng = np.random.RandomState(d + dv)
+    q, k = (torch.from_numpy(rng.randn(1, 40, 4, d).astype(np.float32))
+            .bfloat16() for _ in range(2))
+    v = torch.from_numpy(rng.randn(1, 40, 4, dv).astype(np.float32))
+    v = v.bfloat16()
+    before = (ops.launches, dict(ops.route_launches), ops.bwd_launches,
+              dict(ops.bwd_route_launches))
+    got = ops.flash_attention(q, k, v, window=17)
+    assert tuple(got.shape) == (1, 40, 4, dv) and got.dtype == torch.bfloat16
+    assert torch.equal(got, ref.flash_attention_ref(q, k, v, window=17))
+    dout = torch.ones_like(got)
+    dq, dk, dvg = ops.flash_attention_bwd(q, k, v, None, dout, None,
+                                          window=17)
+    assert (dq.shape, dk.shape, dvg.shape) == (q.shape, k.shape, v.shape)
+    assert (ops.launches, ops.route_launches, ops.bwd_launches,
+            ops.bwd_route_launches) == before
 
 
 def test_library_build_name_covers_sources(tmp_path):

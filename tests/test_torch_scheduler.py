@@ -128,6 +128,35 @@ def test_dot_node_types_counts_nodes_not_edges():
     assert scheduler.dot_node_types("digraph dot {\n}\n") == {}
 
 
+def test_capture_counters_take_every_dict_entry(monkeypatch):
+    """What a capture subtracts and a replay adds back covers every kernel
+    counter, each entry of a dict counter too (quant's by kernel, flash's
+    by route): launches made while a graph is captured, read as the
+    difference of two readings, come off all of them and go back on."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.quant import ops as qops
+    monkeypatch.setattr(fa, "launches", 5)
+    monkeypatch.setattr(fa, "route_launches",
+                        {"wgmma": 1, "wgmma192": 2, "fma": 0})
+    monkeypatch.setattr(qops, "launches", {"quantize": 3, "dequantize": 4})
+    before = scheduler._read_counts()
+    fa.launches += 4
+    fa.route_launches["wgmma192"] += 4
+    qops.launches["dequantize"] += 1
+    after = scheduler._read_counts()
+    delta = {k: v - before.get(k, 0) for k, v in after.items()
+             if v != before.get(k, 0)}
+    assert sorted(map(str, delta.values())) == ["1", "4", "4"]
+    scheduler._add_counts(delta, -1)
+    assert (fa.launches, fa.route_launches, qops.launches) == (
+        5, {"wgmma": 1, "wgmma192": 2, "fma": 0},
+        {"quantize": 3, "dequantize": 4})
+    scheduler._add_counts(delta)
+    scheduler._add_counts(delta)
+    assert (fa.launches, fa.route_launches["wgmma192"],
+            qops.launches["dequantize"]) == (13, 10, 6)
+
+
 def test_keeping_topology_is_scoped():
     assert not scheduler._KEEP_TOPOLOGY
     with pytest.raises(KeyError):
