@@ -227,7 +227,25 @@ exits non-zero:
    shapes: bf16, 32/32 heads, d 192, d_v 128, causal, N 16 and 8), each
    row of the forward also against its own rms, and timed there beside
    SDPA (``is_causal``), the plain versions and their bounds;
-15. a ``kernels:`` line, the kernel table as one JSON line, and as the
+15. the hybrid family: zamba2-7b at full width and full depth (81 Mamba2
+   layers of d_model 3584, state 64, 112 SSD heads of 64, and one
+   weight-shared attention block, 32/32 heads of 112 and d_ff 14336, run
+   after every group of 6 layers, 13 times a pass; vocab 32,000; bf16, tp
+   4: 28 SSD heads and 8/8 attention heads a rank, random weights from
+   seed 0), serving one wave of 4 x 1024 tokens through
+   ``examples/serve_lm_torch.py``, captured (launches exact: 81 SSD scans
+   and 13 flash forwards a wave, all 13 on the d 128 wgmma route); one wave
+   captured against eager (16 decode steps, tokens and logits bitwise
+   equal); the prefill through both kernels against their plain versions
+   at every position through the first group (6 Mamba2 layers and the
+   shared block), a gate that planted faults in either kernel's plain
+   version must break, and the full-depth gap printed; the smoke config
+   (f32) on the card against the CPU, and one training step at ``(2,
+   2)``.  The flash forward at zamba2's prefill shape (N 16, 8/8 heads, d
+   112) and the SSD scan at its serving shape (state 64) are held against
+   their plain versions in phase 2 and timed there (the flash forward as
+   wired, on inputs padded to 128 beforehand, and beside SDPA);
+16. a ``kernels:`` line, the kernel table as one JSON line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and exits non-zero without one, or when the repository
@@ -1375,6 +1393,11 @@ FLASH_ROW_FAULTS = {"window + 64": 4096 + 64, "window - 64": 4096 - 64,
 FLASH_SERVE_MLA = (16, 1024, 1024, 32, 32, 192, True, None, None)
 FLASH_TRAIN_MLA = (8, 1024, 1024, 32, 32, 192, True, None, None)
 MLA_DV = 128
+# zamba2-7b's prefill shape: a wave of 4 x 1024 tokens on tp 4 (N = 16
+# stacked sequences), 8 q heads over 8 kv heads a rank, head dim 112
+# (3584 / 32), causal; bf16 zero-pads q, k and v to the d 128 wgmma route
+# (three copies, 29.4 MB each, before the kernel reads them)
+FLASH_SERVE_ZAMBA2 = (16, 1024, 1024, 8, 8, 112, True, None, None)
 # small shapes whose v head dim differs from q's, each in f32 (fp32 FMA) and
 # bf16 (wgmma: padded to 64, or the d_qk 192 / d_v 128 route, which pads
 # (160, 96) to it): lengths no multiple of 64 or 128, S != T both ways, q
@@ -1695,6 +1718,75 @@ def flash_mla(dev, flush, bw, gen) -> dict:
     return res
 
 
+def flash_zamba2(dev, flush, bw, gen) -> dict:
+    """The forward at zamba2-7b's prefill shape (bf16, d 112: zero-padded
+    to the d 128 wgmma route by the wrapper) against its plain version,
+    element by element and each row against its own rms (FLASH_ROW_REL),
+    on the wgmma route by its counter; then timed as wired (the wrapper's
+    three padding copies included), on the same inputs zero-padded to 128
+    beforehand (the kernel alone), beside SDPA (``is_causal``; the backend
+    it picks is logged), its plain version and its bound (the real head
+    dim's work)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa, ref
+    case = FLASH_SERVE_ZAMBA2
+    q, k, v = flash_inputs(case, torch.bfloat16, gen, dev)
+    kind, dp, _ = fa.route(q.dtype, case[5], case[5])
+    check((kind, dp) == ("wgmma", 128), f"zamba2's d {case[5]} takes "
+          f"{kind} at {dp}")
+    r0 = fa.route_launches[kind]
+    got = fa.flash_attention(q, k, v)
+    check(fa.route_launches[kind] == r0 + 1,
+          f"flash_attention {case}: no launch on the {kind} route")
+    want = ref.flash_attention_ref(q, k, v).float()
+    diff = (got.float() - want).abs()
+    tol = FLASH_TOL[torch.bfloat16]
+    err = diff.max().item()
+    row = (diff.amax(-1) / want.square().mean(-1).sqrt()).max().item()
+    check(bool((diff <= tol + tol * want.abs()).all()) and row
+          <= FLASH_ROW_REL,
+          f"flash_attention {case} bf16: max|kernel - plain| {err} over "
+          f"{tol} + {tol} |plain|, or a row's {row} of its rms(plain) over "
+          f"{FLASH_ROW_REL}")
+    del want, diff, got
+    # the kernel alone: the same work on inputs padded beforehand (scaled
+    # by 1/sqrt(128), not 1/sqrt(112): a timing, not the same function)
+    qp, kp, vp = (F.pad(t, (0, dp - case[5])) for t in (q, k, v))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    res = work_bound(flash_work(case), bw)
+    smi_sample("flash-zamba2")
+    res.update(
+        max_abs_err=err, max_row_rel_err=row,
+        ms=time_ms(lambda: fa.flash_attention(q, k, v), flush),
+        prepadded_ms=time_ms(lambda: fa.flash_attention(qp, kp, vp), flush),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), flush),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v), flush))
+    res["library_backend"] = sdpa_backend(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        qt, kt, vt, is_causal=True)
+    flops, nbytes = flash_work(case)
+    log(f"[flash] zamba2-7b prefill shape {case[:6]} bf16 causal (the d 128 "
+        f"wgmma route, d 112 zero-padded): max|kernel - plain| {err:.3e} "
+        f"(tol 2e-2 + 2e-2 |plain|), a row's {row:.3e} of its rms(plain) "
+        f"(bound {FLASH_ROW_REL}); as wired (three padding copies) "
+        f"{res['ms'] * 1e3:.2f} us, on inputs padded to {dp} beforehand "
+        f"{res['prepadded_ms'] * 1e3:.2f} us (the copies "
+        f"{(res['ms'] - res['prepadded_ms']) * 1e3:.2f} us, "
+        f"{100 * (1 - res['prepadded_ms'] / res['ms']):.1f} % of the call); "
+        f"plain {res['plain_ms'] * 1e3:.2f} us; scaled_dot_product_attention "
+        f"(is_causal) {res['library_ms'] * 1e3:.2f} us (backend "
+        f"{res['library_backend']}); bound {res['bound_ms'] * 1e3:.2f} us "
+        f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, "
+        f"{res['bound_by']}); as wired at "
+        f"{100 * res['bound_ms'] / res['ms']:.1f} % of its bound and "
+        f"{res['library_ms'] / res['ms']:.2f}x SDPA's speed, padded "
+        f"beforehand {res['library_ms'] / res['prepadded_ms']:.2f}x")
+    del q, k, v, qt, kt, vt, qp, kp, vp
+    _release()
+    return res
+
+
 def check_forward_digests() -> None:
     """The d <= 128 wgmma forward's bits against the digests the card tests
     hold it to (its output and log-sum-exp as they were before the kernel
@@ -1784,9 +1876,11 @@ def phase_flash_kernel(dev, flush, bw) -> dict:
     out["gemma3_serving"] = time_flash_gemma3(dev, flush, bw, gen)
     out["mixtral_serving"] = flash_mixtral(dev, flush, bw, gen)
     out["deepseek_serving"] = flash_mla(dev, flush, bw, gen)
+    out["zamba2_serving"] = flash_zamba2(dev, flush, bw, gen)
     out["max_abs_err"] = max(out["max_abs_err"],
                              out["mixtral_serving"]["max_abs_err"],
-                             out["deepseek_serving"]["max_abs_err"])
+                             out["deepseek_serving"]["max_abs_err"],
+                             out["zamba2_serving"]["max_abs_err"])
     return out
 
 
@@ -2148,13 +2242,15 @@ def _leaves(tree):
         yield tree
 
 
-def phase_serve_smoke(dev, arch: str, S: int, GEN: int, **overrides) -> None:
+def phase_serve_smoke(dev, arch: str, S: int, GEN: int, rel=SMOKE_REL,
+                      **overrides) -> None:
     """``arch``'s smoke config in f32 (with ``overrides``), tp = 4, on the
     card and on the CPU from the same weights: greedy tokens over GEN
-    decode steps after an S-token prompt equal; on the card, decode equals
-    prefill of the extended sequence (an MoE config only where its
-    capacity holds every token: otherwise the prefill's capacity cut drops
-    tokens that a decode step keeps, and the two differ by design)."""
+    decode steps after an S-token prompt equal, logits within ``rel`` of
+    max|logit|; on the card, decode equals prefill of the extended
+    sequence (an MoE config only where its capacity holds every token:
+    otherwise the prefill's capacity cut drops tokens that a decode step
+    keeps, and the two differ by design)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.config import CommConfig
     from repro_torch.launch import input_specs as isp
@@ -2191,8 +2287,8 @@ def phase_serve_smoke(dev, arch: str, S: int, GEN: int, **overrides) -> None:
                / cpu_st.last_logits.abs().max()).item()
     if cfg.family == "moe" and (cfg.capacity_factor * cfg.n_experts_per_tok
                                 < cfg.n_experts):
-        check(rel_cpu <= SMOKE_REL, f"smoke logits: card vs CPU {rel_cpu} "
-              f"(bound {SMOKE_REL})")
+        check(rel_cpu <= rel, f"smoke logits: card vs CPU {rel_cpu} "
+              f"(bound {rel})")
         log(f"[serve] {label} f32 tp {tp}: greedy tokens over {GEN} decode "
             f"steps after {S} prompt tokens equal on the card and the CPU "
             f"(capacity cut active); card vs CPU {rel_cpu:.2e} of "
@@ -2205,15 +2301,15 @@ def phase_serve_smoke(dev, arch: str, S: int, GEN: int, **overrides) -> None:
     ext = pre(params, {"tokens": seq})
     check(torch.equal(dec.greedy_tokens(st, rt), dec.greedy_tokens(ext, rt)),
           "smoke decode's next token differs from the extended prefill's")
-    rel = ((st.last_logits - ext.last_logits).abs().max()
-           / ext.last_logits.abs().max()).item()
-    check(rel <= SMOKE_REL and rel_cpu <= SMOKE_REL,
-          f"smoke logits: decode vs extended prefill {rel}, card vs CPU "
-          f"{rel_cpu} (bound {SMOKE_REL})")
+    rel_ext = ((st.last_logits - ext.last_logits).abs().max()
+               / ext.last_logits.abs().max()).item()
+    check(rel_ext <= rel and rel_cpu <= rel,
+          f"smoke logits: decode vs extended prefill {rel_ext}, card vs CPU "
+          f"{rel_cpu} (bound {rel})")
     log(f"[serve] {label} f32 tp {tp}: greedy tokens over {GEN} decode "
         f"steps after {S} prompt tokens equal on the card and the CPU; "
-        f"decode vs prefill of the extended sequence {rel:.2e}, card vs CPU "
-        f"{rel_cpu:.2e} of max|logit|")
+        f"decode vs prefill of the extended sequence {rel_ext:.2e}, card vs "
+        f"CPU {rel_cpu:.2e} of max|logit| (bound {rel})")
 
 
 # ----------------------------------------------------------------------
@@ -2228,6 +2324,10 @@ SSD_TOL = 1e-4
 SSD_GRID = [(1, 1, 32, 2, 8, 8, 16), (1, 2, 64, 3, 16, 8, 16),
             (1, 1, 128, 4, 32, 16, 32)]
 SSD_SERVE = (4, 8, 2048, 6, 64, 128, 128)
+# zamba2-7b's serving shape: tp 4 x batch 4 x 28 heads of 64 a rank, state
+# 64, 1024 tokens in 8 chunks of 128 (A = -linspace(1, 16, 112) cut into
+# the ranks' heads, as its A_log is drawn)
+SSD_SERVE_ZAMBA2 = (4, 4, 1024, 28, 64, 64, 128)
 # At the serving shape the cumulative decay reaches ~-1.4e3, where f32's
 # spacing is ~1e-4: two right summation orders differ at that level, so
 # the kernel is held against the plain version run in float64, to at most
@@ -2288,6 +2388,71 @@ def ssd_inputs(case, dtype, gen, dev, serving=False):
             rnd(R, B, S, 1, N).to(dtype), rnd(R, B, S, 1, N).to(dtype))
 
 
+def ssd_against_f64(inp, chunk, label) -> float:
+    """The scan kernel and its plain version on ``inp`` against the plain
+    version in float64: the kernel errs at most SSD_F64_SLACK times the
+    f32 plain version plus SSD_F64_FLOOR of max|y| (y and h_final).
+    Returns max|kernel - plain|."""
+    from repro_torch.kernels.ssd_scan import ops as ssd, ref
+    got = ssd.ssd_chunked(*inp, chunk)
+    plain = ref.ssd_chunked_ref(*inp, chunk)
+    exact = ref.ssd_chunked_ref(*(t.double() for t in inp), chunk)
+    worst = 0.0
+    for g, p, e, what in zip(got, plain, exact, ("y", "h_final")):
+        err_k = (g.double() - e).abs().max().item()
+        err_p = (p.double() - e).abs().max().item()
+        bound = SSD_F64_SLACK * err_p + SSD_F64_FLOOR * e.abs().max().item()
+        gap = (g - p).abs().max().item()
+        check(err_k <= bound, f"ssd_scan {label} {what}: kernel off float64 "
+              f"by {err_k}, over {bound} (f32 plain off by {err_p})")
+        log(f"[ssd] {label} {what}: max|kernel - f64| {err_k:.3e}, "
+            f"max|plain f32 - f64| {err_p:.3e} (bound {bound:.3e}); "
+            f"max|kernel - plain| {gap:.3e}")
+        worst = max(worst, gap)
+    return worst
+
+
+def ssd_zamba2(dev, flush, bw, gen) -> dict:
+    """The scan at zamba2-7b's serving shape (state 64), bf16 and f32 under
+    its steep decay and bf16 under the shallow one, against the plain
+    version in float64 (``ssd_against_f64``); then timed in bf16 at both
+    decays beside its plain version and its bound."""
+    from repro_torch.kernels.ssd_scan import ops as ssd, ref
+    case, L = SSD_SERVE_ZAMBA2, SSD_SERVE_ZAMBA2[-1]
+    worst = 0.0
+    for dt, serving in ((torch.bfloat16, True), (torch.float32, True),
+                        (torch.bfloat16, False)):
+        inp = ssd_inputs(case, dt, gen, dev, serving=serving)
+        worst = max(worst, ssd_against_f64(
+            inp, L, f"zamba2-7b serving shape {dt}, "
+            + ("steep" if serving else "shallow") + " decay"))
+        del inp
+        _release()
+    steep = ssd_inputs(case, torch.bfloat16, gen, dev, serving=True)
+    shallow = ssd_inputs(case, torch.bfloat16, gen, dev)
+    flops, nbytes = ssd_work(case, 2)
+    smi_sample("ssd-zamba2")
+    out = dict(ms=time_ms(lambda: ssd.ssd_chunked(*steep, L), flush),
+               shallow_ms=time_ms(lambda: ssd.ssd_chunked(*shallow, L),
+                                  flush),
+               plain_ms=time_ms(lambda: ref.ssd_chunked_ref(*steep, L),
+                                flush),
+               library_ms=None, max_abs_err=worst,
+               **work_bound((flops, nbytes), bw))
+    log(f"[ssd] zamba2-7b serving shape {case} bf16: kernel "
+        f"{out['ms'] * 1e3:.2f} us (steep decay), "
+        f"{out['shallow_ms'] * 1e3:.2f} us (shallow: no product skipped), "
+        f"plain {out['plain_ms'] * 1e3:.2f} us, bound "
+        f"{out['bound_ms'] * 1e3:.2f} us ({flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB: {out['bound_by']}); kernel at "
+        f"{100 * out['bound_ms'] / out['ms']:.1f} % of its bound (steep), "
+        f"{100 * out['bound_ms'] / out['shallow_ms']:.1f} % (shallow); "
+        f"library call: none")
+    del steep, shallow
+    _release()
+    return out
+
+
 def phase_ssd_kernel(dev, flush, bw) -> dict:
     """The SSD scan kernel against its plain version at the unit shapes
     (f32, per element) and at the serving shape (bf16 and f32, against the
@@ -2313,23 +2478,7 @@ def phase_ssd_kernel(dev, flush, bw) -> dict:
     L = SSD_SERVE[-1]
     for dt in (torch.bfloat16, torch.float32):
         inp = ssd_inputs(SSD_SERVE, dt, gen, dev, serving=True)
-        got = ssd.ssd_chunked(*inp, L)
-        plain = ref.ssd_chunked_ref(*inp, L)
-        exact = ref.ssd_chunked_ref(*(t.double() for t in inp), L)
-        for g, p, e, what in zip(got, plain, exact, ("y", "h_final")):
-            err_k = (g.double() - e).abs().max().item()
-            err_p = (p.double() - e).abs().max().item()
-            bound = (SSD_F64_SLACK * err_p
-                     + SSD_F64_FLOOR * e.abs().max().item())
-            gap = (g - p).abs().max().item()
-            check(err_k <= bound, f"ssd_scan serving shape {dt} {what}: "
-                  f"kernel off float64 by {err_k}, over {bound} (f32 plain "
-                  f"off by {err_p})")
-            log(f"[ssd] serving shape {dt} {what}: max|kernel - f64| "
-                f"{err_k:.3e}, max|plain f32 - f64| {err_p:.3e} (bound "
-                f"{bound:.3e}); max|kernel - plain| {gap:.3e}")
-            worst = max(worst, gap)
-        del got, plain, exact
+        worst = max(worst, ssd_against_f64(inp, L, f"serving shape {dt}"))
     inp = ssd_inputs(SSD_SERVE, torch.bfloat16, gen, dev, serving=True)
     flops, nbytes = ssd_work(SSD_SERVE, 2)
     smi_sample("ssd")
@@ -2344,20 +2493,7 @@ def phase_ssd_kernel(dev, flush, bw) -> dict:
     # near that, nothing is skipped, and the time is the kernel's worst
     # case; the float64 gate holds there too.
     shallow = ssd_inputs(SSD_SERVE, torch.bfloat16, gen, dev)
-    got = ssd.ssd_chunked(*shallow, L)
-    plain = ref.ssd_chunked_ref(*shallow, L)
-    exact = ref.ssd_chunked_ref(*(t.double() for t in shallow), L)
-    for g, p, e, what in zip(got, plain, exact, ("y", "h_final")):
-        err_k = (g.double() - e).abs().max().item()
-        err_p = (p.double() - e).abs().max().item()
-        bound = SSD_F64_SLACK * err_p + SSD_F64_FLOOR * e.abs().max().item()
-        check(err_k <= bound, f"ssd_scan serving shape, shallow decay, "
-              f"{what}: kernel off float64 by {err_k}, over {bound} (f32 "
-              f"plain off by {err_p})")
-        log(f"[ssd] serving shape, shallow decay, bf16 {what}: max|kernel - "
-            f"f64| {err_k:.3e}, max|plain f32 - f64| {err_p:.3e} (bound "
-            f"{bound:.3e})")
-    del got, plain, exact
+    ssd_against_f64(shallow, L, "serving shape, shallow decay, bf16")
     shallow_ms = time_ms(lambda: ssd.ssd_chunked(*shallow, L), flush)
     smi_sample("ssd")
     out = dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
@@ -2370,6 +2506,10 @@ def phase_ssd_kernel(dev, flush, bw) -> dict:
         f" kernel at {100 * out['bound_ms'] / k_ms:.1f} % of its bound; "
         f"library call: none; at the shallow decay (no product skipped) "
         f"kernel {shallow_ms * 1e3:.2f} us")
+    del inp, shallow
+    _release()
+    out["zamba2_serving"] = ssd_zamba2(dev, flush, bw, gen)
+    out["max_abs_err"] = max(worst, out["zamba2_serving"]["max_abs_err"])
     return out
 
 
@@ -4336,31 +4476,23 @@ def wave_drops(params, toks, rt, dev) -> tuple[list, list]:
     return out, loads
 
 
-def moe_waves(dev, arch: str, argv: list, gen: int, tag: str) -> dict:
-    """One wave at the serving example's shapes for ``arch`` (``argv``) on a
-    session built as the example builds it, captured against eager: ``gen``
-    decode steps (the warm-up that captures, then replays), tokens and
-    logits bitwise equal at every step; a replay of the captured prefill
-    timed; the wave's (token, expert) assignments that the capacity cut
-    dropped, counted by :func:`wave_drops`."""
-    from repro_torch.launch import input_specs as isp, setup
-    from repro_torch.models import decode as dec, moe
+def captured_against_eager(sess, args, comm, toks, gen: int, tag: str,
+                           dev, profile: bool = False) -> dict:
+    """One wave of ``toks`` at the serving example's shapes (``args``) on
+    ``sess``, captured against eager: ``gen`` decode steps (the warm-up
+    that captures, then replays), tokens and logits bitwise equal at every
+    step.  Returns the time of a replay of the captured prefill
+    (``replay_ms``) and, with ``profile``, the device time by kernel of
+    one prefill replay and one decode replay (``profiles``)."""
+    from repro_torch.launch import input_specs as isp
+    from repro_torch.models import decode as dec
     from repro_torch.train import serve as serve_mod
-    ex = load_example("serve_lm_torch")
-    args = ex.parser().parse_args(["--arch", arch] + argv)
-    cfg = ex.model_config(args)
-    comm = ex.COMMS[args.comm]
-    sess = setup.build_session(cfg, args.tp, comm, seed=args.seed,
-                               device=dev)
-    S, B = args.prompt_len, args.batch
-    toks = np.random.RandomState(2).randint(0, cfg.vocab_size, (B, S))
-    runs = {}
+    cfg, S, B = sess.cfg, args.prompt_len, args.batch
+    runs, res = {}, {}
     for captured in (False, True):
         rt, pre = serve_mod.build_serve_fn(
             cfg, args.tp, comm, isp.ShapeSpec("wave", S, B, "prefill"),
             cache_capacity=S + gen, device=dev, captured=captured)
-        if not captured:
-            n_drop, loads = wave_drops(sess.params, toks, rt, dev)
         _, step = serve_mod.build_serve_fn(
             cfg, args.tp, comm, isp.ShapeSpec("wave", S + gen, B, "decode"),
             device=dev, captured=captured)
@@ -4370,22 +4502,54 @@ def moe_waves(dev, arch: str, argv: list, gen: int, tag: str) -> dict:
             t0 = time.perf_counter()
             st = pre(sess.params, {"tokens": toks})
             torch.cuda.synchronize()
-            replay_ms = (time.perf_counter() - t0) * 1e3
+            res["replay_ms"] = (time.perf_counter() - t0) * 1e3
         out = []
         for _ in range(gen):
             nxt = dec.greedy_tokens(st, rt)
             st = step(sess.params, nxt, st)
             out.append((nxt.clone(), st.last_logits.clone()))
         runs[captured] = out
+        if captured and profile:
+            (g,) = step.graphs.values()
+            res["profiles"] = {
+                "prefill": profile_device_time(f"{tag} prefill replay",
+                                               pre.graph.replay),
+                "decode": profile_device_time(f"{tag} decode replay",
+                                              g.replay)}
         del pre, step, st
         _release()
-    del sess
-    _release()
     for i, ((te, le), (tc, lc)) in enumerate(zip(runs[False], runs[True])):
         check(torch.equal(te, tc), f"[{tag}] decode step {i}: captured "
               f"tokens {tc.tolist()} differ from eager {te.tolist()}")
         check(torch.equal(le, lc), f"[{tag}] decode step {i}: captured "
               f"logits differ from eager")
+    return res
+
+
+def moe_waves(dev, arch: str, argv: list, gen: int, tag: str) -> dict:
+    """One wave at the serving example's shapes for ``arch`` (``argv``) on a
+    session built as the example builds it, captured against eager
+    (:func:`captured_against_eager`); the wave's (token, expert)
+    assignments that the capacity cut dropped, counted by
+    :func:`wave_drops`."""
+    from repro_torch.launch import input_specs as isp, setup
+    from repro_torch.models import moe
+    from repro_torch.train import serve as serve_mod
+    ex = load_example("serve_lm_torch")
+    args = ex.parser().parse_args(["--arch", arch] + argv)
+    cfg = ex.model_config(args)
+    comm = ex.COMMS[args.comm]
+    sess = setup.build_session(cfg, args.tp, comm, seed=args.seed,
+                               device=dev)
+    S, B = args.prompt_len, args.batch
+    toks = np.random.RandomState(2).randint(0, cfg.vocab_size, (B, S))
+    rt = serve_mod.serve_runtime(cfg, args.tp, comm,
+                                 isp.ShapeSpec("wave", S, B, "prefill"))
+    n_drop, loads = wave_drops(sess.params, toks, rt, dev)
+    replay_ms = captured_against_eager(sess, args, comm, toks, gen, tag,
+                                       dev)["replay_ms"]
+    del sess
+    _release()
     T = B * S
     log(f"[{tag}] {cfg.name}: {gen} captured decode steps (one graph, "
         f"{gen - 1} replays) bitwise equal to eager, tokens and logits; the "
@@ -4504,20 +4668,33 @@ DEEPSEEK_DECODE_STEPS = 16
 MLA_STEP_LOSS_TOL = 1e-5
 
 
-def train_step_vs_cpu(dev, arch: str) -> dict:
+def train_step_vs_cpu(dev, arch: str, grad_tol: float = TRAIN_GRAD_TOL
+                      ) -> dict:
     """``arch``'s smoke config (f32) on a ``(2, 2)`` stack: one training
     step's loss and gradients (every rank's) on the card against the CPU
-    from the same weights and batch; the card's step runs the flash
-    forward and backward kernels (counts zeroed just before it and read
-    just after: the backward on the fp32-FMA route, v padded as q)."""
+    from the same weights and batch (the loss within MLA_STEP_LOSS_TOL, the
+    gradients within ``grad_tol`` of each leaf's max|grad|); the card's
+    step runs the flash forward and backward kernels, and the SSD scan's
+    in the hybrid family (counts zeroed just before it and read just after:
+    one of each a layer of its kind, the flash backward on the fp32-FMA
+    route, v padded as q)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.config import CommConfig
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd
     from repro_torch.launch import mesh as mesh_mod, setup
+    from repro_torch.models import transformer
     from repro_torch.optim import adamw
     from repro_torch.train import train_step as ts
     scfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
-    d, dv = scfg.qk_nope_dim + scfg.qk_rope_dim, scfg.v_head_dim
+    if scfg.use_mla:
+        d, dv = scfg.qk_nope_dim + scfg.qk_rope_dim, scfg.v_head_dim
+    else:
+        d = dv = scfg.resolved_head_dim
+    hybrid = scfg.family == "hybrid"
+    n_attn = (transformer.hybrid_counts(scfg)[0] if hybrid
+              else scfg.n_layers)
+    n_ssd = scfg.n_layers if hybrid else 0
     rng = np.random.RandomState(0)
     batch = {"tokens": rng.randint(0, scfg.vocab_size, (4, 32)),
              "labels": rng.randint(0, scfg.vocab_size, (4, 32))}
@@ -4534,25 +4711,30 @@ def train_step_vs_cpu(dev, arch: str) -> dict:
             runs["cpu"] = lg(s.params, stacked)
             continue
         flash_counts(reset=True)
+        ssd.launches = ssd.bwd_launches = 0
         runs["card"] = lg(s.params, stacked)
-        counts = flash_counts()
+        counts = dict(flash_counts(), ssd_fwd=ssd.launches,
+                      ssd_bwd=ssd.bwd_launches)
     (loss_c, _, g_c), (loss_k, _, g_k) = runs["cpu"], runs["card"]
     gap_l = (loss_k.cpu() - loss_c).abs().max().item()
     gap_g = _leaf_gap(g_k, g_c)
-    n = scfg.n_layers
-    check(counts["bwd"] == counts["bwd_fma"] == n,
-          f"{arch} smoke training step on the card: flash launches {counts}, "
-          f"want {n} backward on the fp32-FMA route")
-    check(gap_l < MLA_STEP_LOSS_TOL and gap_g < TRAIN_GRAD_TOL,
+    check(counts["fwd"] == counts["bwd"] == counts["bwd_fma"] == n_attn
+          and counts["ssd_fwd"] == counts["ssd_bwd"] == n_ssd,
+          f"{arch} smoke training step on the card: launches {counts}, "
+          f"want {n_attn} flash forward and backward (on the fp32-FMA "
+          f"route) and {n_ssd} SSD scans both ways")
+    check(gap_l < MLA_STEP_LOSS_TOL and gap_g < grad_tol,
           f"{arch} smoke training step on the card vs the CPU: loss {gap_l} "
           f"(tol {MLA_STEP_LOSS_TOL}), gradients {gap_g} of max|grad| (tol "
-          f"{TRAIN_GRAD_TOL})")
+          f"{grad_tol})")
     log(f"[train] {arch} smoke config (f32, (2, 2)) one step on the card vs "
         f"the CPU: loss {gap_l:.3e} (tol {MLA_STEP_LOSS_TOL}), gradients "
-        f"{gap_g:.3e} of each leaf's max|grad| (tol {TRAIN_GRAD_TOL}); flash "
+        f"{gap_g:.3e} of each leaf's max|grad| (tol {grad_tol}); flash "
         f"launches forward {counts['fwd']}, backward {counts['bwd']} (fp32 "
         f"FMA, d {d} and d_v {dv} padded to "
-        f"{fa.bwd_route(scfg.dtype, max(d, dv))[1]})")
+        f"{fa.bwd_route(scfg.dtype, max(d, dv))[1]})"
+        + (f"; SSD scan launches forward {counts['ssd_fwd']}, backward "
+           f"{counts['ssd_bwd']}" if n_ssd else ""))
     return dict(loss_gap=gap_l, grad_gap=gap_g, counts=counts)
 
 
@@ -4584,6 +4766,232 @@ def phase_mla(dev) -> dict:
     phase_serve_smoke(dev, "deepseek-v3-671b", 24, 16)
     phase_serve_smoke(dev, "deepseek-v3-671b", 24, 16, capacity_factor=4.0)
     out["training_step"] = train_step_vs_cpu(dev, "deepseek-v3-671b")
+    return out
+
+
+# ----------------------------------------------------------------------
+# The hybrid family: zamba2-7b served at full width and depth
+# ----------------------------------------------------------------------
+
+# zamba2-7b at full width and depth (bf16, random weights from seed 0, tp
+# 4: 28 SSD heads and 8/8 attention heads a rank; 6.66 B parameters, 13.3
+# GB, fit one card whole): one wave of 4 x 1024 tokens (8 SSD chunks of
+# 128), then up to 16 decode steps
+ZAMBA2_SERVE_ARGV = ["--arch", "zamba2-7b", "--tp", "4", "--batch", "4",
+                     "--prompt-len", "1024", "--gen", "16", "--requests",
+                     "4", "--comm", "static"]
+ZAMBA2_DECODE_STEPS = 16
+# kernel vs plain logits of one full-width bf16 wave at every position, as
+# a share of max|logit|, through the served weights' first Mamba2 layers
+# and then the shared block (a cut of HYBRID_GATE_DEPTH layers, its one
+# group): the gate; the deeper cuts of HYBRID_DEPTHS are printed beside it.
+# The random-weight model is chaotic with depth: on an H100 the kernels
+# read 3.7e-3, 0.13, 0.63 and 0.87 through 1, 2, 3 and 6 layers, and a
+# 1e-7 noise on the plain scan's y moves the same logits by 3.8e-3, 0.13,
+# 0.29 and 0.84; the planted faults move the one-layer cut by 0.61 to 1.75
+HYBRID_GATE_REL = 5e-2
+HYBRID_GATE_DEPTH = 1
+HYBRID_DEPTHS = (1, 2, 3, 6)
+# the smoke config's training step on the card against the CPU: the
+# gradients within tests/test_torch_hybrid.py's bound (the random-weight
+# smoke model's f32 gradients move by up to 5.5e-2 of a leaf's max under
+# one ulp of noise, examples/hybrid_noise_probe_torch.py)
+HYBRID_STEP_GRAD_TOL = 1e-1
+# the smoke config served (f32) on the card against the CPU: logits within
+# tests/test_torch_hybrid.py's serving bound (its port against the JAX
+# package reads 2.3e-4 of max, the JAX package's own tp 1 against tp 4
+# 1.8e-4; SMOKE_REL, 1e-4, holds the better-conditioned families)
+HYBRID_SMOKE_REL = 1e-3
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def hybrid_gate(sess, args, comm, dev) -> dict:
+    """One wave's logits through both kernels against their plain versions
+    (the SSD scan's and the flash kernel's) on the served weights, at every
+    position through a cut of the model: the first ``j`` Mamba2 layers,
+    then the shared block (one group of ``j``), for each ``j`` of
+    HYBRID_DEPTHS; the cut of HYBRID_GATE_DEPTH layers gated at
+    HYBRID_GATE_REL of max|logit|, with faults planted in either plain
+    version (the SSD scan's inter-chunk term dropped or its decay mask
+    strict; attention's causal mask off by one), each of which must break
+    the gate; beside each cut, how far a rounding-sized perturbation of
+    the plain scan's y moves the same logits; the full-depth prefill's last
+    position printed beside it."""
+    from repro_torch.launch import input_specs as isp
+    from repro_torch.models import transformer
+    from repro_torch.train import serve as serve_mod
+    probe = load_example("ssm_fault_probe_torch")
+    cfg, S, B = sess.cfg, args.prompt_len, args.batch
+    toks = np.random.RandomState(1).randint(0, cfg.vocab_size, (B, S))
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    shape = isp.ShapeSpec("wave", S, B, "prefill")
+
+    def plain(fn, scan=None, attn=None):
+        return plain_attention(lambda: probe.through(fn, scan), attn)
+
+    def rel(x, want):
+        return ((x - want).abs().max() / want.abs().max()).item()
+
+    def cut(j):
+        """The served weights' first ``j`` Mamba2 layers as one group, the
+        shared block after them: every position's logits."""
+        c = dataclasses.replace(cfg, n_layers=j, hybrid_attn_every=j)
+        params = {k: v for k, v in sess.params.items() if k != "trailing"}
+        params["groups"] = _tree_map(lambda t: t[:1, :j],
+                                     sess.params["groups"])
+        rt = serve_mod.serve_runtime(c, args.tp, comm, shape)
+        return lambda: transformer.forward(params, batch, rt).logits
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    noise_gen = torch.Generator(device=dev).manual_seed(0)
+
+    def noisy_scan(*inp):
+        """The plain scan with y times 1 + 1e-7 N(0, 1): a rounding's
+        worth of difference, the size of two summation orders'."""
+        y, h = ssd_ref.ssd_chunked_ref(*inp)
+        return y * (1 + 1e-7 * torch.randn(y.shape, generator=noise_gen,
+                                           device=y.device)), h
+    gaps, noise, faults, finite = {}, {}, {}, True
+    with torch.no_grad():
+        for j in HYBRID_DEPTHS:
+            every = cut(j)
+            got, want = every(), plain(every)
+            gaps[j] = rel(got, want)
+            noise[j] = rel(plain(every, scan=noisy_scan), want)
+            finite &= bool(torch.isfinite(got).all())
+            del got
+            if j == HYBRID_GATE_DEPTH:
+                faults = {f"SSD scan: {label}":
+                          rel(plain(every, scan=fault), want)
+                          for label, fault in probe.FAULTS.items()}
+                faults["attention: causal mask off by one"] = rel(
+                    plain(every, attn=causal_off_by_one), want)
+            del want
+        _, pre = serve_mod.build_serve_fn(
+            cfg, args.tp, comm, shape, cache_capacity=S + args.gen,
+            device=dev, captured=False)
+        last = lambda: pre(sess.params, batch).last_logits
+        got = last().clone()
+        full_gap = rel(got, plain(last))
+        finite &= bool(torch.isfinite(got).all())
+        del got, pre
+    _release()
+    gap = gaps[HYBRID_GATE_DEPTH]
+    log(f"[hybrid] one wave through both kernels vs their plain versions, "
+        f"max|dlogit| as a share of max|logit| over every position through "
+        f"the first j Mamba2 layers and the shared block: "
+        + ", ".join(f"j={j} {g:.3e}" for j, g in gaps.items())
+        + f" (j={HYBRID_GATE_DEPTH} gated, bound {HYBRID_GATE_REL}); the "
+        f"plain versions with y of every scan times 1 + 1e-7 N(0, 1) against "
+        f"them: " + ", ".join(f"j={j} {g:.3e}" for j, g in noise.items())
+        + f"; planted "
+        f"in the plain versions at j={HYBRID_GATE_DEPTH}: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in faults.items())
+        + f"; {full_gap:.3e} at the prefill's last position through all "
+        f"{cfg.n_layers} layers and {transformer.hybrid_counts(cfg)[0]} "
+        f"shared-block runs (not gated: the random-weight model amplifies "
+        f"rounding with depth)")
+    check(finite, "[hybrid] non-finite prefill logits")
+    check(gap <= HYBRID_GATE_REL,
+          f"[hybrid] every position through {HYBRID_GATE_DEPTH} Mamba2 "
+          f"layer(s) and the shared block, kernels vs plain: {gap} of "
+          f"max|logit| (bound {HYBRID_GATE_REL})")
+    for label, moved in faults.items():
+        check(moved > HYBRID_GATE_REL, f"[hybrid] the logits gate misses "
+              f"the planted fault '{label}': {moved} of max|logit|")
+    return dict(gap=gap, depth_gaps=gaps, noise_gaps=noise, faults=faults,
+                full_depth_gap=full_gap)
+
+
+def serve_hybrid(dev) -> dict:
+    """zamba2-7b served at full width and depth through
+    ``examples/serve_lm_torch.py``, captured (the main path: the kernels'
+    counts zeroed just before it and read just after: one SSD scan a
+    Mamba2 layer and one flash forward a shared-block run a wave, every
+    flash launch on the d 128 wgmma route); one wave captured against
+    eager; the kernel-vs-plain gate (:func:`hybrid_gate`)."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.launch import setup
+    from repro_torch.models import transformer
+    ex = load_example("serve_lm_torch")
+    args = ex.parser().parse_args(ZAMBA2_SERVE_ARGV)
+    cfg = ex.model_config(args)
+    comm = ex.COMMS[args.comm]
+    ng, nt = transformer.hybrid_counts(cfg)
+    _release()
+    t0 = time.perf_counter()
+    sess = setup.build_session(cfg, args.tp, comm, seed=args.seed,
+                               device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    stored = sum(t.numel() * t.element_size() for t in _leaves(sess.params))
+    log(f"[hybrid] {cfg.name}: full width and depth ({cfg.n_layers} Mamba2 "
+        f"layers of d_model {cfg.d_model}, {cfg.ssm_heads} SSD heads of "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, in {ng} groups of "
+        f"{cfg.hybrid_attn_every} and {nt} trailing; one shared attention "
+        f"block, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.resolved_head_dim} and d_ff {cfg.d_ff}, after every group; "
+        f"vocab {cfg.vocab_size}): {cfg.param_count():,} parameters, "
+        f"{stored / 1e9:.2f} GB of stacked bf16 weights (tp {args.tp}) "
+        f"from seed {args.seed} initialised on the card in {init_s:.1f} s")
+    flash_counts(reset=True)
+    ssd.launches = 0
+    out = ex.run(args, log=lambda *_: None, sess=sess)
+    counts = dict(flash_counts(), ssd=ssd.launches)
+    waves = len(out["prefill_ms"])
+    check(counts["ssd"] == out["ssd_launches"] == cfg.n_layers * waves,
+          f"[hybrid] SSD scan launches {counts['ssd']}, want {cfg.n_layers} "
+          f"x {waves} waves")
+    check(counts["fwd"] == out["flash_launches"] == counts["fwd_wgmma"]
+          == ng * waves, f"[hybrid] flash launches {counts}, want {ng} x "
+          f"{waves} waves, all on the wgmma route")
+    check(out["all_logits_finite"], "[hybrid] non-finite logits")
+    log(f"[hybrid] {cfg.name} served captured: {out['requests']} requests, "
+        f"{out['generated_tokens']} tokens in {out['wall_s']:.2f} s; prefill "
+        f"ms per wave {[round(m, 2) for m in out['prefill_ms']]} (with the "
+        f"wave's capture); median decode "
+        f"{out['decode_ms_per_token_median']:.2f} ms/step over "
+        f"{out['decode_steps']} steps; peak {out['peak_mem_gb']:.2f} GB; "
+        f"launches: SSD scan {counts['ssd']} = {cfg.n_layers} x {waves} "
+        f"wave(s), flash {counts['fwd']} = {ng} x {waves} (d 128 wgmma "
+        f"route {counts['fwd_wgmma']})")
+    toks = np.random.RandomState(2).randint(0, cfg.vocab_size,
+                                            (args.batch, args.prompt_len))
+    waves_out = captured_against_eager(sess, args, comm, toks,
+                                       ZAMBA2_DECODE_STEPS, "hybrid", dev,
+                                       profile=True)
+    replay_ms, prof = waves_out["replay_ms"], waves_out["profiles"]
+    log(f"[hybrid] {ZAMBA2_DECODE_STEPS} captured decode steps (one graph, "
+        f"{ZAMBA2_DECODE_STEPS - 1} replays) bitwise equal to eager, tokens "
+        f"and logits; a replay of the captured prefill {replay_ms:.1f} ms "
+        f"(device busy {prof['prefill']['busy_ms']:.1f} ms of it profiled), "
+        f"a decode replay's device busy {prof['decode']['busy_ms']:.2f} ms "
+        f"of {out['decode_ms_per_token_median']:.2f} ms/step")
+    gate = hybrid_gate(sess, args, comm, dev)
+    del sess
+    _release()
+    return dict(ssd=counts["ssd"], flash=counts["fwd"],
+                flash_wgmma=counts["fwd_wgmma"], waves=waves,
+                prefill_ms=out["prefill_ms"], prefill_replay_ms=replay_ms,
+                prefill_busy_ms=prof["prefill"]["busy_ms"],
+                decode_busy_ms=prof["decode"]["busy_ms"],
+                decode_ms=out["decode_ms_per_token_median"],
+                peak_gb=out["peak_mem_gb"], **gate)
+
+
+def phase_hybrid(dev) -> dict:
+    """zamba2-7b served at full width and depth (:func:`serve_hybrid`); the
+    smoke config (f32) on the card against the CPU (decode against the
+    prefill of the extended sequence), and one training step at ``(2,
+    2)``.  Returns zamba2's serving reading."""
+    out = serve_hybrid(dev)
+    phase_serve_smoke(dev, "zamba2-7b", 32, 16, rel=HYBRID_SMOKE_REL)
+    out["training_step"] = train_step_vs_cpu(dev, "zamba2-7b",
+                                             HYBRID_STEP_GRAD_TOL)
     return out
 
 
@@ -4848,7 +5256,12 @@ def main() -> int:
     deepseek = phase_mla(dev)
     lap("14")
 
-    # -- 15. summary ---------------------------------------------------
+    # -- 15. the hybrid family --------------------------------------------
+    zamba2 = phase_hybrid(dev)
+    zamba2_train = zamba2["training_step"]["counts"]
+    lap("15")
+
+    # -- 16. summary ---------------------------------------------------
     log(f"kernels: swe_step launches={main_launches} "
         + " ".join(f"{k}={v}" for k, v in launches_by_mode.items())
         + f"; swe_step launches={elastic_launches} (elastic runs)"
@@ -4886,7 +5299,14 @@ def main() -> int:
         + f"; flash_attention launches="
         f"{deepseek['training_step']['counts']['fwd']}, flash_attention_bwd "
         f"launches={deepseek['training_step']['counts']['bwd']} "
-        f"(deepseek-v3 smoke training step, fp32-FMA route)")
+        f"(deepseek-v3 smoke training step, fp32-FMA route)"
+        + f"; ssd_scan launches={zamba2['ssd']}, flash_attention launches="
+        f"{zamba2['flash']} ({zamba2['flash_wgmma']} on the wgmma route; "
+        f"zamba2-7b serving)"
+        + f"; ssd_scan launches={zamba2_train['ssd_fwd']}, ssd_scan_bwd "
+        f"launches={zamba2_train['ssd_bwd']}, flash_attention launches="
+        f"{zamba2_train['fwd']}, flash_attention_bwd launches="
+        f"{zamba2_train['bwd']} (zamba2 smoke training step)")
     full, boundary = timings["full pass"], timings["boundary rows"]
     rows = [{
         "name": "swe_step", "route": "cuda",
@@ -4928,6 +5348,9 @@ def main() -> int:
         "mla_serving_wgmma192_launches": deepseek["counts"]["fwd_wgmma192"],
         "mla_smoke_training_launches":
             deepseek["training_step"]["counts"]["fwd"],
+        "hybrid_serving_launches": zamba2["flash"],
+        "hybrid_serving_wgmma_launches": zamba2["flash_wgmma"],
+        "hybrid_smoke_training_launches": zamba2_train["fwd"],
         "routes": {"bf16, d 64 and 128": "wgmma + TMA "
                    "(flash_attention_wgmma_kernel)",
                    "bf16, d 256": "wgmma + TMA, a producer warpgroup "
@@ -4943,7 +5366,10 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:74",
         "launches": ssd_launches, "training_launches": ssm_counts["fwd"],
         "pod_training_launches": pod_counts["fwd"],
-        "fsdp_training_launches": fsdp_ssm_counts["fwd"], **ssd_timing})
+        "fsdp_training_launches": fsdp_ssm_counts["fwd"],
+        "hybrid_serving_launches": zamba2["ssd"],
+        "hybrid_smoke_training_launches": zamba2_train["ssd_fwd"],
+        **ssd_timing})
     rows.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -4959,6 +5385,7 @@ def main() -> int:
         "gemma3_wgmma_launches": gemma3_train["bwd_wgmma"],
         "mla_smoke_training_launches":
             deepseek["training_step"]["counts"]["bwd"],
+        "hybrid_smoke_training_launches": zamba2_train["bwd"],
         "routes": {"bf16, d 64 and 128": "wgmma + TMA (flash_bwd_stats, "
                    "flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma)",
                    "bf16, d 256": "wgmma + TMA (flash_bwd_stats, "
@@ -4979,6 +5406,7 @@ def main() -> int:
         "launches": ssm_counts["bwd"],
         "pod_training_launches": pod_counts["bwd"],
         "fsdp_training_launches": fsdp_ssm_counts["bwd"],
+        "hybrid_smoke_training_launches": zamba2_train["ssd_bwd"],
         "ptxas": ssd_bwd_ptxas,
         **ssd_bwd_timing})
     log(json.dumps({"kernels": rows}))

@@ -1,7 +1,7 @@
 """Continuous-batching LM serving on the PyTorch port: waves of requests
 arriving mid-flight, greedy decode on the sequence-sharded KV cache (dense
-and moe families) or the fixed-size SSM state (ssm family), all tensor-parallel ranks
-stacked on one CUDA card.
+and moe families), the fixed-size SSM state (ssm family) or both (hybrid
+family), all tensor-parallel ranks stacked on one CUDA card.
 
 Requests arrive on a seeded schedule while earlier waves are still
 decoding.  Waiting requests are admitted in fixed-shape waves; each wave
@@ -9,10 +9,10 @@ is prefilled at the prompt length into KV caches that cover prompt +
 generation (or into the SSM state), and active waves then decode
 round-robin, one token per step, retiring as their (per-request, variable)
 generation targets complete.  Prefill attention runs the hand-written CUDA
-flash-attention kernel, and the ssm family's prefill the hand-written CUDA
-SSD chunked-scan kernel; the row-parallel combines, the vocab-sharded
-embedding and sampling, the K/V all-gather and the decode LSE combine run
-through ACCL-X collectives under ``--comm``.
+flash-attention kernel, and the ssm and hybrid families' prefill the
+hand-written CUDA SSD chunked-scan kernel; the row-parallel combines, the
+vocab-sharded embedding and sampling, the K/V all-gather and the decode
+LSE combine run through ACCL-X collectives under ``--comm``.
 
 On the card every prefill wave and every decode step is a captured CUDA
 graph (``--eager`` runs the same steps eagerly).  Each of the
@@ -37,6 +37,9 @@ Run:  PYTHONPATH=src python examples/serve_lm_torch.py            # card
       PYTHONPATH=src python examples/serve_lm_torch.py \
           --arch deepseek-v3-671b --layers 4 --tp 4 --batch 4 \
           --prompt-len 1024 --gen 16 --requests 4   # MLA, 256 experts
+      PYTHONPATH=src python examples/serve_lm_torch.py --arch zamba2-7b \
+          --tp 4 --batch 4 --prompt-len 1024 --gen 16 --requests 4
+                                  # 81 Mamba2 layers + a shared attention block
       PYTHONPATH=src python examples/serve_lm_torch.py --smoke --device cpu
       PYTHONPATH=src python examples/serve_lm_torch.py --smoke --device cpu \
           --comm auto --tune-db db.json --expect-plan-hits
@@ -48,9 +51,11 @@ each, mixtral-8x22b's ~5.0 GB; deepseek-v3-671b's 3 dense head layers
 ~1.2 GB each and its MoE layers ~23 GB each).  ``--layers N`` keeps the
 config's dense head layers (deepseek-v3-671b's 3) and cuts the MoE layers
 after them.  ``--arch`` takes every registered architecture whose family
-the port runs.  The ssm family's ``--prompt-len`` must
-be a multiple of its chunk (``ssm_chunk``: 128 at full width, 16 in the
-smoke config): the SSD scan takes whole chunks, and no padding is done.
+the port runs.  The ssm and hybrid families' ``--prompt-len`` must
+be a multiple of their chunk (``ssm_chunk``: 128 at full width, 16 in the
+smoke configs): the SSD scan takes whole chunks, and no padding is done.
+zamba2-7b runs at full width and depth on one card (13.3 GB of bf16
+weights).
 """
 import argparse
 import dataclasses
@@ -173,7 +178,7 @@ def run(args, log=print, sess=None) -> dict:
     ``sess`` is a session built earlier for ``model_config(args)`` (one is
     built from ``args.seed`` otherwise)."""
     cfg = model_config(args)
-    if cfg.family == "ssm" and args.prompt_len % cfg.ssm_chunk:
+    if cfg.family in ("ssm", "hybrid") and args.prompt_len % cfg.ssm_chunk:
         raise ValueError(f"--prompt-len {args.prompt_len} is not a multiple "
                          f"of {cfg.name}'s SSD chunk {cfg.ssm_chunk}")
     comm = COMMS[args.comm]

@@ -6,8 +6,9 @@ vocab) that the CPU tests use.  The port registers the architectures whose
 serving and training paths it runs: the dense family (``qwen3-8b``,
 ``command-r-plus-104b``, ``gemma3-1b`` with its local/global attention,
 ``deepseek-coder-33b``), the moe family (``mixtral-8x22b``, and
-``deepseek-v3-671b`` with its Multi-head Latent Attention) and the ssm
-family (``mamba2-130m``).
+``deepseek-v3-671b`` with its Multi-head Latent Attention), the ssm
+family (``mamba2-130m``) and the hybrid family (``zamba2-7b``: Mamba2
+groups with one weight-shared attention block).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from repro_torch.models.common import ModelConfig
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE: Dict[str, Callable[[], ModelConfig]] = {}
 
-_MODULES = ["qwen3_8b", "command_r_plus_104b", "gemma3_1b",
+_MODULES = ["zamba2_7b", "qwen3_8b", "command_r_plus_104b", "gemma3_1b",
             "deepseek_coder_33b", "mixtral_8x22b", "deepseek_v3_671b",
             "mamba2_130m"]
 _LOADED = False

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.models import ssm
+from repro_torch.models import decode, ssm
 from repro_torch.models.common import ModelConfig
 
 
@@ -31,3 +31,15 @@ def ssm_state_abstract(cfg: ModelConfig, batch: int, tp: int,
     over the stacked ranks when they divide (the JAX package's
     ``_ssm_state_abstract``)."""
     return ssm.init_ssm_state(cfg, batch, tp, "meta", n_layers)
+
+
+def hybrid_state_abstract(cfg: ModelConfig, batch: int, tp: int,
+                          max_len: int, n_shards: int) -> decode.HybridCache:
+    """The hybrid family's decode state as meta tensors: every Mamba2
+    layer's state, ``(L, tp, ...)`` as :func:`ssm_state_abstract`, and
+    the shared block's sequence-sharded KV cache of each group, ``(n_groups,
+    tp, B, ceil(max_len / n_shards), KV, hd)`` in ``cfg.dtype`` (the JAX
+    package's ``{"groups": {"ssm", "attn"}, "trailing"}`` in layer
+    order)."""
+    return decode.init_hybrid_cache(cfg, batch, max_len, n_shards, tp,
+                                    "meta")

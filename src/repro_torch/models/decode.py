@@ -1,5 +1,5 @@
-"""Serving path of the dense, moe and ssm families: prefill (build caches)
-and single-token decode, on stacked tensor-parallel ranks.
+"""Serving path of the dense, moe, ssm and hybrid families: prefill (build
+caches) and single-token decode, on stacked tensor-parallel ranks.
 
 Caches carry a leading layer axis.  The dense and moe families' are
 ``KVCache(k (L, P, B, S_shard, KV, hd), ...)`` in layer order
@@ -16,7 +16,16 @@ rope_dim), ...)``, in the same layer order.  Every cache is
 attention combines via two small ACCL-X all-reduces (the LSE trick).  The
 ssm family's are ``SSMState(conv (L, P, B, W-1, d_inner_local), h (L, P,
 B, local_heads, state, head_dim) f32)``: a fixed size, whatever the
-sequence length, sharded over heads when they divide.
+sequence length, sharded over heads when they divide.  The hybrid family's
+(zamba2) are ``HybridCache(ssm, attn)``: every Mamba2 layer's
+``SSMState`` in layer order (``(L, P, B, ...)``: each group's ``k``
+layers, then the trailing ones) and one sequence-sharded ``KVCache`` per
+run of the shared attention block (``(n_groups, P, B, S_shard, KV,
+hd)``), sharing the state's one length.  The JAX package nests the same
+tensors as ``{"groups": {"ssm": SSMState (n_groups, k, B, ...), "attn":
+KVCache (n_groups, B, S, ...)}, "trailing": SSMState (n_trailing, B,
+...)}``: its ``groups/ssm`` leaves are ``ssm[:n_groups·k]`` reshaped
+``(n_groups, k, ...)``, its ``trailing`` leaves ``ssm[n_groups·k:]``.
 
 Unlike the JAX package's functional update, :func:`prefill` and
 :func:`decode_step` write into a state's buffers (the caches, the last
@@ -35,16 +44,25 @@ from typing import NamedTuple, Union
 import torch
 
 from repro_torch.models import attention, layers, mla, moe, ssm
-from repro_torch.models.common import Runtime
-from repro_torch.models.transformer import (attention_layers, layer_params,
+from repro_torch.models.common import ModelConfig, Runtime
+from repro_torch.models.transformer import (attention_layers, hybrid_counts,
                                             positions_for,
-                                            require_ported_family)
+                                            require_ported_family,
+                                            shared_input, ssm_layers)
+
+
+class HybridCache(NamedTuple):
+    """The hybrid family's caches: every Mamba2 layer's state in layer
+    order and the shared attention block's KV cache of each group."""
+    ssm: ssm.SSMState         # conv, h: (L, P, B, ...)
+    attn: attention.KVCache   # k, v: (n_groups, P, B, S_shard, KV, hd)
 
 
 class ServeState(NamedTuple):
     # leading layer axis on every leaf: the KV caches (dense, moe), the
-    # latent caches (MLA) or the stacked SSM state (ssm)
-    caches: Union[attention.KVCache, mla.MLACache, ssm.SSMState]
+    # latent caches (MLA), the stacked SSM state (ssm) or both (hybrid)
+    caches: Union[attention.KVCache, mla.MLACache, ssm.SSMState,
+                  HybridCache]
     last_logits: torch.Tensor     # (P, B, V/tp) vocab-sharded, f32
     length: torch.Tensor          # 0-d long, on the device
 
@@ -93,10 +111,27 @@ def _decode_layer(p, x, cache, rt: Runtime, window=None):
     return _ffn(p, x + a, rt), cache
 
 
+def _ssm_walk(params, x, rt: Runtime, step):
+    """Every Mamba2 layer in layer order through ``step(p, h, i)`` (which
+    writes layer ``i``'s state), and in the hybrid family the shared block
+    through ``step(None, h, g)`` after each group ``g``: the new hidden
+    state."""
+    cfg = rt.cfg
+    k = cfg.hybrid_attn_every
+    shared_after = ({g * k + k - 1: g for g in range(hybrid_counts(cfg)[0])}
+                    if cfg.family == "hybrid" else {})
+    for i, p in enumerate(ssm_layers(params, cfg)):
+        x = step(p, x, i)
+        if i in shared_after:
+            x = step(None, x, shared_after[i])
+    return x
+
+
 def init_state(params, rt: Runtime, batch: int, max_len: int,
                device=None) -> ServeState:
     """A zero state of ``batch`` sequences with caches of ``max_len``
-    positions (dense; the ssm family's state has a fixed size), on
+    positions (the KV and latent caches; the ssm family's state has a
+    fixed size, and the hybrid family's KV caches take ``max_len``), on
     ``device`` (the parameters' by default): buffers a prefill's ``out=``
     writes into."""
     cfg = rt.cfg
@@ -104,6 +139,9 @@ def init_state(params, rt: Runtime, batch: int, max_len: int,
     if cfg.family == "ssm":
         caches = ssm.init_ssm_state(cfg, batch, rt.mesh.tp, dev,
                                     cfg.n_layers)
+    elif cfg.family == "hybrid":
+        caches = init_hybrid_cache(cfg, batch, max_len, rt.sp_size,
+                                   rt.mesh.tp, dev)
     elif cfg.use_mla:
         caches = mla.init_mla_cache(cfg, batch, max_len, rt.sp_size,
                                     cfg.dtype, rt.mesh.tp, dev, cfg.n_layers)
@@ -112,7 +150,9 @@ def init_state(params, rt: Runtime, batch: int, max_len: int,
                                          cfg.dtype, rt.mesh.tp, dev,
                                          cfg.n_layers)
     length = torch.zeros((), dtype=torch.long, device=dev)
-    if cfg.family != "ssm":
+    if cfg.family == "hybrid":
+        caches = caches._replace(attn=caches.attn._replace(length=length))
+    elif cfg.family != "ssm":
         caches = caches._replace(length=length)     # one tensor for both
     table = params["embed"]["table"]
     return ServeState(
@@ -122,11 +162,26 @@ def init_state(params, rt: Runtime, batch: int, max_len: int,
         length=length)
 
 
+def init_hybrid_cache(cfg: ModelConfig, batch: int, max_len: int,
+                      n_shards: int, tp: int, device) -> HybridCache:
+    """Zero hybrid caches: ``cfg.n_layers`` Mamba2 states and one KV cache
+    of ``max_len`` positions (cut into ``n_shards`` sequence shards) a
+    group, with a length of their own (:func:`init_state` shares the
+    state's)."""
+    return HybridCache(
+        ssm=ssm.init_ssm_state(cfg, batch, tp, device, cfg.n_layers),
+        attn=attention.init_kv_cache(cfg, batch, max_len, n_shards,
+                                     cfg.dtype, tp, device,
+                                     hybrid_counts(cfg)[0]))
+
+
 def _store(state: ServeState, last: torch.Tensor, length: torch.Tensor
            ) -> ServeState:
     state.last_logits.copy_(last)
     state.length.copy_(length)
     c = state.caches
+    if isinstance(c, HybridCache):
+        c = c.attn
     if not isinstance(c, ssm.SSMState) and c.length is not state.length:
         c.length.copy_(length)
     return state
@@ -135,10 +190,11 @@ def _store(state: ServeState, last: torch.Tensor, length: torch.Tensor
 def prefill(params, batch: dict, rt: Runtime, max_len: int,
             out: ServeState | None = None) -> ServeState:
     """Prefill ``batch["tokens"] (B, S)`` into caches of ``max_len``
-    positions (dense; the ssm family's state has a fixed size and ignores
-    ``max_len``); ``last_logits`` are the last position's.  The result is
-    written into ``out`` (:func:`init_state`'s shapes; a new state when
-    None), which is returned."""
+    positions (the ssm family's state has a fixed size and ignores
+    ``max_len``); ``last_logits`` are the last position's.  The hybrid
+    family's shared block reads the prompt's embedding beside each group's
+    output.  The result is written into ``out`` (:func:`init_state`'s
+    shapes; a new state when None), which is returned."""
     cfg = rt.cfg
     require_ported_family(cfg)
     tokens = batch["tokens"]
@@ -147,15 +203,23 @@ def prefill(params, batch: dict, rt: Runtime, max_len: int,
         out = init_state(params, rt, B, max_len)
     caches = out.caches
     x = layers.embed(params["embed"], tokens, rt)
-    if cfg.family == "ssm":
-        for i in range(cfg.n_layers):
-            p = layer_params(params["layers"], i)
-            h = layers.rms_norm(x, p["ln"], cfg.norm_eps)
-            y, (conv, hstate) = ssm.ssm_forward(p["ssm"], h, rt,
-                                                return_state=True)
-            x = x + y
-            caches.conv[i].copy_(conv)
-            caches.h[i].copy_(hstate)
+    if cfg.family in ("ssm", "hybrid"):
+        states = caches.ssm if cfg.family == "hybrid" else caches
+        positions, x_embed = positions_for(tokens), x
+
+        def step(p, h, i):
+            if p is None:       # the shared block after group i
+                sp = params["shared_attn"]
+                return h + _prefill_layer(
+                    sp["block"], shared_input(sp, h, x_embed), positions,
+                    rt, layer_cache(caches.attn, i))
+            y, (conv, hstate) = ssm.ssm_forward(
+                p["ssm"], layers.rms_norm(h, p["ln"], cfg.norm_eps), rt,
+                return_state=True)
+            states.conv[i].copy_(conv)
+            states.h[i].copy_(hstate)
+            return h + y
+        x = _ssm_walk(params, x, rt, step)
     else:
         positions = positions_for(tokens)
         for i, (p, window) in enumerate(attention_layers(params, cfg)):
@@ -169,23 +233,32 @@ def prefill(params, batch: dict, rt: Runtime, max_len: int,
 
 def decode_step(params, token: torch.Tensor, state: ServeState, rt: Runtime
                 ) -> ServeState:
-    """token: (B,) — append one token (its K/V, or the new SSM state, into
-    the caches; the logits and the advanced length into ``last_logits`` and
-    ``length``), all in ``state``'s buffers, and return ``state``."""
+    """token: (B,) — append one token (its K/V, or the new SSM state, or
+    both in the hybrid family, whose shared block reads the token's
+    embedding, into the caches; the logits and the advanced length into
+    ``last_logits`` and ``length``), all in ``state``'s buffers, and return
+    ``state``."""
     cfg = rt.cfg
     require_ported_family(cfg)
     x = layers.embed(params["embed"], token[:, None], rt)
     caches = state.caches
-    if cfg.family == "ssm":
-        for i in range(cfg.n_layers):
-            p = layer_params(params["layers"], i)
-            h = layers.rms_norm(x, p["ln"], cfg.norm_eps)
+    if cfg.family in ("ssm", "hybrid"):
+        states = caches.ssm if cfg.family == "hybrid" else caches
+        x_embed = x
+
+        def step(p, h, i):
+            if p is None:       # the shared block after group i
+                sp = params["shared_attn"]
+                return h + _decode_layer(
+                    sp["block"], shared_input(sp, h, x_embed),
+                    layer_cache(caches.attn, i), rt)[0]
             y, new = ssm.ssm_decode(
-                p["ssm"], h, ssm.SSMState(conv=caches.conv[i],
-                                          h=caches.h[i]), rt)
-            x = x + y
-            caches.conv[i].copy_(new.conv)
-            caches.h[i].copy_(new.h)
+                p["ssm"], layers.rms_norm(h, p["ln"], cfg.norm_eps),
+                ssm.SSMState(conv=states.conv[i], h=states.h[i]), rt)
+            states.conv[i].copy_(new.conv)
+            states.h[i].copy_(new.h)
+            return h + y
+        x = _ssm_walk(params, x, rt, step)
     else:
         for i, (p, window) in enumerate(attention_layers(params, cfg)):
             x, _ = _decode_layer(p, x, layer_cache(caches, i), rt, window)

@@ -25,11 +25,16 @@ TP rules (model axis), with ``tp`` the stacked rank count:
   ssm conv_x         (W, d_inner)   -> (None, 'model') if ssm heads shard
   ssm w_out          (d_inner, D)   -> ('model', None) if ssm heads shard
   ssm w_B/w_C/w_dt                  -> replicated
+  hybrid shared_attn proj_in (2D, D) -> replicated
   norms, A_log, D, dt_bias          -> replicated
-A leaf under a stack key (``_STACK_KEYS``: ``layers``, and gemma3's
-``blocks`` and ``trailing``) carries its leading stack dimensions, one, or
-two under ``blocks/local`` (``(n_blocks, r, ...)``: ``r`` local layers a
-super-block); its shards are laid out ``(*stack, P, ...)`` so that layer
+A leaf under a stack key (``_STACK_KEYS``: ``layers``, gemma3's
+``blocks`` and ``trailing``, the hybrid family's ``groups`` and
+``trailing``) carries its leading stack dimensions, one, or two under
+``blocks/local`` (``(n_blocks, r, ...)``: ``r`` local layers a
+super-block) and ``groups/ssm`` (``(n_groups, k, ...)``: ``k`` Mamba2
+layers a group); the hybrid family's ``shared_attn`` (one block used after
+every group) has none, takes the dense rules by leaf name and is never
+FSDP-cut.  A leaf's shards are laid out ``(*stack, P, ...)`` so that layer
 ``i``'s view is a stacked ``(P, ...)`` tensor.  On a ``(data, model)``
 mesh ``P = dp · tp`` and row ``p`` holds model shard ``p % tp``; every
 data rank holds a copy of the ``tp`` shards.  An MoE expert leaf's body
@@ -376,7 +381,9 @@ def from_reference(np_params: Any, cfg: ModelConfig, tp: int, device=None,
                    dp: int = 1, fsdp_dp: int = 1):
     """The JAX package's parameter tree (numpy arrays; ``layers``, or
     gemma3's ``blocks/{local,global}`` and ``trailing``, or the moe
-    family's ``layers`` and ``dense_layers``, with GQA or MLA attention;
+    family's ``layers`` and ``dense_layers``, with GQA or MLA attention,
+    or the hybrid family's ``groups/ssm``, ``trailing`` and
+    ``shared_attn``;
     an MoE tree built at the same ``tp``, its expert layout depending on
     it) -> the port's
     stacked per-rank shards on ``device`` (FSDP leaves cut over ``fsdp_dp``

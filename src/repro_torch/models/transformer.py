@@ -1,7 +1,7 @@
 """Model assembly for the dense (qwen3, command-r, deepseek-coder, and
-gemma3's 5:1 local/global attention), moe (mixtral) and ssm (mamba2)
-families: initialisation, the full forward pass (training and prefill
-logits) and the training loss, on stacked ranks.
+gemma3's 5:1 local/global attention), moe (mixtral), ssm (mamba2) and
+hybrid (zamba2) families: initialisation, the full forward pass (training
+and prefill logits) and the training loss, on stacked ranks.
 
 The JAX package scans its stacked layers with ``lax.scan``; here the
 per-layer loop is a Python loop over views of the stacked weights.  Under
@@ -14,8 +14,12 @@ moe family runs its leading ``dense_layers`` (unwindowed) and then its
 MoE ``layers`` at ``cfg.sliding_window``, one recomputed unit each that
 carries the layer's load-balance loss; under ``use_mla`` (deepseek-v3)
 every layer's attention is Multi-head Latent Attention
-(:mod:`repro_torch.models.mla`).  The other families (hybrid, VLM, audio)
-come with later slices and raise here.
+(:mod:`repro_torch.models.mla`).  The hybrid family is Zamba2's: ``groups``
+of ``hybrid_attn_every`` Mamba2 layers, each group followed by one
+weight-shared attention block (``shared_attn``: its input is
+``concat(hidden, embedding)`` projected back to ``d_model``), one
+recomputed unit a group, then the ``trailing`` Mamba2 layers.  The other
+families (VLM, audio) come with later slices and raise here.
 """
 from __future__ import annotations
 
@@ -33,12 +37,12 @@ from repro_torch.models.common import ModelConfig, Runtime
 
 def require_ported_family(cfg: ModelConfig) -> None:
     """Raise unless the port runs ``cfg``'s family: dense (local/global
-    attention included), moe (with or without MLA), or ssm."""
+    attention included), moe (with or without MLA), ssm, or hybrid."""
     if (cfg.use_mla and cfg.family != "moe") \
-            or cfg.family not in ("dense", "moe", "ssm"):
+            or cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"the port runs the dense, moe (MLA in the moe family only) and "
-            f"ssm families so far, not {cfg.name} ({cfg.family}"
+            f"the port runs the dense, moe (MLA in the moe family only), ssm "
+            f"and hybrid families so far, not {cfg.name} ({cfg.family}"
             + (", MLA" if cfg.use_mla else "") + "); see ROADMAP.md Queue 1")
 
 
@@ -54,6 +58,28 @@ def local_global_counts(cfg: ModelConfig) -> tuple[int, int]:
     super-blocks of ``r`` local layers and one global, then the rest."""
     blk = cfg.local_global_ratio + 1
     return cfg.n_layers // blk, cfg.n_layers % blk
+
+
+def hybrid_counts(cfg: ModelConfig) -> tuple[int, int]:
+    """``(n_groups, n_trailing)`` of a hybrid stack: ``L // k`` groups of
+    ``k = hybrid_attn_every`` Mamba2 layers, each followed by the shared
+    attention block, then the rest."""
+    k = cfg.hybrid_attn_every
+    return cfg.n_layers // k, cfg.n_layers % k
+
+
+def ssm_layers(params, cfg: ModelConfig) -> list:
+    """Every Mamba2 layer's weights (views) in layer order: ``layers`` in
+    the ssm family; in the hybrid family each group's ``k`` layers, then
+    the trailing layers (the shared attention block runs after layer
+    ``g·k + k - 1`` for every group ``g``)."""
+    if cfg.family == "ssm":
+        return [layer_params(params["layers"], i)
+                for i in range(cfg.n_layers)]
+    ng, nt = hybrid_counts(cfg)
+    return ([layer_params(layer_params(params["groups"], g)["ssm"], j)
+             for g in range(ng) for j in range(cfg.hybrid_attn_every)]
+            + [layer_params(params["trailing"], i) for i in range(nt)])
 
 
 def attention_layers(params, cfg: ModelConfig):
@@ -156,10 +182,13 @@ def init_model(seed: int, cfg: ModelConfig, tp: int = 1, device=None):
     depth leaves any; in the moe family ``layers`` of the ``n_layers -
     n_dense_layers`` MoE layers, expert leaves in the flattened layout of
     ``tp`` (:func:`repro_torch.models.moe.init_moe`), and ``dense_layers``
-    when the config has a dense head), drawn from ``torch.Generator(seed)`` on ``device``
-    in layer order.  The JAX package draws other numbers from the same
-    seed: to run both on the same weights, take the JAX package's
-    parameters through ``sharding.from_reference``.  ``device`` defaults to
+    when the config has a dense head; in the hybrid family ``groups`` with
+    ``ssm`` leaves ``(n_groups, k, ...)``, ``trailing`` ``(n_layers % k,
+    ...)`` and ``shared_attn = {proj_in (2·D, D), block: a dense layer}``),
+    drawn from ``torch.Generator(seed)`` on ``device`` in layer order.  The
+    JAX package draws other numbers from the same seed: to run both on the
+    same weights, take the JAX package's parameters through
+    ``sharding.from_reference``.  ``device`` defaults to
     the card (:func:`repro_torch.device.resolve_device`)."""
     require_ported_family(cfg)
     device = resolve_device(device)
@@ -173,6 +202,19 @@ def init_model(seed: int, cfg: ModelConfig, tp: int = 1, device=None):
     if cfg.family == "ssm":
         params["layers"] = _stack(lambda: init_ssm_layer(gen, cfg, device),
                                   (cfg.n_layers,))
+        return params
+    if cfg.family == "hybrid":
+        ng, nt = hybrid_counts(cfg)
+        params["groups"] = {"ssm": _stack(
+            lambda: init_ssm_layer(gen, cfg, device),
+            (ng, cfg.hybrid_attn_every))}
+        if nt:
+            params["trailing"] = _stack(
+                lambda: init_ssm_layer(gen, cfg, device), (nt,))
+        params["shared_attn"] = {
+            "proj_in": layers.dense_init(gen, 2 * cfg.d_model, cfg.d_model,
+                                         cfg.dtype, device),
+            "block": init_dense_layer(gen, cfg, tp, device)}
         return params
 
     def dense():
@@ -240,6 +282,22 @@ def moe_layer(p, x, positions, rt: Runtime, window=None):
 def ssm_block(p, x, rt: Runtime):
     return x + ssm.ssm_forward(p["ssm"], layers.rms_norm(x, p["ln"],
                                                          rt.cfg.norm_eps), rt)
+
+
+def shared_input(p, x, x_embed):
+    """The shared block's input: ``concat(hidden, embedding)`` projected
+    back to ``d_model`` by ``proj_in`` (replicated; a weight product with
+    fp32 accumulation and one rounding to x's dtype, as ``jnp.dot(...,
+    preferred_element_type=float32).astype``)."""
+    return layers.rank_matmul(torch.cat([x, x_embed], dim=-1), p["proj_in"])
+
+
+def shared_attn_fwd(p, x, x_embed, positions, rt: Runtime):
+    """Zamba2's shared block (the JAX package's ``_shared_attn_fwd``): its
+    projected input through a dense block.  The caller adds the result to
+    ``x``."""
+    return dense_block(p["block"], shared_input(p, x, x_embed), positions,
+                       rt)
 
 
 class ForwardOut(NamedTuple):
@@ -349,6 +407,34 @@ def _moe_stack(params, x, positions, rt: Runtime, train: bool):
     return x, aux
 
 
+def _hybrid_stack(params, x, positions, rt: Runtime, train: bool):
+    """Zamba2's stack: one recomputed unit a group (its FSDP gather inside
+    the unit; ``k`` Mamba2 layers, then the shared block on ``concat(h,
+    x_embed)``), then the trailing Mamba2 layers, not recomputed.  The
+    shared block's weights and the embedding are closed over: one set of
+    weights used after every group, never FSDP-gathered, its gradient the
+    sum over every use (the JAX package's hybrid branch)."""
+    cfg = rt.cfg
+    gplan = sharding.subplan(rt.fsdp_plan, "groups")
+    tplan = sharding.subplan(rt.fsdp_plan, "trailing")
+    shared, x_embed = params["shared_attn"], x
+
+    def unit(p, h):
+        p = sharding.apply_fsdp(p, gplan, rt)
+        for j in range(cfg.hybrid_attn_every):
+            h = ssm_block(layer_params(p["ssm"], j), h, rt)
+        return h + shared_attn_fwd(shared, h, x_embed, positions, rt)
+    blk = _maybe_remat(unit, rt, train)
+    ng, nt = hybrid_counts(cfg)
+    for g in range(ng):
+        x = blk(layer_params(params["groups"], g), x)
+    for i in range(nt):
+        p = sharding.apply_fsdp(layer_params(params["trailing"], i), tplan,
+                                rt)
+        x = ssm_block(p, x, rt)
+    return x
+
+
 def _layer_stack(params, x, positions, rt: Runtime, train: bool):
     """The ``layers`` stack: one recomputed block a layer, its FSDP gather
     inside the block; dense blocks under Megatron-SP when it applies."""
@@ -380,9 +466,9 @@ def forward(params, batch: dict, rt: Runtime, train: bool = False
     """Logits of every position of ``batch["tokens"]``: ``(B, S)`` the same
     on every row, or ``(P, B, S)`` per row (a batch cut over the data
     ranks).  ``train=True`` recomputes each block (each super-block under
-    local/global attention) in the backward pass when ``cfg.remat`` is
-    set; an FSDP layer's weights are gathered inside the recomputed
-    block."""
+    local/global attention, each group of the hybrid stack) in the
+    backward pass when ``cfg.remat`` is set; an FSDP layer's weights are
+    gathered inside the recomputed block."""
     cfg = rt.cfg
     require_ported_family(cfg)
     tokens = batch["tokens"]
@@ -391,7 +477,8 @@ def forward(params, batch: dict, rt: Runtime, train: bool = False
     if cfg.family == "moe":
         x, aux = _moe_stack(params, x, positions, rt, train)
     else:
-        stack = (_local_global_stack if cfg.local_global_ratio
+        stack = (_hybrid_stack if cfg.family == "hybrid"
+                 else _local_global_stack if cfg.local_global_ratio
                  else _layer_stack)
         x = stack(params, x, positions, rt, train)
         aux = torch.zeros((x.shape[0],), dtype=torch.float32,

@@ -103,11 +103,16 @@ def _tokens(t, device) -> torch.Tensor:
 
 
 def _state_buffers(state: dec.ServeState) -> list[torch.Tensor]:
+    """Every buffer of a state that a captured prefill or decode writes:
+    the caches (the hybrid family's SSM states and KV caches alike), the
+    last logits and the length."""
     c = state.caches
     if isinstance(c, attention.KVCache):
         caches = [c.k, c.v]
     elif isinstance(c, mla.MLACache):
         caches = [c.ckv, c.k_rope]
+    elif isinstance(c, dec.HybridCache):
+        caches = [c.ssm.conv, c.ssm.h, c.attn.k, c.attn.v]
     else:
         caches = [c.conv, c.h]
     return caches + [state.last_logits, state.length]
@@ -216,8 +221,9 @@ def build_serve_fn(cfg: ModelConfig, tp: int, comm, shape: isp.ShapeSpec,
       ``fn.new_state(params)`` allocates a state for ``out``;
     - decode kind: ``fn(params, token, state) -> ServeState``, ``token``
       ``(global_batch,)``, on KV or latent caches of ``cache_len(cfg,
-      shape)`` positions (dense, moe) or on the fixed-size SSM state (ssm),
-      updated in place.
+      shape)`` positions (dense, moe), on the fixed-size SSM state (ssm),
+      or on both (hybrid: every Mamba2 layer's state and the shared
+      block's KV cache of each group), updated in place.
 
     ``comm`` may be a concrete ``CommConfig`` or ``"auto"`` (per-phase
     TuneDB selection at ``tune_db_path`` by ``objective``; the resolved
@@ -248,23 +254,30 @@ def build_serve_fn(cfg: ModelConfig, tp: int, comm, shape: isp.ShapeSpec,
         raise ValueError("cache_capacity applies to the prefill builder; "
                          "a decode ShapeSpec's seq_len IS the capacity")
 
-    if cfg.family == "ssm":
+    capacity = -(-cache_len(cfg, shape) // rt.sp_size)
+
+    def check_ssm(states):
         # a fixed-size state: the sequence length does not enter it
         want = isp.ssm_state_abstract(cfg, B, tp, cfg.n_layers)
+        for got, ref in zip(states, want):
+            if got.shape != ref.shape or got.dtype != ref.dtype:
+                raise ValueError(
+                    f"decode built for SSM states of {tuple(ref.shape)} "
+                    f"{ref.dtype}, got {tuple(got.shape)} {got.dtype}")
 
+    def check_kv(caches):
+        got = (caches.seq_shard if isinstance(caches, mla.MLACache)
+               else caches.k.shape[3])
+        if got != capacity:
+            raise ValueError(f"decode built for caches of {capacity} "
+                             f"positions per shard, got {got}")
+
+    if cfg.family == "ssm":
+        check_caches = check_ssm
+    elif cfg.family == "hybrid":
         def check_caches(caches):
-            for got, ref in zip(caches, want):
-                if got.shape != ref.shape or got.dtype != ref.dtype:
-                    raise ValueError(
-                        f"decode built for SSM states of {tuple(ref.shape)} "
-                        f"{ref.dtype}, got {tuple(got.shape)} {got.dtype}")
+            check_ssm(caches.ssm)
+            check_kv(caches.attn)
     else:
-        capacity = -(-cache_len(cfg, shape) // rt.sp_size)
-
-        def check_caches(caches):
-            got = (caches.seq_shard if isinstance(caches, mla.MLACache)
-                   else caches.k.shape[3])
-            if got != capacity:
-                raise ValueError(f"decode built for caches of {capacity} "
-                                 f"positions per shard, got {got}")
+        check_caches = check_kv
     return rt, _Decode(rt, B, check_caches, dev, captured)

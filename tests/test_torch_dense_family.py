@@ -289,7 +289,8 @@ def test_configs_match_jax(ref, arch, width):
 
 def test_list_archs_names_the_ported_archs():
     assert list_archs() == sorted(ARCHS + ("deepseek-v3-671b", "mamba2-130m",
-                                           "mixtral-8x22b", "qwen3-8b"))
+                                           "mixtral-8x22b", "qwen3-8b",
+                                           "zamba2-7b"))
 
 
 @pytest.mark.parametrize("tp,dp,fsdp_dp", [(4, 1, 1), (4, 2, 2)])
